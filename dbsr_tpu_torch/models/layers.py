@@ -1,0 +1,121 @@
+"""Building blocks (port of ``dbsr_tpu/models/layers.py``).
+
+Modules take and return channels-last ``[B, H, W, C]`` tensors, as the JAX
+package does; each conv runs on the NCHW view of its input (a
+``channels_last`` tensor for PyTorch) and returns to NHWC. Submodules carry
+the JAX package's parameter names (``ConvBlock_0``, ``Conv_0``, ...), so a
+flax parameter path maps to a ``state_dict`` key by joining with dots (see
+``utils/convert.py``).
+
+Padding follows the JAX code: ``SAME`` for stride 1 (a dilated 3x3 pads by
+its dilation) and an explicit ``(1, 1)`` for the stride-2 convs, which is
+``dilation * (k // 2)`` on each side in every case here.
+
+The s2d decoder form of the JAX package is a TPU re-layout of the same
+convs with the same parameters; the port runs the decoder at fine
+resolution.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dbsr_tpu_torch.ops.filtering import gauss_2d
+
+
+def get_activation(name: str) -> Optional[Callable]:
+    if name == "relu":
+        return F.relu
+    if name == "lrelu":
+        return lambda x: F.leaky_relu(x, 0.1)
+    if name == "none":
+        return None
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """Apply ``conv`` to a channels-last ``[B, H, W, C]`` tensor."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class ConvBlock(nn.Module):
+    """conv (+ activation)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, dilation: int = 1, use_bias: bool = True,
+                 activation: str = "relu"):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_features, features, kernel_size,
+                                stride=stride,
+                                padding=dilation * (kernel_size // 2),
+                                dilation=dilation, bias=use_bias)
+        self.act = get_activation(activation)
+
+    def forward(self, x):
+        x = conv_nhwc(self.Conv_0, x)
+        return self.act(x) if self.act is not None else x
+
+
+class ResBlock(nn.Module):
+    """Post-activation residual block: ``act(conv-act-conv(x) + x)``."""
+
+    def __init__(self, features: int, activation: str = "relu"):
+        super().__init__()
+        self.ConvBlock_0 = ConvBlock(features, features, 3,
+                                     activation=activation)
+        self.ConvBlock_1 = ConvBlock(features, features, 3, activation="none")
+        self.act = get_activation(activation)
+
+    def forward(self, x):
+        return self.act(self.ConvBlock_1(self.ConvBlock_0(x)) + x)
+
+
+def pixel_shuffle(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Channels-last pixel shuffle with torch's channel convention
+    (equal to ``F.pixel_shuffle`` on the NCHW view):
+    ``out[..., h*r+i, w*r+j, c] = in[..., h, w, c*r*r + i*r + j]``."""
+    B, H, W, C = x.shape
+    if C % (r * r):
+        raise ValueError(f"pixel_shuffle: C={C} not divisible by {r * r}")
+    c = C // (r * r)
+    x = x.reshape(B, H, W, c, r, r).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(B, H * r, W * r, c)
+
+
+class PixShuffleUpsampler(nn.Module):
+    """1x1 conv to ``features * r^2`` -> activation -> pixel shuffle x r ->
+    optional depthwise Gaussian blur (zero padding)."""
+
+    def __init__(self, in_features: int, features: int,
+                 upsample_factor: int = 2, activation: str = "relu",
+                 icnrinit: bool = False, gauss_blur_sd: Optional[float] = None,
+                 gauss_ksz: int = 3):
+        super().__init__()
+        r = upsample_factor
+        self.r = r
+        self.Conv_0 = nn.Conv2d(in_features, features * r * r, 1,
+                                bias=not icnrinit)
+        self.act = get_activation(activation)
+        if gauss_blur_sd is not None:
+            k = gauss_2d(gauss_ksz, gauss_blur_sd, (0.0, 0.0), density=True)[0]
+            self.register_buffer("blur", (k / k.sum())[None, None],
+                                 persistent=False)
+        else:
+            self.blur = None
+
+    def forward(self, x):
+        x = conv_nhwc(self.Conv_0, x)
+        if self.act is not None:
+            x = self.act(x)
+        x = pixel_shuffle(x, self.r)
+        if self.blur is not None:
+            C = x.shape[-1]
+            k = self.blur.to(x.dtype).expand(C, 1, -1, -1)
+            x = F.conv2d(x.permute(0, 3, 1, 2), k,
+                         padding=self.blur.shape[-1] // 2,
+                         groups=C).permute(0, 2, 3, 1)
+        return x

@@ -1,0 +1,134 @@
+"""Where the serving forward's device time goes, on one CUDA card.
+
+    python -m dbsr_tpu_torch.profile_serving
+
+Loads the banked flagship checkpoint at full width into the predictor
+(batch 8; float32, TF32 off), warms up, then traces three forwards with
+``torch.profiler``.
+Prints the device time by kernel (top 15), grouped into the port's own
+kernels, convolutions and the rest, and the device's busy share of the
+traced wall time; the last line is the same as one JSON object.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, load_predictor
+
+BATCH, FORWARDS = 8, 3
+OWN_KERNELS = ("warp_kernel", "correlation_kernel", "merge_kernel")
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    if any(k in name for k in OWN_KERNELS):
+        return "port kernels (warp, correlation, merge)"
+    if "nchwToNhwc" in name or "nhwcToNchw" in name:
+        return "layout transposes (cuDNN NCHW <-> NHWC)"
+    if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "gemm",
+                              "winograd", "fft", "pointwise_mult_and_sum")):
+        return "convolution (cuDNN)"
+    return "other (elementwise, copies, cat, pad, gather)"
+
+
+def _kernel_us(evt) -> float:
+    """Device time of a kernel row of ``key_averages()``; 0 for host rows
+    (operators, runtime calls), whose device totals repeat their kernels'."""
+    if evt.device_type != DeviceType.CUDA:
+        return 0.0
+    return float(evt.self_device_time_total)
+
+
+def conv_flops(pred, x: torch.Tensor) -> int:
+    """Operations of every ``nn.Conv2d`` in one forward of the predictor
+    ``pred`` on ``x`` (2 per multiply-add), counted from the shapes by
+    forward hooks."""
+    total = 0
+
+    def hook(mod, _inp, out):
+        nonlocal total
+        kh, kw = mod.kernel_size
+        total += 2 * out.numel() * (mod.in_channels // mod.groups) * kh * kw
+
+    hooks = [m.register_forward_hook(hook) for m in pred.net.modules()
+             if isinstance(m, torch.nn.Conv2d)]
+    try:
+        pred.forward(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serving: CUDA is not available")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+
+    pred = load_predictor(FLAGSHIP_CHECKPOINT, batch_size=BATCH,
+                          device="cuda")
+    x = torch.from_numpy(np.random.RandomState(0).rand(
+        BATCH, 14, 48, 48, 4).astype(np.float32)).cuda()
+    flops = conv_flops(pred, x)
+    for _ in range(3):
+        pred.forward(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(FORWARDS):
+            pred.forward(x)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    rows = [(e.key, _kernel_us(e), e.count) for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    groups = defaultdict(float)
+    for name, us, _ in rows:
+        groups[_group(name)] += us
+    per_fwd = FORWARDS
+    if busy_us == 0:
+        raise SystemExit("profile_serving: the trace holds no device time")
+    print(card)
+    print(f"batch {BATCH}, {per_fwd} forwards traced: wall "
+          f"{wall_us / per_fwd / 1e3:.2f} ms/forward, device busy "
+          f"{busy_us / per_fwd / 1e3:.2f} ms/forward "
+          f"({100 * busy_us / wall_us:.1f}% of wall)")
+    for g, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"  {g}: {us / per_fwd / 1e3:.3f} ms/forward "
+              f"({100 * us / busy_us:.1f}%)")
+    conv_ms = max(groups["convolution (cuDNN)"] / per_fwd / 1e3, 1e-9)
+    # ^ conv math only: the layout transposes are a group of their own
+    print(f"conv operations per forward {flops / 1e9:.1f} GFLOP: "
+          f"{flops / conv_ms / 1e9:.2f} TFLOP/s achieved in the conv kernels; "
+          f"{flops / 67e12 * 1e3:.2f} ms at the 67 TFLOP/s float32 peak")
+    print("top kernels (ms/forward, launches/forward):")
+    for name, us, n in rows[:15]:
+        print(f"  {us / per_fwd / 1e3:8.3f}  {n / per_fwd:6.1f}  {name[:100]}")
+    out = {"card": card, "batch": BATCH, "forwards": per_fwd,
+           "wall_ms_per_forward": wall_us / per_fwd / 1e3,
+           "device_busy_ms_per_forward": busy_us / per_fwd / 1e3,
+           "conv_gflop_per_forward": flops / 1e9,
+           "groups_ms_per_forward": {g: us / per_fwd / 1e3
+                                     for g, us in groups.items()},
+           "top": [{"name": n, "ms_per_forward": us / per_fwd / 1e3,
+                    "launches_per_forward": c / per_fwd}
+                   for n, us, c in rows[:40]]}
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,1 @@
+"""Checkpoint reading of the port (training itself is not ported yet)."""
