@@ -8,11 +8,13 @@ result line):
 1. environment: torch / CUDA versions, the card's name and power limit;
    the predictor's forward runs its convs and matmuls with TF32 off
    (float32), which the script checks by leaving PyTorch's defaults on;
-2. build the three CUDA kernels from ``dbsr_tpu_torch/kernels/csrc``
-   (one ``nvcc`` per source, all started together);
+2. build the seven CUDA kernels (six sources) from
+   ``dbsr_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, all started
+   together);
 3. each kernel against its plain PyTorch version on the card, float32, at
-   the shapes the serving forward gives it, inputs from a fixed seed; times
-   of the kernel, the plain version and (warp only) ``F.grid_sample`` as a
+   the shapes the serving forward gives it (B=8, N=14) and at those the
+   train step gives it (B=16, N=8), inputs from a fixed seed; times of the
+   kernel, the plain version and (warp only) ``F.grid_sample`` as a
    library yardstick, by CUDA events, median of several runs after warm-up;
 4. serving: ``load_predictor`` on the banked flagship checkpoint (full
    width, batch 8, 14 frames, 48x48 -> 384x384) answers three requests
@@ -20,17 +22,43 @@ result line):
    before and read just after; each kernel must have launched exactly as
    often as its call sites in three forwards ask;
 5. the card's forward (kernels) against the CPU forward (plain versions) on
-   one burst with the same parameters.
+   one burst with the same parameters;
+6. the training path's kernels against their plain versions on the card,
+   float32, at the shapes the train step gives them (B=16, N=8): the
+   affine resample (fused and strict synthesis), the warp's d_feat and
+   d_flow (flows up to +-5 px, some on exact integers; also AlignLite's
+   backwarp shapes) and the merge backward, each also against
+   ``torch.autograd.grad`` of the plain forward; times of the kernel, the
+   plain version and one PyTorch library call (``F.grid_sample`` and its
+   autograd: for d_feat with respect to the input alone, for d_flow with
+   respect to both) as a yardstick;
+7. training: (a) one train step of the banked flagship at B=1, N=8 on the
+   card against the same step on the CPU (loss and every gradient);
+   (b) ``run_training("dbsr", "default_synthetic", ...)`` for one epoch of
+   20 steps at B=16, then again for a second epoch, resumed from the
+   first, with the launch counters reset just before each run and read
+   just after: each kernel must have launched exactly as often per train
+   step as the step asks; (c) 20 Adam steps on one fixed batch from a fresh
+   network with the grafted aligner (the loss must fall), timed by CUDA
+   events, with peak memory; (d) a ``torch.profiler`` trace of three train
+   steps, device time by group.
 
-The second-to-last line is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+The second-to-last line is ``{"kernels": [...]}`` (all seven kernels); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import io
 import json
+import math
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -45,6 +73,23 @@ LAUNCHES_PER_FORWARD = {"warp": 3, "correlation": 3, "merge": 1}
 FRAMES = B * (N - 1)
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6   # vs plain on the card: sum order only
 CARD_VS_CPU_TOL = 1e-3                  # [0, 1] output, whole network
+
+# training: default_synthetic's batch of 16 8-frame bursts, 48x48 packed
+TRAIN_B, TRAIN_N = 16, 8
+TRAIN_FRAMES = TRAIN_B * (TRAIN_N - 1)
+# launches per train step: the forward's (resample for the synthesis), the
+# warp's d_feat and the merge backward; d_flow never (the flow comes from
+# the frozen aligner, without gradient)
+LAUNCHES_PER_TRAIN_STEP = {"resample": 1, "warp": 3, "correlation": 3,
+                           "merge": 1, "warp_dfeat": 1, "warp_dflow": 0,
+                           "merge_backward": 1}
+GRAD_TOL = 1e-3    # ||g_card - g_cpu||_2 <= GRAD_TOL ||g_cpu||_2, all grads
+LOSS_RTOL = 1e-5   # card vs CPU loss of one train step
+# run_training's cuts against default_synthetic (1000 steps x 100 epochs,
+# a pool of 2048 sources; val every 5 epochs, so no val pass here)
+SMOKE_SETTINGS = dict(steps_per_epoch=20, pool_size=128, print_interval=5)
+ALIGN_LITE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "dbsr_tpu", "artifacts", "align_lite_params.ckpt")
 
 
 def log(*a):
@@ -84,11 +129,14 @@ def check_close(name, got, want):
 
 
 def kernel_phase(dev, g):
+    """Phase 3: the three forward kernels against their plain versions at the
+    serving forward's shapes (B=8, N=14; the entry's rows, summed per
+    forward) and at the train step's (B=16, N=8; listed apart)."""
     from dbsr_tpu_torch.ops.correlation import (NUM_OFFSETS,
                                                 correlation_plain, cost_volume)
     from dbsr_tpu_torch.ops.merge import (fused_softmax_merge,
                                           fused_softmax_merge_plain)
-    from dbsr_tpu_torch.ops.warp import warp_feat, warp_feat_plain
+    from dbsr_tpu_torch.ops.warp import base_grid, warp_feat, warp_feat_plain
 
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
@@ -98,101 +146,551 @@ def kernel_phase(dev, g):
         f[:, ::7] = torch.round(f[:, ::7])  # and taps on exact pixel centres
         return f.contiguous()
 
+    def warp_rows(frames):
+        # the 512-channel feature warp, then AlignLite's two backwarps
+        rows = []
+        for s in ((frames, HW, HW, 512), (frames, HW // 2, HW // 2, 48),
+                  (frames, HW, HW, 24)):
+            feat, fl = randn(*s), flow(*s[:3])
+            err = check_close(f"warp {list(s)}", warp_feat(feat, fl),
+                              warp_feat_plain(feat, fl))
+            # yardstick: grid_sample with the grid equal to p + flow
+            grid = _grid_sample_grid(base_grid(s[1], s[2], dev) + fl, s[1],
+                                     s[2])
+            nchw = feat.permute(0, 3, 1, 2)
+            lib = F.grid_sample(nchw, grid, align_corners=False,
+                                padding_mode="zeros").permute(0, 2, 3, 1)
+            log(f"  warp {list(s)} grid_sample vs plain (info only): "
+                f"{(lib - warp_feat_plain(feat, fl)).abs().max().item():.3e}")
+            bms, by = bound((2 * feat.numel() + fl.numel()) * 4,
+                            7 * feat.numel())
+            rows.append(dict(
+                shape=list(s), max_abs_err=err,
+                ms=cuda_ms(lambda: warp_feat(feat, fl)),
+                plain_ms=cuda_ms(lambda: warp_feat_plain(feat, fl), 1, 3),
+                library_ms=cuda_ms(lambda: F.grid_sample(
+                    nchw, grid, align_corners=False, padding_mode="zeros")),
+                bound_ms=bms, bound_by=by))
+            del feat, fl, lib, grid, nchw
+        return rows
+
+    def correlation_rows(frames):
+        # AlignLite's three levels
+        rows = []
+        for s in ((frames, HW // 4, HW // 4, 96),
+                  (frames, HW // 2, HW // 2, 48), (frames, HW, HW, 24)):
+            a, b = randn(*s), randn(*s)
+            err = check_close(f"correlation {list(s)}", cost_volume(a, b),
+                              correlation_plain(a, b))
+            npix = s[0] * s[1] * s[2]
+            bms, by = bound((2 * a.numel() + npix * NUM_OFFSETS) * 4,
+                            2 * NUM_OFFSETS * a.numel())
+            rows.append(dict(
+                shape=list(s), max_abs_err=err,
+                ms=cuda_ms(lambda: cost_volume(a, b)),
+                plain_ms=cuda_ms(lambda: correlation_plain(a, b), 1, 3),
+                library_ms=None, bound_ms=bms, bound_by=by))
+        return rows
+
+    def merge_rows(b, n):
+        s = (b, n, HW, HW, 512)
+        feat, logits = randn(*s), randn(*s, scale=3.0)
+        err = check_close(f"merge {list(s)}", fused_softmax_merge(feat, logits),
+                          fused_softmax_merge_plain(feat, logits))
+        bms, by = bound((2 * feat.numel() + feat.numel() // n) * 4,
+                        6 * feat.numel())
+        return [dict(
+            shape=list(s), max_abs_err=err,
+            ms=cuda_ms(lambda: fused_softmax_merge(feat, logits)),
+            plain_ms=cuda_ms(lambda: fused_softmax_merge_plain(feat, logits),
+                             1, 3),
+            library_ms=None, bound_ms=bms, bound_by=by)]
+
+    csrc = "dbsr_tpu_torch/kernels/csrc/"
+    return [
+        _entry("warp", csrc + "warp.cu", "dbsr_tpu/ops/warp_pallas.py:118",
+               warp_rows(FRAMES), warp_rows(TRAIN_FRAMES)),
+        _entry("correlation", csrc + "correlation.cu",
+               "dbsr_tpu/ops/correlation.py:85", correlation_rows(FRAMES),
+               correlation_rows(TRAIN_FRAMES)),
+        _entry("merge", csrc + "merge.cu", "dbsr_tpu/ops/merge_pallas.py:78",
+               merge_rows(B, N), merge_rows(TRAIN_B, TRAIN_N))]
+
+
+def _entry(name, source, replaces, rows, other_rows=()):
+    """A kernel line entry from its rows at the shapes of one pass of its
+    path (their sum: one forward's or one train step's worth of each time)
+    and its rows at other shapes (checked and timed, listed apart)."""
+    e = dict(name=name, route="cuda", source=source, replaces=replaces,
+             shape=[r["shape"] for r in rows], per_shape=rows)
+    for k in ("ms", "plain_ms", "bound_ms"):
+        e[k] = sum(r[k] for r in rows)
+    libs = [r["library_ms"] for r in rows]
+    e["library_ms"] = sum(libs) if None not in libs else None
+    e["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    if all("err_vs_autograd" in r for r in rows):
+        e["max_err_vs_autograd"] = max(r["err_vs_autograd"] for r in rows)
+    e["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                     else "operations")
+    e["other_shapes"] = list(other_rows)
+    return e
+
+
+def _grid_sample_grid(coords, H, W):
+    """Pixel (x, y) sampling positions -> ``F.grid_sample``'s normalised
+    grid (``align_corners=False``: pixel centres at integers)."""
+    return torch.stack([(2 * coords[..., 0] + 1) / W - 1,
+                        (2 * coords[..., 1] + 1) / H - 1], dim=-1)
+
+
+def backward_kernel_phase(dev, g):
+    """Phase 6: the training path's four kernels against their plain
+    versions (and autograd of the plain forward) at its shapes."""
+    from dbsr_tpu_torch.data.synthetic import (BurstConfig, burst_transforms,
+                                               sample_draws)
+    from dbsr_tpu_torch.ops.interp import apply_affine_to_points, invert_2x3
+    from dbsr_tpu_torch.ops.merge import (fused_softmax_merge_backward_plain,
+                                          fused_softmax_merge_plain,
+                                          merge_backward)
+    from dbsr_tpu_torch.ops.resample import (affine_resample,
+                                             affine_resample_plain,
+                                             fine_grid)
+    from dbsr_tpu_torch.ops.warp import (base_grid, warp_dfeat,
+                                         warp_dfeat_plain, warp_dflow,
+                                         warp_dflow_plain, warp_feat,
+                                         warp_feat_backward_plain,
+                                         warp_feat_plain)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
     results = []
 
-    # warp: the 512-channel feature warp, then AlignLite's two backwarps
-    shapes = [(FRAMES, HW, HW, 512), (FRAMES, HW // 2, HW // 2, 48),
-              (FRAMES, HW, HW, 24)]
-    entry = dict(name="warp", route="cuda",
-                 source="dbsr_tpu_torch/kernels/csrc/warp.cu",
-                 replaces="dbsr_tpu/ops/warp_pallas.py:118",
-                 tpu_counterpart="warp_pallas.py:_warp_pallas_impl",
-                 shape=[list(s) for s in shapes], ms=0.0, plain_ms=0.0,
-                 bound_ms=0.0, library_ms=None, max_abs_err=0.0, per_shape=[])
-    for s in shapes:
-        feat, fl = randn(*s), flow(*s[:3])
-        got = warp_feat(feat, fl)
-        err = check_close(f"warp {list(s)}", got, warp_feat_plain(feat, fl))
-        ms = cuda_ms(lambda: warp_feat(feat, fl))
-        plain = cuda_ms(lambda: warp_feat_plain(feat, fl), 1, 3)
-        nb = (2 * feat.numel() + fl.numel()) * 4
-        bms, by = bound(nb, 7 * feat.numel())
-        row = dict(shape=list(s), ms=ms, plain_ms=plain, bound_ms=bms,
-                   bound_by=by, max_abs_err=err, library_ms=None)
-        # yardstick: grid_sample with the grid equal to p + flow
-        H, W = s[1], s[2]
-        xs = torch.arange(W, device=dev, dtype=torch.float32)
-        ys = torch.arange(H, device=dev, dtype=torch.float32)
-        gx = (2 * (xs[None, None, :] + fl[..., 0]) + 1) / W - 1
-        gy = (2 * (ys[None, :, None] + fl[..., 1]) + 1) / H - 1
-        grid = torch.stack([gx, gy], -1)
-        nchw = feat.permute(0, 3, 1, 2)
+    # resample: fused (d=4, border 24; default_synthetic's path) and strict
+    # (d=1) synthesis of a batch, affines drawn as default_synthetic draws
+    # them
+    cfg = BurstConfig(fused_resample=True)
+    H, W = cfg.pre_crop_sz
+    images = torch.rand(TRAIN_B, H, W, 3, generator=g, device=dev)
+    invs = invert_2x3(burst_transforms(sample_draws(g, TRAIN_B, cfg), (H, W),
+                                       cfg)).contiguous()
+    rows = []
+    d_lr = cfg.downsample_factor
+    for out_hw, d, border in (((cfg.crop_sz[0] // d_lr, cfg.crop_sz[1] // d_lr),
+                               d_lr, cfg.border_crop), ((H, W), 1, 0)):
+        args = (images, invs, out_hw, d, border)
+        got = affine_resample(*args)
+        err = check_close(f"resample d={d} border={border}", got,
+                          affine_resample_plain(*args))
+        coords = apply_affine_to_points(invs, fine_grid(out_hw, d, border,
+                                                        dev))
+        grid = _grid_sample_grid(coords, H, W).reshape(
+            TRAIN_B, TRAIN_N * out_hw[0], out_hw[1], 2)
+        nchw = images.permute(0, 3, 1, 2)
         lib = F.grid_sample(nchw, grid, align_corners=False,
-                            padding_mode="zeros").permute(0, 2, 3, 1)
-        log(f"  warp {list(s)} grid_sample vs plain (info only): "
-            f"{(lib - warp_feat_plain(feat, fl)).abs().max().item():.3e}")
-        row["library_ms"] = cuda_ms(lambda: F.grid_sample(
-            nchw, grid, align_corners=False, padding_mode="zeros"))
-        entry["per_shape"].append(row)
-        del feat, fl, got
-    results.append(entry)
+                            padding_mode="zeros")
+        log(f"  resample d={d} grid_sample vs plain (info only): "
+            f"{(lib.permute(0, 2, 3, 1).reshape(got.shape) - got).abs().max().item():.3e}")
+        nb = (images.numel() + invs.numel() + got.numel()) * 4
+        bms, by = bound(nb, got.numel() // 3 * (20 + 8 * 3))
+        rows.append(dict(
+            shape=[list(images.shape), list(got.shape)], max_abs_err=err,
+            ms=cuda_ms(lambda: affine_resample(*args)),
+            plain_ms=cuda_ms(lambda: affine_resample_plain(*args), 1, 3),
+            library_ms=cuda_ms(lambda: F.grid_sample(
+                nchw, grid, align_corners=False, padding_mode="zeros")),
+            bound_ms=bms, bound_by=by))
+        del got, lib, grid, coords
+    results.append(_entry("resample", "dbsr_tpu_torch/kernels/csrc/resample.cu",
+                          "dbsr_tpu/ops/resample_pallas.py:121", rows[:1],
+                          rows[1:]))
+    del images
 
-    # correlation at AlignLite's three levels
-    shapes = [(FRAMES, HW // 4, HW // 4, 96), (FRAMES, HW // 2, HW // 2, 48),
-              (FRAMES, HW, HW, 24)]
-    entry = dict(name="correlation", route="cuda",
-                 source="dbsr_tpu_torch/kernels/csrc/correlation.cu",
-                 replaces="dbsr_tpu/ops/correlation.py:85",
-                 tpu_counterpart="correlation.py:_correlation_pallas_fwd_impl",
-                 shape=[list(s) for s in shapes], ms=0.0, plain_ms=0.0,
-                 bound_ms=0.0, library_ms=None, max_abs_err=0.0, per_shape=[])
-    for s in shapes:
-        a, b = randn(*s), randn(*s)
-        err = check_close(f"correlation {list(s)}", cost_volume(a, b),
-                          correlation_plain(a, b))
-        ms = cuda_ms(lambda: cost_volume(a, b))
-        plain = cuda_ms(lambda: correlation_plain(a, b), 1, 3)
-        npix = s[0] * s[1] * s[2]
-        bms, by = bound((2 * a.numel() + npix * NUM_OFFSETS) * 4,
-                        2 * NUM_OFFSETS * a.numel())
-        entry["per_shape"].append(dict(shape=list(s), ms=ms, plain_ms=plain,
-                                       bound_ms=bms, bound_by=by,
-                                       max_abs_err=err, library_ms=None))
-    results.append(entry)
+    # warp backward: the encoder's 512-channel warp, then AlignLite's two
+    # backwarp shapes (the aligner's own training, not this path)
+    rows_dfeat, rows_dflow = [], []
+    for s in ((TRAIN_FRAMES, 48, 48, 512), (TRAIN_FRAMES, 24, 24, 48),
+              (TRAIN_FRAMES, 48, 48, 24)):
+        feat, gout = randn(*s), randn(*s)
+        fl = torch.rand(s[0], s[1], s[2], 2, generator=g, device=dev) * 10 - 5
+        fl[:, ::5] = torch.round(fl[:, ::5])  # taps on exact pixel centres
+        fl = fl.contiguous()
+        want_df, want_dfl = warp_feat_backward_plain(feat, fl, gout)
+        xs = (feat.clone().requires_grad_(True), fl.clone().requires_grad_(True))
+        auto_df, auto_dfl = torch.autograd.grad(warp_feat_plain(*xs), xs, gout)
+        got_df, got_dfl = warp_dfeat(fl, gout), warp_dflow(feat, fl, gout)
+        errs = [check_close(f"warp d_feat {list(s)}", got_df, want_df),
+                check_close(f"warp d_feat {list(s)} vs autograd", got_df,
+                            auto_df),
+                check_close(f"warp d_flow {list(s)}", got_dfl, want_dfl),
+                check_close(f"warp d_flow {list(s)} vs autograd", got_dfl,
+                            auto_dfl)]
+        del want_df, want_dfl, auto_df, auto_dfl, xs
+        # the library yardsticks, autograd through grid_sample: d_feat's
+        # asks for the input's gradient alone (the grid needs none);
+        # d_flow's, for both (the whole warp backward: PyTorch has no call
+        # for the grid's gradient alone)
+        nchw = feat.permute(0, 3, 1, 2).detach().requires_grad_(True)
+        grid = _grid_sample_grid(base_grid(s[1], s[2], dev) + fl, s[1], s[2])
+        grid_req = grid.detach().requires_grad_(True)
+        out_feat = F.grid_sample(nchw, grid, align_corners=False,
+                                 padding_mode="zeros")
+        out_both = F.grid_sample(nchw, grid_req, align_corners=False,
+                                 padding_mode="zeros")
+        g_nchw = gout.permute(0, 3, 1, 2)
+        n, nf = feat.numel(), fl.numel()
+        bms, by = bound((2 * n + nf) * 4, 8 * n)
+        rows_dfeat.append(dict(
+            shape=list(s), max_abs_err=errs[0], err_vs_autograd=errs[1],
+            ms=cuda_ms(lambda: warp_dfeat(fl, gout)),
+            plain_ms=cuda_ms(lambda: warp_dfeat_plain(fl, gout), 1, 3),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                out_feat, nchw, g_nchw, retain_graph=True)),
+            bound_ms=bms, bound_by=by))
+        bms, by = bound((2 * n + 2 * nf) * 4, 20 * n)
+        rows_dflow.append(dict(
+            shape=list(s), max_abs_err=errs[2], err_vs_autograd=errs[3],
+            ms=cuda_ms(lambda: warp_dflow(feat, fl, gout)),
+            plain_ms=cuda_ms(lambda: warp_dflow_plain(feat, fl, gout), 1, 3),
+            library_ms=cuda_ms(lambda: torch.autograd.grad(
+                out_both, (nchw, grid_req), g_nchw, retain_graph=True)),
+            bound_ms=bms, bound_by=by))
+        del feat, gout, fl, nchw, grid, grid_req, out_feat, out_both
+    # the encoder's warp alone is on the train step
+    results.append(_entry("warp_dfeat", "dbsr_tpu_torch/kernels/csrc/warp_bwd.cu",
+                          "dbsr_tpu/ops/warp_pallas.py:178", rows_dfeat[:1],
+                          rows_dfeat[1:]))
+    results.append(_entry("warp_dflow", "dbsr_tpu_torch/kernels/csrc/warp_bwd.cu",
+                          "dbsr_tpu/ops/warp_pallas.py:219", rows_dflow[:1],
+                          rows_dflow[1:]))
 
-    # merge
-    s = (B, N, HW, HW, 512)
+    # the Function on the card: d_flow only when the flow needs a gradient
+    feat = randn(TRAIN_B, 48, 48, 512).requires_grad_(True)
+    fl = (torch.rand(TRAIN_B, 48, 48, 2, generator=g, device=dev)
+          * 10 - 5)
+    gout = randn(*feat.shape)
+    for flow_grad in (False, True):
+        feat.grad = None
+        f = fl.clone().requires_grad_(flow_grad)
+        before = warp_dflow.launches
+        warp_feat(feat, f).backward(gout)
+        torch.cuda.synchronize()
+        if warp_dflow.launches - before != int(flow_grad):
+            raise AssertionError(f"warp Function: d_flow launched "
+                                 f"{warp_dflow.launches - before} times with "
+                                 f"flow requires_grad={flow_grad}")
+        want_df, want_dfl = warp_feat_backward_plain(feat.detach(), fl, gout)
+        check_close(f"warp Function d_feat (flow grad {flow_grad})",
+                    feat.grad, want_df)
+        if flow_grad:
+            check_close("warp Function d_flow", f.grad, want_dfl)
+    del feat, fl, gout, f, want_df, want_dfl
+
+    # merge backward at the training merge's shape
+    s = (TRAIN_B, TRAIN_N, 48, 48, 512)
     feat, logits = randn(*s), randn(*s, scale=3.0)
-    entry = dict(name="merge", route="cuda",
-                 source="dbsr_tpu_torch/kernels/csrc/merge.cu",
-                 replaces="dbsr_tpu/ops/merge_pallas.py:78",
-                 tpu_counterpart="merge_pallas.py:_merge_fwd_impl",
-                 shape=[list(s)], ms=0.0, plain_ms=0.0, bound_ms=0.0,
-                 library_ms=None, max_abs_err=0.0, per_shape=[])
-    err = check_close(f"merge {list(s)}", fused_softmax_merge(feat, logits),
-                      fused_softmax_merge_plain(feat, logits))
-    ms = cuda_ms(lambda: fused_softmax_merge(feat, logits))
-    plain = cuda_ms(lambda: fused_softmax_merge_plain(feat, logits), 1, 3)
-    bms, by = bound((2 * feat.numel() + feat.numel() // N) * 4,
-                    6 * feat.numel())
-    entry["per_shape"].append(dict(shape=list(s), ms=ms, plain_ms=plain,
-                                   bound_ms=bms, bound_by=by, max_abs_err=err,
-                                   library_ms=None))
-    results.append(entry)
-    del feat, logits
-
-    # one forward's worth of each kernel: the sum over its main-path shapes
-    for e in results:
-        rows = e["per_shape"]
-        for k in ("ms", "plain_ms", "bound_ms"):
-            e[k] = sum(r[k] for r in rows)
-        if all(r["library_ms"] is not None for r in rows):
-            e["library_ms"] = sum(r["library_ms"] for r in rows)
-        e["max_abs_err"] = max(r["max_abs_err"] for r in rows)
-        e["max_err_vs_plain"] = e["max_abs_err"]
-        e["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in rows)
-                         else "operations")
+    gout = randn(TRAIN_B, 48, 48, 512)
+    got_df, got_dl = merge_backward(feat, logits, gout)
+    want_df, want_dl = fused_softmax_merge_backward_plain(feat, logits, gout)
+    errs = [check_close(f"merge backward d_feat {list(s)}", got_df, want_df),
+            check_close(f"merge backward d_logits {list(s)}", got_dl, want_dl)]
+    del want_df, want_dl
+    xs = (feat.clone().requires_grad_(True), logits.clone().requires_grad_(True))
+    out = fused_softmax_merge_plain(*xs)
+    auto_df, auto_dl = torch.autograd.grad(out, xs, gout, retain_graph=True)
+    errs += [check_close("merge backward d_feat vs autograd", got_df, auto_df),
+             check_close("merge backward d_logits vs autograd", got_dl,
+                         auto_dl)]
+    del got_df, got_dl, auto_df, auto_dl
+    # yardstick: autograd of softmax + weighted sum in PyTorch's own ops
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(out, xs, gout,
+                                                 retain_graph=True))
+    n = feat.numel()
+    bms, by = bound((4 * n + gout.numel()) * 4, 16 * n)
+    results.append(_entry(
+        "merge_backward", "dbsr_tpu_torch/kernels/csrc/merge_bwd.cu",
+        "dbsr_tpu/ops/merge_pallas.py:107",
+        [dict(shape=list(s), max_abs_err=max(errs[:2]),
+              err_vs_autograd=max(errs[2:]),
+              ms=cuda_ms(lambda: merge_backward(feat, logits, gout)),
+              plain_ms=cuda_ms(lambda: fused_softmax_merge_backward_plain(
+                  feat, logits, gout), 1, 3),
+              library_ms=lib_ms, bound_ms=bms, bound_by=by)]))
+    del feat, logits, gout, xs, out
     return results
+
+
+def _counters():
+    from dbsr_tpu_torch.ops.correlation import cost_volume
+    from dbsr_tpu_torch.ops.merge import fused_softmax_merge, merge_backward
+    from dbsr_tpu_torch.ops.resample import affine_resample
+    from dbsr_tpu_torch.ops.warp import warp_dfeat, warp_dflow, warp_feat
+    return {"resample": affine_resample, "warp": warp_feat,
+            "correlation": cost_volume, "merge": fused_softmax_merge,
+            "warp_dfeat": warp_dfeat, "warp_dflow": warp_dflow,
+            "merge_backward": merge_backward}
+
+
+def reset_counts():
+    for w in _counters().values():
+        w.launches = 0
+
+
+def read_counts():
+    return {k: w.launches for k, w in _counters().items()}
+
+
+def check_counts(what, counts, steps):
+    want = {k: v * steps for k, v in LAUNCHES_PER_TRAIN_STEP.items()}
+    log(f"launches over {what} ({steps} train steps): {counts}")
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}, expected {want} "
+                             f"({LAUNCHES_PER_TRAIN_STEP} per train step)")
+
+
+def grad_phase():
+    """Phase 7a: one train step of the banked flagship (B=1, N=8) on the
+    card and on the CPU from the same batch, synthesised on the CPU."""
+    from dbsr_tpu_torch.data.procedural import (dead_leaves_image,
+                                                make_generator)
+    from dbsr_tpu_torch.data.synthetic import BurstConfig, synthesize_batch
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, float32_math
+    from dbsr_tpu_torch.training.actors import make_synthetic_actor
+    from dbsr_tpu_torch.training.checkpoint import load_network
+
+    cfg = BurstConfig(fused_resample=True)
+    gen = make_generator("cpu", 11)
+    batch = synthesize_batch(gen, dead_leaves_image(gen, 1, cfg.pre_crop_sz),
+                             cfg)
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        net, _ = load_network(FLAGSHIP_CHECKPOINT, device=device, dtype=None)
+        b = {k: batch[k].to(device) for k in ("burst", "frame_gt")}
+        with float32_math():
+            loss, _ = make_synthetic_actor(net, boundary_ignore=40)(b)
+            loss.backward()
+        out[device] = (loss.item(),
+                       {k: p.grad.detach().cpu() for k, p in
+                        net.named_parameters() if p.requires_grad},
+                       time.perf_counter() - t0)
+        del net
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["cuda"], out["cpu"]
+    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    diff2 = sum(float(((g_card[k] - g_cpu[k]) ** 2).sum()) for k in g_cpu)
+    norm2 = sum(float((g_cpu[k] ** 2).sum()) for k in g_cpu)
+    rel_grad = math.sqrt(diff2 / norm2)
+    worst = max(g_cpu, key=lambda k: float((g_card[k] - g_cpu[k]).norm())
+                / max(float(g_cpu[k].norm()), 1e-30))
+    worst_rel = float((g_card[worst] - g_cpu[worst]).norm()) \
+        / max(float(g_cpu[worst].norm()), 1e-30)
+    worst_share = float(g_cpu[worst].norm()) / math.sqrt(norm2)
+    log(f"train step card vs CPU (banked flagship, B=1, N=8): loss "
+        f"{l_card:.8f} vs {l_cpu:.8f} (rel {rel_loss:.2e}, limit "
+        f"{LOSS_RTOL}); all {len(g_cpu)} gradients ||diff||/||g|| "
+        f"{rel_grad:.2e} (limit {GRAD_TOL}); worst tensor {worst}: "
+        f"||diff||/||its g|| {worst_rel:.2e}, its ||g|| {worst_share:.2e} of "
+        f"the whole (a tensor whose true gradient is ~0, such as the bias "
+        f"of the merge's logits, to which the frame softmax is blind, shows "
+        f"rounding noise here); step {s_card:.1f} s on the card (first, "
+        f"with set-up), {s_cpu:.1f} s on the CPU")
+    if not rel_loss <= LOSS_RTOL:
+        raise AssertionError(f"card vs CPU loss: {rel_loss} > {LOSS_RTOL}")
+    if not rel_grad <= GRAD_TOL:
+        raise AssertionError(f"card vs CPU gradients: {rel_grad} > {GRAD_TOL}")
+    return dict(loss_rel=rel_loss, grad_rel=rel_grad, worst_tensor=worst,
+                worst_tensor_rel=worst_rel, worst_tensor_norm_share=worst_share)
+
+
+def training_entry_phase(workdir):
+    """Phase 7b: the training entry, one epoch, then a second resumed from
+    the first; the main path's exact launch counts per train step."""
+    from dbsr_tpu_torch.run_training import run_training
+
+    kwargs = dict(SMOKE_SETTINGS, pwc_checkpoint=ALIGN_LITE)
+    steps = kwargs["steps_per_epoch"]
+    log(f"run_training cuts against default_synthetic: steps_per_epoch "
+        f"{steps} of 1000, epochs 2 of 100, pool_size "
+        f"{kwargs['pool_size']} of 2048; no val pass (every 5 epochs); "
+        f"full width, B={TRAIN_B}, N={TRAIN_N}, 384^2 crops")
+    losses, per_step = [], None
+    for epochs in (1, 2):
+        buf = io.StringIO()
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            state = run_training("dbsr", "default_synthetic", epochs=epochs,
+                                 **kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"  | {line}")
+        check_counts(f"run_training epochs={epochs}", counts, steps)
+        per_step = {k: v // steps for k, v in counts.items()}
+        if state.step != epochs * steps:
+            raise AssertionError(f"step {state.step} after {epochs} epochs")
+        if "Training crashed" in text or "ivergence" in text:
+            raise AssertionError("run_training restarted an epoch")
+        if epochs == 2 and not re.search(r"resumed from \S+_ep0001\.ckpt "
+                                         r"\(epoch 1", text):
+            raise AssertionError("the second run did not resume from epoch 1")
+        losses += [float(v) for v in re.findall(r"Loss/total: (\S+?),", text)]
+        log(f"run_training epochs={epochs}: {wall:.1f} s wall")
+    ckpts = sorted(os.listdir(os.path.join(workdir, "dbsr",
+                                           "default_synthetic")))
+    log(f"checkpoints: {ckpts}")
+    if "dbsr_synthetic_ep0002.ckpt" not in ckpts:
+        raise AssertionError("no epoch-2 checkpoint")
+    if not losses or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"logged losses not all finite: {losses}")
+    log(f"logged running losses: {losses}")
+    return per_step, losses
+
+
+def _step_part(evt):
+    """The part of the train step whose host code launched a profiled
+    operator: the labels the profile phase puts on synthesis and the
+    forward, the autograd engine's nodes, torch.optim's own label."""
+    while evt is not None:
+        if evt.name in ("synthesis", "forward"):
+            return evt.name
+        if evt.name.startswith("autograd::engine::evaluate_function"):
+            return "backward"
+        if evt.name.startswith("Optimizer.step"):
+            return "optimizer"
+        evt = evt.cpu_parent
+    return "other"
+
+
+def _labelled(label, fn):
+    def call(*args):
+        with torch.profiler.record_function(label):
+            return fn(*args)
+    return call
+
+
+def step_phase(dev):
+    """Phases 7c and 7d: the configured trainer from a fresh network with
+    the grafted aligner; 20 Adam steps on one fixed batch (the generator is
+    reseeded each step, so the crop draw and synthesis repeat), timed by
+    CUDA events; then a profile of three train steps, its device time by
+    part of the step (synthesis, forward, backward, optimizer) and by
+    kernel group."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dbsr_tpu_torch.configs.dbsr.default_synthetic import (
+        graft_alignment_params, make_trainer)
+    from dbsr_tpu_torch.data.procedural import make_generator
+    from dbsr_tpu_torch.environment import Settings
+    from dbsr_tpu_torch.profile_serving import kernel_group, kernel_us
+
+    settings = Settings()
+    for k, v in dict(SMOKE_SETTINGS, pwc_checkpoint=ALIGN_LITE,
+                     pool_size=TRAIN_B).items():
+        setattr(settings, k, v)
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer, flow_ckpt = make_trainer(settings, dev)
+    state = trainer.init_state()
+    graft_alignment_params(trainer.net, flow_ckpt)
+    pool = trainer.loaders[0].batcher.next_batch()
+
+    losses, times = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(20):
+        if i == 3:
+            reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        stats = trainer.train_step(state, make_generator(dev, 7), pool)
+        end.record()
+        if i == 3:
+            torch.cuda.synchronize()
+            check_counts("one train step", read_counts(), 1)
+        losses.append(stats["Loss/total"])
+        times.append((start, end))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(v) for v in losses]
+    step_ms = statistics.median(s.elapsed_time(e) for s, e in times[5:])
+    log(f"fixed batch, 20 Adam steps from a fresh network: loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; all: "
+        + ", ".join(f"{v:.5f}" for v in losses))
+    if not losses[-1] < losses[0]:
+        raise AssertionError("the loss did not fall over 20 steps on one "
+                             "batch")
+    log(f"train step at B={TRAIN_B}: median {step_ms:.2f} ms (CUDA events, "
+        f"steps 6-20), {TRAIN_B / step_ms * 1e3:.2f} samples/s, peak memory "
+        f"{peak:.2f} GiB")
+    gen = make_generator(dev, 8)
+    synth_ms = cuda_ms(lambda: trainer.prepare_fn(gen, pool), 1, 5)
+
+    gen = make_generator(dev, 9)
+    trainer.prepare_fn = _labelled("synthesis", trainer.prepare_fn)
+    trainer.actor_fn = _labelled("forward", trainer.actor_fn)
+    for _ in range(2):
+        trainer.train_step(state, gen, pool)
+    torch.cuda.synchronize()
+    steps = 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            trainer.train_step(state, gen, pool)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, kernel_us(e), e.count) for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    busy_us = sum(r[1] for r in rows)
+    if busy_us == 0:
+        raise AssertionError("the profile holds no device time")
+    groups = defaultdict(float)
+    for name, us, _ in rows:
+        groups[kernel_group(name)] += us
+    log(f"profile of {steps} train steps: wall {wall_us / steps / 1e3:.2f} "
+        f"ms/step, device busy {busy_us / steps / 1e3:.2f} ms/step "
+        f"({100 * busy_us / wall_us:.1f}% of wall); synthesis (prepare "
+        f"alone, CUDA events) {synth_ms:.2f} ms")
+    for name, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f"  {name}: {us / steps / 1e3:.3f} ms/step "
+            f"({100 * us / busy_us:.1f}%)")
+    log("  top kernels (ms/step, launches/step):")
+    for name, us, n in rows[:12]:
+        log(f"    {us / steps / 1e3:8.3f}  {n / steps:6.1f}  {name[:90]}")
+    # each kernel in the part of the step whose host operator launched it;
+    # what the profiler links to no operator (some of the kernels launched
+    # through ctypes) is listed as not placed
+    split = defaultdict(lambda: defaultdict(float))
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CPU:
+            for k in evt.kernels:
+                split[_step_part(evt)][kernel_group(k.name)] += \
+                    k.duration / steps / 1e3
+    placed = sum(sum(g.values()) for g in split.values())
+    for group, us in groups.items():
+        rest = us / steps / 1e3 - sum(g.get(group, 0.0)
+                                      for g in split.values())
+        if rest > 5e-4:
+            split["not placed"][group] = rest
+    log(f"  by part of the step ({100 * placed * steps * 1e3 / busy_us:.1f}% "
+        f"of the device time placed), ms/step:")
+    for part, g in sorted(split.items(), key=lambda kv: -sum(kv[1].values())):
+        log(f"    {part}: {sum(g.values()):.3f} (" + ", ".join(
+            f"{k} {v:.3f}" for k, v in sorted(g.items(),
+                                                key=lambda kv: -kv[1])) + ")")
+    return dict(step_ms=step_ms, samples_per_s=TRAIN_B / step_ms * 1e3,
+                peak_mem_gib=peak, fixed_batch_losses=losses,
+                synthesis_ms=synth_ms,
+                profile_ms_per_step={k: v / steps / 1e3
+                                     for k, v in groups.items()},
+                profile_ms_per_step_by_part={p: dict(g)
+                                             for p, g in split.items()},
+                device_busy_share=busy_us / wall_us)
 
 
 def main():
@@ -200,9 +698,6 @@ def main():
         log("chip_smoke: CUDA is not available; nothing to measure")
         return 2
     from dbsr_tpu_torch import kernels
-    from dbsr_tpu_torch.ops.correlation import cost_volume
-    from dbsr_tpu_torch.ops.merge import fused_softmax_merge
-    from dbsr_tpu_torch.ops.warp import warp_feat
     from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, load_predictor
 
     t_start = time.perf_counter()
@@ -232,10 +727,10 @@ def main():
     # 3. kernels against their plain versions
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    log("kernel vs plain (float32, main-path shapes):")
+    log("kernel vs plain (float32, serving and train-step shapes):")
     results = kernel_phase(dev, g)
     for e in results:
-        for r in e["per_shape"]:
+        for r in e["per_shape"] + e["other_shapes"]:
             log(f"  {e['name']} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), library {r['library_ms']}")
@@ -250,14 +745,11 @@ def main():
     requests = [rng.rand(B, N, HW, HW, 4).astype(np.float32),
                 rng.rand(3, N, HW, HW, 4).astype(np.float32),
                 rng.rand(N, HW, HW, 4).astype(np.float32)]
-    wrappers = {"warp": warp_feat, "correlation": cost_volume,
-                "merge": fused_softmax_merge}
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     outs = [pred(r) for r in requests]
     torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
+    launches = read_counts()
     log(f"launches over the three requests (3 forwards): {launches}")
     for r, o in zip(requests, outs):
         n = r.shape[0] if r.ndim == 5 else 1
@@ -265,7 +757,8 @@ def main():
             raise AssertionError(f"output shape {o.shape} for {n} bursts")
         if not np.isfinite(o).all() or o.min() < 0 or o.max() > 1:
             raise AssertionError("output not finite or outside [0, 1]")
-    for k, per_forward in LAUNCHES_PER_FORWARD.items():
+    for k in launches:
+        per_forward = LAUNCHES_PER_FORWARD.get(k, 0)  # no backward here
         if launches[k] != per_forward * len(requests):
             raise AssertionError(f"{k}: {launches[k]} launches in "
                                  f"{len(requests)} forwards, expected "
@@ -303,12 +796,41 @@ def main():
         f"{diff:.3e} (limit {CARD_VS_CPU_TOL}); CPU forward {cpu_s:.1f} s")
     if not diff <= CARD_VS_CPU_TOL:
         raise AssertionError(f"card vs CPU: {diff} > {CARD_VS_CPU_TOL}")
+    serving_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del pred, cpu_net, x
+    torch.cuda.empty_cache()
+
+    # 6. the training path's kernels against their plain versions
+    log(f"training kernels vs plain (float32, train-step shapes, B={TRAIN_B}, "
+        f"N={TRAIN_N}):")
+    new = backward_kernel_phase(dev, g)
+    for e in new:
+        for r in e["per_shape"] + e["other_shapes"]:
+            log(f"  {e['name']} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), library {r['library_ms']}")
+    results += new
+    torch.cuda.empty_cache()
+
+    # 7. training
+    grads = grad_phase()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        os.environ["DBSR_TPU_ENV"] = os.path.join(workdir, "env.json")
+        os.environ["DBSR_TPU_WORKSPACE_DIR"] = workdir
+        os.environ.pop("DBSR_TPU_ZURICHRAW2RGB_DIR", None)
+        per_step, run_losses = training_entry_phase(workdir)
+        torch.cuda.empty_cache()
+        train = step_phase(dev)
+    for e in new:
+        e["launches"] = per_step[e["name"]]  # per train step
 
     summary = dict(bursts_per_s_b8=B / req_s, request_ms_b8=req_s * 1e3,
                    forward_ms_b8=fwd_ms, card_vs_cpu_max_abs=diff,
-                   peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
-                   build_s=secs, total_s=time.perf_counter() - t_start,
-                   card=smi)
+                   peak_mem_gib=serving_peak, train=train,
+                   train_card_vs_cpu=grads, run_training_losses=run_losses,
+                   launches_per_train_step=per_step, build_s=secs,
+                   total_s=time.perf_counter() - t_start, card=smi)
     log("summary " + json.dumps(summary))
     log(smi)
     log(json.dumps({"kernels": results}))

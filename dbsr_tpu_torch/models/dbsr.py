@@ -3,10 +3,12 @@ decoder (port of ``dbsr_tpu/models/dbsr.py``, the ``flow_net='lite'``
 serving forward).
 
 ``burst`` is ``[B, N, h, w, 4]`` packed RGGB; frames are flattened into the
-batch for the per-frame convs. Three CUDA kernels run on this path for CUDA
-tensors: the 512-channel feature warp (``ops/warp.py``), AlignLite's cost
-volumes (``ops/correlation.py``) and the frame-softmax merge
-(``ops/merge.py``).
+batch for the per-frame convs. Three CUDA kernels run on the forward for
+CUDA tensors: the 512-channel feature warp (``ops/warp.py``), AlignLite's
+cost volumes (``ops/correlation.py``) and the frame-softmax merge
+(``ops/merge.py``); in training, the warp's d_feat and the merge's backward
+kernels run on the backward. The aligner is frozen: its flow is computed
+without gradient and its parameters do not require one.
 """
 
 from __future__ import annotations
@@ -220,7 +222,12 @@ class DBSRNet(nn.Module):
                  gauss_ksz: int = 3, activation: str = "relu",
                  train_alignment: bool = False, dtype=None,
                  fused_s2d_decoder: bool = False, flow_net: str = "pwc"):
+        # the constructor's arguments in the JAX module's field order: the
+        # checkpoint header's net_spec (training/checkpoint.py)
+        spec_kwargs = dict(locals())
         super().__init__()
+        self.spec_kwargs = {k: v for k, v in spec_kwargs.items()
+                            if k not in ("self", "__class__")}
         unsupported = {  # name: (value, unsupported?)
             "flow_net": (flow_net, flow_net != "lite"),
             "train_alignment": (train_alignment, train_alignment),
@@ -242,6 +249,8 @@ class DBSRNet(nn.Module):
             enc_out_dim, dec_init_conv_dim, dec_num_pre_res_blocks,
             dec_post_conv_dim, dec_num_post_res_blocks, upsample_factor,
             icnrinit, gauss_blur_sd, gauss_ksz, activation, final_activation)
+        if not train_alignment:  # frozen: no gradient, no optimizer state
+            self.encoder.alignment_net.requires_grad_(False)
 
     def forward(self, burst, return_fusion_weights: bool = False):
         enc = self.encoder(burst)

@@ -7,6 +7,11 @@ the JAX package's parameter names (``ConvBlock_0``, ``Conv_0``, ...), so a
 flax parameter path maps to a ``state_dict`` key by joining with dots (see
 ``utils/convert.py``).
 
+A fresh network gets the JAX package's initial distributions from an
+explicit generator (:func:`init_params`): every conv weight and bias
+U[-1/sqrt(fan_in), 1/sqrt(fan_in)] (torch's ``nn.Conv2d`` default, which the
+JAX package copies), and ICNR for the pre-shuffle conv.
+
 Padding follows the JAX code: ``SAME`` for stride 1 (a dilated 3x3 pads by
 its dilation) and an explicit ``(1, 1)`` for the stride-2 convs, which is
 ``dilation * (k // 2)`` on each side in every case here.
@@ -18,6 +23,7 @@ resolution.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
@@ -97,6 +103,7 @@ class PixShuffleUpsampler(nn.Module):
         super().__init__()
         r = upsample_factor
         self.r = r
+        self.icnrinit = icnrinit
         self.Conv_0 = nn.Conv2d(in_features, features * r * r, 1,
                                 bias=not icnrinit)
         self.act = get_activation(activation)
@@ -119,3 +126,41 @@ class PixShuffleUpsampler(nn.Module):
                          padding=self.blur.shape[-1] // 2,
                          groups=C).permute(0, 2, 3, 1)
         return x
+
+
+def icnr_(weight: torch.Tensor, r: int, generator: torch.Generator) -> None:
+    """ICNR init of a pre-shuffle conv weight ``[out, in, kh, kw]``: a
+    kaiming-normal sub-kernel with ``out / r^2`` channels (flax's
+    ``kaiming_normal``: truncated normal at +-2 std, std
+    ``sqrt(2 / fan_in) / .8796``), each channel repeated r^2 times, so that
+    output channel ``o`` is sub-channel ``o // r^2``."""
+    out_ch, in_ch, kh, kw = weight.shape
+    if out_ch % (r * r):
+        raise ValueError(f"ICNR: {out_ch} channels not divisible by {r * r}")
+    std = math.sqrt(2.0 / (in_ch * kh * kw)) / .87962566103423978
+    sub = torch.empty((out_ch // (r * r), in_ch, kh, kw), device=weight.device)
+    torch.nn.init.trunc_normal_(sub, std=std, a=-2.0 * std, b=2.0 * std,
+                                generator=generator)
+    with torch.no_grad():
+        weight.copy_(sub.repeat_interleave(r * r, dim=0))
+
+
+@torch.no_grad()
+def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter of ``module`` afresh from ``generator`` (on the
+    parameters' device), with the JAX package's initialisers."""
+    icnr = {id(m.Conv_0): m.r for m in module.modules()
+            if isinstance(m, PixShuffleUpsampler) and m.icnrinit}
+    for m in module.modules():
+        if not isinstance(m, nn.Conv2d):
+            continue
+        fan_in = m.in_channels // m.groups * m.kernel_size[0] \
+            * m.kernel_size[1]
+        bound = 1.0 / math.sqrt(fan_in)
+        if id(m) in icnr:
+            icnr_(m.weight, icnr[id(m)], generator)
+        else:
+            nn.init.uniform_(m.weight, -bound, bound, generator=generator)
+        if m.bias is not None:
+            nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+    return module

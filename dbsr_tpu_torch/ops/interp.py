@@ -1,7 +1,7 @@
-"""Resampling ops of the serving path (port of ``dbsr_tpu/ops/interp.py``):
-``resize_bilinear`` and the PWC-style ``backwarp`` with its analytic
-validity mask. The gather warp itself lives in ``ops/warp.py``, beside its
-kernel.
+"""Resampling ops (port of ``dbsr_tpu/ops/interp.py``): ``resize_bilinear``,
+the PWC-style ``backwarp`` with its analytic validity mask, and the affine
+helpers of burst synthesis (``invert_2x3``, ``apply_affine_to_points``).
+The gather warp itself lives in ``ops/warp.py``, beside its kernel.
 
 On the TPU, ``backwarp_auto`` routed AlignLite's small backwarps to a
 hat-matrix einsum; that is a TPU formulation of the same function, so only
@@ -71,3 +71,28 @@ def backwarp(im: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     coords = base_grid(H, W, im.device) + f
     ones = _axis_ones(coords[..., 0], W) * _axis_ones(coords[..., 1], H)
     return out * (ones > 0.999).to(im.dtype)[..., None]
+
+
+def invert_2x3(tmat: torch.Tensor) -> torch.Tensor:
+    """Invert affine ``[..., 2, 3]`` matrices (append [0, 0, 1], invert,
+    crop), as the JAX package does with ``jnp.linalg.inv``."""
+    bottom = torch.tensor([0.0, 0.0, 1.0], dtype=tmat.dtype,
+                          device=tmat.device).expand(tmat.shape[:-2] + (1, 3))
+    full = torch.cat([tmat, bottom], dim=-2)
+    # inv_ex: no host sync to check the (never singular) factorisation
+    return torch.linalg.inv_ex(full).inverse[..., :2, :]
+
+
+def apply_affine_to_points(tmat: torch.Tensor,
+                           points: torch.Tensor) -> torch.Tensor:
+    """Apply ``[..., 2, 3]`` affines to ``[h, w, 2]`` (x, y) points ->
+    ``[..., h, w, 2]``. Elementwise in float32, never a matmul: image-scale
+    coordinates must not pass through a reduced-precision product (the
+    TPU's DEFAULT-precision MXU truncated them to bf16; on the card a TF32
+    matmul would do the same)."""
+    t = tmat[..., None, None, :, :]
+    x = points[..., 0]
+    y = points[..., 1]
+    out_x = t[..., 0, 0] * x + t[..., 0, 1] * y + t[..., 0, 2]
+    out_y = t[..., 1, 0] * x + t[..., 1, 1] * y + t[..., 1, 2]
+    return torch.stack([out_x, out_y], dim=-1)

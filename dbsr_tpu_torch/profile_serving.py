@@ -25,25 +25,35 @@ from torch.profiler import ProfilerActivity, profile
 from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, load_predictor
 
 BATCH, FORWARDS = 8, 3
-OWN_KERNELS = ("warp_kernel", "correlation_kernel", "merge_kernel")
+OWN_KERNELS = ("warp_kernel", "correlation_kernel", "merge_kernel",
+               "resample_kernel", "dfeat_kernel", "dflow_kernel",
+               "merge_bwd_kernel")
 
 
-def _group(name: str) -> str:
+def kernel_group(name: str) -> str:
+    """Group of a device kernel by its name: the port's own kernels,
+    cuDNN's convolutions and layout transposes, the optimizer, the rest."""
     low = name.lower()
     if any(k in name for k in OWN_KERNELS):
-        return "port kernels (warp, correlation, merge)"
+        return "port kernels"
     if "nchwToNhwc" in name or "nhwcToNchw" in name:
         return "layout transposes (cuDNN NCHW <-> NHWC)"
     if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "gemm",
-                              "winograd", "fft", "pointwise_mult_and_sum")):
+                              "winograd", "fft", "pointwise_mult_and_sum",
+                              "wgrad", "dgrad")):
         return "convolution (cuDNN)"
+    if "multi_tensor_apply" in low or "adam" in low:
+        return "optimizer (Adam)"
     return "other (elementwise, copies, cat, pad, gather)"
 
 
-def _kernel_us(evt) -> float:
+def kernel_us(evt) -> float:
     """Device time of a kernel row of ``key_averages()``; 0 for host rows
-    (operators, runtime calls), whose device totals repeat their kernels'."""
-    if evt.device_type != DeviceType.CUDA:
+    (operators, runtime calls), whose device totals repeat their kernels',
+    and for the device-side spans of ``record_function`` labels (torch.optim
+    labels every ``step``), which cover kernels counted in their own rows."""
+    if evt.device_type != DeviceType.CUDA or getattr(
+            evt, "is_user_annotation", False):  # absent in older torch
         return 0.0
     return float(evt.self_device_time_total)
 
@@ -93,12 +103,12 @@ def main():
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
 
-    rows = [(e.key, _kernel_us(e), e.count) for e in prof.key_averages()]
+    rows = [(e.key, kernel_us(e), e.count) for e in prof.key_averages()]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_us = sum(r[1] for r in rows)
     groups = defaultdict(float)
     for name, us, _ in rows:
-        groups[_group(name)] += us
+        groups[kernel_group(name)] += us
     per_fwd = FORWARDS
     if busy_us == 0:
         raise SystemExit("profile_serving: the trace holds no device time")

@@ -1,1 +1,2 @@
-"""Checkpoint reading of the port (training itself is not ported yet)."""
+"""Training of the port: checkpoints, train state and Adam, actors, the
+trainer."""
