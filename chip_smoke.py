@@ -8,7 +8,7 @@ result line):
 1. environment: torch / CUDA versions, the card's name and power limit;
    the predictor's forward runs its convs and matmuls with TF32 off
    (float32), which the script checks by leaving PyTorch's defaults on;
-2. build the seven CUDA kernels (six sources) from
+2. build the nine CUDA kernels (seven sources) from
    ``dbsr_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, all started
    together);
 3. each kernel against its plain PyTorch version on the card, float32, at
@@ -27,24 +27,45 @@ result line):
    float32, at the shapes the train step gives them (B=16, N=8): the
    affine resample (fused and strict synthesis), the warp's d_feat and
    d_flow (flows up to +-5 px, some on exact integers; also AlignLite's
-   backwarp shapes) and the merge backward, each also against
-   ``torch.autograd.grad`` of the plain forward; times of the kernel, the
-   plain version and one PyTorch library call (``F.grid_sample`` and its
-   autograd: for d_feat with respect to the input alone, for d_flow with
-   respect to both) as a yardstick;
-7. training: (a) one train step of the banked flagship at B=1, N=8 on the
-   card against the same step on the CPU (loss and every gradient);
-   (b) ``run_training("dbsr", "default_synthetic", ...)`` for one epoch of
-   20 steps at B=16, then again for a second epoch, resumed from the
-   first, with the launch counters reset just before each run and read
-   just after: each kernel must have launched exactly as often per train
-   step as the step asks; (c) 20 Adam steps on one fixed batch from a fresh
-   network with the grafted aligner (the loss must fall), timed by CUDA
-   events, with peak memory; (d) a ``torch.profiler`` trace of three train
-   steps, device time by group.
+   backwarp shapes), the cost volume's d_first and d_second (AlignLite's
+   three levels and an odd shape; then the ``Function`` on the card) and
+   the merge backward, each also against ``torch.autograd.grad`` of the
+   plain forward; times of the kernel, the plain version and, where there
+   is one, a PyTorch library call (``F.grid_sample`` and its autograd: for
+   d_feat with respect to the input alone, for d_flow with respect to
+   both) as a yardstick;
+7. training with the banked aligner, frozen: (a) one train step of the
+   banked flagship at B=1, N=8 on the card against the same step on the
+   CPU (loss and every gradient); (b) ``run_training("dbsr",
+   "default_synthetic", ...)`` for one epoch of 10 steps at B=16 (20 before
+   the pretraining phases were added), then again for a second epoch,
+   resumed from the first, with the launch counters reset just before each
+   run and read just after: each kernel must have launched exactly as
+   often per train step as the step asks; (c) 20 Adam steps on one fixed
+   batch from a fresh network with the grafted aligner (the loss must
+   fall), timed by CUDA events, with peak memory; (d) a ``torch.profiler``
+   trace of three train steps, device time by group;
+8. pretraining the aligner: (a) one ``BurstAlignLite`` train step at B=16,
+   N=8 on the card against the same step on the CPU from the same fresh
+   parameters and batch (loss, all gradients, and each extractor tensor's
+   gradient on its own: a gradient that stopped at the cost volumes would
+   show there); (b) ``run_training("align_lite", "pretrain_synthetic",
+   ...)`` for two epochs of 750 steps with a resume (the
+   net leaves the zero-flow plateau after ~750 steps), the exact launches per
+   step, ``Stat/epe`` falling and ending below the zero-flow EPE of the
+   same batches; (c) step time, peak memory and a profile as in 7c-7d;
+9. closing the loop: in the workspace of 8b, ``run_training("dbsr",
+   "default_synthetic", ...)`` without ``pwc_checkpoint`` finds and grafts
+   that checkpoint and takes 5 steps frozen, then 5 with
+   ``train_alignment=True`` (exact launches per step; ``warp_dflow`` and
+   the cost volume's backward now run inside DBSR's step); one unfrozen
+   step's gradients against the CPU's at B=1; the unfrozen step's time and
+   peak memory at B=16.
 
-The second-to-last line is ``{"kernels": [...]}`` (all seven kernels); the
-last line is ``{"ok": true, "device": {...}}``.
+The second-to-last line is ``{"kernels": [...]}`` (all nine kernels;
+``launches`` is the count on the entry's own ``path``, whose shapes its
+times are summed over; ``launches_by_path`` has the counts on all four); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -82,12 +103,33 @@ TRAIN_FRAMES = TRAIN_B * (TRAIN_N - 1)
 # the frozen aligner, without gradient)
 LAUNCHES_PER_TRAIN_STEP = {"resample": 1, "warp": 3, "correlation": 3,
                            "merge": 1, "warp_dfeat": 1, "warp_dflow": 0,
-                           "merge_backward": 1}
+                           "merge_backward": 1, "correlation_dfirst": 0,
+                           "correlation_dsecond": 0}
+# launches per AlignLite pretraining step: the synthesis' resample; the three
+# cost volumes with both gradients each (target and source features both
+# train); the two backwarps with d_feat (the source features) and d_flow (the
+# coarser level's flow); no merge
+LAUNCHES_PER_PRETRAIN_STEP = {"resample": 1, "warp": 2, "correlation": 3,
+                              "merge": 0, "warp_dfeat": 2, "warp_dflow": 2,
+                              "merge_backward": 0, "correlation_dfirst": 3,
+                              "correlation_dsecond": 3}
+# launches per default_synthetic step with train_alignment=True: the frozen
+# step's, and the backward now runs through the flow (the 512-channel warp's
+# d_flow) and the aligner (its two backwarps and three cost volumes)
+LAUNCHES_PER_UNFROZEN_STEP = {"resample": 1, "warp": 3, "correlation": 3,
+                              "merge": 1, "warp_dfeat": 3, "warp_dflow": 3,
+                              "merge_backward": 1, "correlation_dfirst": 3,
+                              "correlation_dsecond": 3}
 GRAD_TOL = 1e-3    # ||g_card - g_cpu||_2 <= GRAD_TOL ||g_cpu||_2, all grads
 LOSS_RTOL = 1e-5   # card vs CPU loss of one train step
+PRETRAIN_STEPS = 750  # per epoch of the smoke pretraining, two epochs
 # run_training's cuts against default_synthetic (1000 steps x 100 epochs,
 # a pool of 2048 sources; val every 5 epochs, so no val pass here)
-SMOKE_SETTINGS = dict(steps_per_epoch=20, pool_size=128, print_interval=5)
+SMOKE_SETTINGS = dict(steps_per_epoch=10, pool_size=128, print_interval=5)
+# pretraining's cuts against align_lite/pretrain_synthetic (1000 steps x 15
+# epochs, a pool of 2048 sources; val every 5 epochs, so no val pass here)
+PRETRAIN_SETTINGS = dict(steps_per_epoch=PRETRAIN_STEPS, pool_size=128,
+                         print_interval=150)
 ALIGN_LITE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "dbsr_tpu", "artifacts", "align_lite_params.ckpt")
 
@@ -217,12 +259,14 @@ def kernel_phase(dev, g):
                merge_rows(B, N), merge_rows(TRAIN_B, TRAIN_N))]
 
 
-def _entry(name, source, replaces, rows, other_rows=()):
+def _entry(name, source, replaces, rows, other_rows=(),
+           path="serving_3_requests"):
     """A kernel line entry from its rows at the shapes of one pass of its
-    path (their sum: one forward's or one train step's worth of each time)
-    and its rows at other shapes (checked and timed, listed apart)."""
+    path (their sum: one forward's or one step's worth of each time) and
+    its rows at other shapes (checked and timed, listed apart). ``path``
+    names the driven path that ``launches`` is read from."""
     e = dict(name=name, route="cuda", source=source, replaces=replaces,
-             shape=[r["shape"] for r in rows], per_shape=rows)
+             path=path, shape=[r["shape"] for r in rows], per_shape=rows)
     for k in ("ms", "plain_ms", "bound_ms"):
         e[k] = sum(r[k] for r in rows)
     libs = [r["library_ms"] for r in rows]
@@ -303,7 +347,7 @@ def backward_kernel_phase(dev, g):
         del got, lib, grid, coords
     results.append(_entry("resample", "dbsr_tpu_torch/kernels/csrc/resample.cu",
                           "dbsr_tpu/ops/resample_pallas.py:121", rows[:1],
-                          rows[1:]))
+                          rows[1:], path="train_step"))
     del images
 
     # warp backward: the encoder's 512-channel warp, then AlignLite's two
@@ -356,13 +400,14 @@ def backward_kernel_phase(dev, g):
                 out_both, (nchw, grid_req), g_nchw, retain_graph=True)),
             bound_ms=bms, bound_by=by))
         del feat, gout, fl, nchw, grid, grid_req, out_feat, out_both
-    # the encoder's warp alone is on the train step
+    # the encoder's warp alone is on the frozen train step; d_flow runs
+    # where the aligner trains: all three shapes in a train_alignment step
     results.append(_entry("warp_dfeat", "dbsr_tpu_torch/kernels/csrc/warp_bwd.cu",
                           "dbsr_tpu/ops/warp_pallas.py:178", rows_dfeat[:1],
-                          rows_dfeat[1:]))
+                          rows_dfeat[1:], path="train_step"))
     results.append(_entry("warp_dflow", "dbsr_tpu_torch/kernels/csrc/warp_bwd.cu",
-                          "dbsr_tpu/ops/warp_pallas.py:219", rows_dflow[:1],
-                          rows_dflow[1:]))
+                          "dbsr_tpu/ops/warp_pallas.py:219", rows_dflow,
+                          path="train_alignment_step"))
 
     # the Function on the card: d_flow only when the flow needs a gradient
     feat = randn(TRAIN_B, 48, 48, 512).requires_grad_(True)
@@ -385,6 +430,8 @@ def backward_kernel_phase(dev, g):
         if flow_grad:
             check_close("warp Function d_flow", f.grad, want_dfl)
     del feat, fl, gout, f, want_df, want_dfl
+
+    results += correlation_backward_entries(dev, g)
 
     # merge backward at the training merge's shape
     s = (TRAIN_B, TRAIN_N, 48, 48, 512)
@@ -415,20 +462,111 @@ def backward_kernel_phase(dev, g):
               ms=cuda_ms(lambda: merge_backward(feat, logits, gout)),
               plain_ms=cuda_ms(lambda: fused_softmax_merge_backward_plain(
                   feat, logits, gout), 1, 3),
-              library_ms=lib_ms, bound_ms=bms, bound_by=by)]))
+              library_ms=lib_ms, bound_ms=bms, bound_by=by)],
+        path="train_step"))
     del feat, logits, gout, xs, out
     return results
 
 
+def correlation_backward_entries(dev, g):
+    """Phase 6, the cost volume's d_first and d_second: against their plain
+    versions and ``torch.autograd.grad`` of ``correlation_plain`` at
+    AlignLite's three training shapes (B=16, N=8) and at an odd one (H != W,
+    neither a multiple of the 4x8 tile, C above one staged chunk of 128);
+    then the ``Function`` on the card. ``library_ms`` is None: no single
+    PyTorch call computes either; autograd of the plain version is
+    ``plain_ms``."""
+    from dbsr_tpu_torch.ops.correlation import (NUM_OFFSETS,
+                                                correlation_dfirst,
+                                                correlation_dfirst_plain,
+                                                correlation_dsecond,
+                                                correlation_dsecond_plain,
+                                                correlation_plain, cost_volume)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    rows = {"dfirst": [], "dsecond": []}
+    for s in ((TRAIN_FRAMES, 12, 12, 96), (TRAIN_FRAMES, 24, 24, 48),
+              (TRAIN_FRAMES, 48, 48, 24), (5, 13, 22, 136)):
+        first, second = randn(*s), randn(*s)
+        gout = randn(*s[:3], NUM_OFFSETS)
+        xs = (first.clone().requires_grad_(True),
+              second.clone().requires_grad_(True))
+        auto = torch.autograd.grad(correlation_plain(*xs), xs, gout)
+        nbytes = (2 * first.numel() + gout.numel()) * 4
+        bms, by = bound(nbytes, 2 * NUM_OFFSETS * first.numel())
+        for name, fn, plain, operand, want_auto in (
+                ("dfirst", correlation_dfirst, correlation_dfirst_plain,
+                 second, auto[0]),
+                ("dsecond", correlation_dsecond, correlation_dsecond_plain,
+                 first, auto[1])):
+            got = fn(operand, gout)
+            torch.cuda.synchronize()
+            errs = [check_close(f"correlation {name} {list(s)}", got,
+                                plain(operand, gout)),
+                    check_close(f"correlation {name} {list(s)} vs autograd",
+                                got, want_auto)]
+            rows[name].append(dict(
+                shape=list(s), max_abs_err=errs[0], err_vs_autograd=errs[1],
+                ms=cuda_ms(lambda: fn(operand, gout)),
+                plain_ms=cuda_ms(lambda: plain(operand, gout), 1, 3),
+                library_ms=None, bound_ms=bms, bound_by=by))
+        del first, second, gout, xs, auto
+
+    # the Function on the card: a volume that needs a gradient has a grad_fn
+    # and its backward launches only the kernels whose input needs one;
+    # under no_grad nothing is saved
+    s = (TRAIN_B, 24, 24, 48)
+    first, second, gout = randn(*s), randn(*s), randn(*s[:3], NUM_OFFSETS)
+    for needs in ((True, True), (True, False), (False, True)):
+        a = first.clone().requires_grad_(needs[0])
+        b = second.clone().requires_grad_(needs[1])
+        before = (correlation_dfirst.launches, correlation_dsecond.launches)
+        out = cost_volume(a, b)
+        if out.grad_fn is None:
+            raise AssertionError("cost_volume on the card has no grad_fn")
+        out.backward(gout)
+        torch.cuda.synchronize()
+        ran = (correlation_dfirst.launches - before[0],
+               correlation_dsecond.launches - before[1])
+        if ran != tuple(int(n) for n in needs):
+            raise AssertionError(f"cost_volume Function: backward launched "
+                                 f"(d_first, d_second) {ran} times with "
+                                 f"requires_grad={needs}")
+        if needs[0]:
+            check_close(f"cost_volume Function d_first (needs {needs})",
+                        a.grad, correlation_dfirst_plain(second, gout))
+        if needs[1]:
+            check_close(f"cost_volume Function d_second (needs {needs})",
+                        b.grad, correlation_dsecond_plain(first, gout))
+    with torch.no_grad():
+        out = cost_volume(first.requires_grad_(True), second)
+    if out.grad_fn is not None or out.requires_grad:
+        raise AssertionError("cost_volume under no_grad kept a graph")
+
+    csrc = "dbsr_tpu_torch/kernels/csrc/correlation_bwd.cu"
+    return [_entry("correlation_dfirst", csrc,
+                   "dbsr_tpu/ops/correlation.py:163", rows["dfirst"][:3],
+                   rows["dfirst"][3:], path="pretrain_step"),
+            _entry("correlation_dsecond", csrc,
+                   "dbsr_tpu/ops/correlation.py:178", rows["dsecond"][:3],
+                   rows["dsecond"][3:], path="pretrain_step")]
+
+
 def _counters():
-    from dbsr_tpu_torch.ops.correlation import cost_volume
+    from dbsr_tpu_torch.ops.correlation import (correlation_dfirst,
+                                                correlation_dsecond,
+                                                cost_volume)
     from dbsr_tpu_torch.ops.merge import fused_softmax_merge, merge_backward
     from dbsr_tpu_torch.ops.resample import affine_resample
     from dbsr_tpu_torch.ops.warp import warp_dfeat, warp_dflow, warp_feat
     return {"resample": affine_resample, "warp": warp_feat,
             "correlation": cost_volume, "merge": fused_softmax_merge,
             "warp_dfeat": warp_dfeat, "warp_dflow": warp_dflow,
-            "merge_backward": merge_backward}
+            "merge_backward": merge_backward,
+            "correlation_dfirst": correlation_dfirst,
+            "correlation_dsecond": correlation_dsecond}
 
 
 def reset_counts():
@@ -440,17 +578,90 @@ def read_counts():
     return {k: w.launches for k, w in _counters().items()}
 
 
-def check_counts(what, counts, steps):
-    want = {k: v * steps for k, v in LAUNCHES_PER_TRAIN_STEP.items()}
+def check_counts(what, counts, steps, per_step=None):
+    per_step = per_step or LAUNCHES_PER_TRAIN_STEP
+    want = {k: v * steps for k, v in per_step.items()}
     log(f"launches over {what} ({steps} train steps): {counts}")
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want} "
-                             f"({LAUNCHES_PER_TRAIN_STEP} per train step)")
+                             f"({per_step} per train step)")
 
 
-def grad_phase():
-    """Phase 7a: one train step of the banked flagship (B=1, N=8) on the
-    card and on the CPU from the same batch, synthesised on the CPU."""
+def card_vs_cpu(what, out, prefix=None, each=True):
+    """Compare one train step on the card with the same step on the CPU:
+    ``out[device] = (loss, {name: grad}, seconds)``. The loss within
+    LOSS_RTOL, all gradients together within GRAD_TOL of their norm; the
+    tensors under ``prefix`` together within GRAD_TOL of their own norm and,
+    with ``each``, every one of them within GRAD_TOL of its own norm."""
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["cuda"], out["cpu"]
+    if set(g_card) != set(g_cpu):
+        raise AssertionError(f"{what}: gradients of different tensors")
+    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
+    diff2 = sum(float(((g_card[k] - g_cpu[k]) ** 2).sum()) for k in g_cpu)
+    norm2 = sum(float((g_cpu[k] ** 2).sum()) for k in g_cpu)
+    rel_grad = math.sqrt(diff2 / norm2)
+
+    def rel(k):
+        return float((g_card[k] - g_cpu[k]).norm()) \
+            / max(float(g_cpu[k].norm()), 1e-30)
+
+    worst = max(g_cpu, key=rel)
+    worst_rel = rel(worst)
+    worst_share = float(g_cpu[worst].norm()) / math.sqrt(norm2)
+    log(f"{what}, card vs CPU: loss {l_card:.8f} vs {l_cpu:.8f} (rel "
+        f"{rel_loss:.2e}, limit {LOSS_RTOL}); all {len(g_cpu)} gradients "
+        f"||diff||/||g|| {rel_grad:.2e} (limit {GRAD_TOL}); worst tensor "
+        f"{worst}: ||diff||/||its g|| {worst_rel:.2e}, its ||g|| "
+        f"{worst_share:.2e} of the whole (a tensor whose true gradient is ~0, "
+        f"such as the bias of the merge's logits, to which the frame softmax "
+        f"is blind, shows rounding noise here); step {s_card:.1f} s on the "
+        f"card (first, with set-up), {s_cpu:.1f} s on the CPU")
+    res = dict(loss_rel=rel_loss, grad_rel=rel_grad, worst_tensor=worst,
+               worst_tensor_rel=worst_rel, worst_tensor_norm_share=worst_share)
+    if not rel_loss <= LOSS_RTOL:
+        raise AssertionError(f"{what}: card vs CPU loss: {rel_loss} > "
+                             f"{LOSS_RTOL}")
+    if not rel_grad <= GRAD_TOL:
+        raise AssertionError(f"{what}: card vs CPU gradients: {rel_grad} > "
+                             f"{GRAD_TOL}")
+    if prefix is not None:
+        own = {k: rel(k) for k in g_cpu if k.startswith(prefix)}
+        if not own:
+            raise AssertionError(f"{what}: no gradient under {prefix}")
+        k_max = max(own, key=own.get)
+        own_norm2 = sum(float((g_cpu[k] ** 2).sum()) for k in own)
+        own_rel = math.sqrt(sum(float(((g_card[k] - g_cpu[k]) ** 2).sum())
+                                for k in own) / own_norm2)
+        log(f"  the {len(own)} tensors under {prefix}: together "
+            f"||diff||/||their g|| {own_rel:.2e} (limit {GRAD_TOL}), their "
+            f"||g|| {math.sqrt(own_norm2 / norm2):.2e} of the whole; worst "
+            f"single tensor ||diff||/||its g|| {own[k_max]:.2e} ({k_max}"
+            + (f"; limit {GRAD_TOL})" if each else "; reported only)"))
+        if not own_rel <= GRAD_TOL:
+            raise AssertionError(f"{what}: {prefix}: {own_rel} > {GRAD_TOL}")
+        if each and not own[k_max] <= GRAD_TOL:
+            raise AssertionError(f"{what}: {k_max}: {own[k_max]} > {GRAD_TOL}")
+        res.update(prefix=prefix, prefix_rel=own_rel,
+                   prefix_worst_tensor=k_max, prefix_worst_rel=own[k_max])
+    return res
+
+
+def _grads(net):
+    return {k: p.grad.detach().cpu() for k, p in net.named_parameters()
+            if p.requires_grad}
+
+
+def grad_phase(train_alignment=False, flow_ckpt=None):
+    """Phases 7a and 9: one train step of the banked flagship (B=1, N=8) on
+    the card and on the CPU from the same batch, synthesised on the CPU;
+    with ``train_alignment`` the aligner of ``flow_ckpt`` is grafted and
+    trains too, and the aligner's gradients are also held together on their
+    own (not tensor by tensor: the flow heads' two-element bias gradients
+    are sums of d_flow over all pixels that largely cancel, and their
+    relative error moved between 3.6e-4 and 7.0e-4 from run to run with
+    the d_feat atomics' order and the freshly pretrained aligner)."""
+    from dbsr_tpu_torch.configs.dbsr.default_synthetic import \
+        graft_alignment_params
     from dbsr_tpu_torch.data.procedural import (dead_leaves_image,
                                                 make_generator)
     from dbsr_tpu_torch.data.synthetic import BurstConfig, synthesize_batch
@@ -465,89 +676,195 @@ def grad_phase():
     out = {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        net, _ = load_network(FLAGSHIP_CHECKPOINT, device=device, dtype=None)
+        net, _ = load_network(FLAGSHIP_CHECKPOINT, device=device, dtype=None,
+                              train_alignment=train_alignment)
+        if flow_ckpt is not None:
+            graft_alignment_params(net, flow_ckpt)
         b = {k: batch[k].to(device) for k in ("burst", "frame_gt")}
         with float32_math():
             loss, _ = make_synthetic_actor(net, boundary_ignore=40)(b)
             loss.backward()
-        out[device] = (loss.item(),
-                       {k: p.grad.detach().cpu() for k, p in
-                        net.named_parameters() if p.requires_grad},
-                       time.perf_counter() - t0)
+        out[device] = (loss.item(), _grads(net), time.perf_counter() - t0)
         del net
-    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["cuda"], out["cpu"]
-    rel_loss = abs(l_card - l_cpu) / abs(l_cpu)
-    diff2 = sum(float(((g_card[k] - g_cpu[k]) ** 2).sum()) for k in g_cpu)
-    norm2 = sum(float((g_cpu[k] ** 2).sum()) for k in g_cpu)
-    rel_grad = math.sqrt(diff2 / norm2)
-    worst = max(g_cpu, key=lambda k: float((g_card[k] - g_cpu[k]).norm())
-                / max(float(g_cpu[k].norm()), 1e-30))
-    worst_rel = float((g_card[worst] - g_cpu[worst]).norm()) \
-        / max(float(g_cpu[worst].norm()), 1e-30)
-    worst_share = float(g_cpu[worst].norm()) / math.sqrt(norm2)
-    log(f"train step card vs CPU (banked flagship, B=1, N=8): loss "
-        f"{l_card:.8f} vs {l_cpu:.8f} (rel {rel_loss:.2e}, limit "
-        f"{LOSS_RTOL}); all {len(g_cpu)} gradients ||diff||/||g|| "
-        f"{rel_grad:.2e} (limit {GRAD_TOL}); worst tensor {worst}: "
-        f"||diff||/||its g|| {worst_rel:.2e}, its ||g|| {worst_share:.2e} of "
-        f"the whole (a tensor whose true gradient is ~0, such as the bias "
-        f"of the merge's logits, to which the frame softmax is blind, shows "
-        f"rounding noise here); step {s_card:.1f} s on the card (first, "
-        f"with set-up), {s_cpu:.1f} s on the CPU")
-    if not rel_loss <= LOSS_RTOL:
-        raise AssertionError(f"card vs CPU loss: {rel_loss} > {LOSS_RTOL}")
-    if not rel_grad <= GRAD_TOL:
-        raise AssertionError(f"card vs CPU gradients: {rel_grad} > {GRAD_TOL}")
-    return dict(loss_rel=rel_loss, grad_rel=rel_grad, worst_tensor=worst,
-                worst_tensor_rel=worst_rel, worst_tensor_norm_share=worst_share)
+    what = ("train step (banked flagship, B=1, N=8"
+            + (", the port's own aligner grafted, train_alignment=True)"
+               if train_alignment else ")"))
+    return card_vs_cpu(what, out, "encoder.alignment_net."
+                       if train_alignment else None, each=False)
 
 
-def training_entry_phase(workdir):
-    """Phase 7b: the training entry, one epoch, then a second resumed from
-    the first; the main path's exact launch counts per train step."""
+def pretrain_grad_phase(dev):
+    """Phase 8a: one ``BurstAlignLite`` train step at full width (B=16, N=8)
+    on the card and on the CPU, from the same fresh parameters and the same
+    batch (synthesised on the card, copied to the CPU). A gradient that
+    stopped at the cost volumes would still be non-zero (the extractor also
+    feeds the decoders directly), so each extractor tensor's gradient is
+    held against the CPU's on its own."""
+    from dbsr_tpu_torch.data.procedural import (dead_leaves_image,
+                                                make_generator)
+    from dbsr_tpu_torch.data.synthetic import BurstConfig, synthesize_batch
+    from dbsr_tpu_torch.models.align_lite import BurstAlignLite
+    from dbsr_tpu_torch.models.layers import init_params
+    from dbsr_tpu_torch.serving import float32_math
+    from dbsr_tpu_torch.training.actors import make_lite_flow_actor
+
+    cfg = BurstConfig(fused_resample=True)
+    gen = make_generator(dev, 21)
+    with float32_math():
+        batch = synthesize_batch(
+            gen, dead_leaves_image(gen, TRAIN_B, cfg.pre_crop_sz), cfg)
+    out = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        net = init_params(BurstAlignLite(), make_generator("cpu", 22))
+        net = net.to(device)
+        b = {k: batch[k].to(device) for k in ("burst", "flow")}
+        reset_counts()
+        with float32_math():
+            loss, stats = make_lite_flow_actor(net)(b)
+            loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = dict(LAUNCHES_PER_PRETRAIN_STEP, resample=0)
+            if counts != want:
+                raise AssertionError(f"pretrain step: launches {counts}, "
+                                     f"expected {want}")
+        out[device] = (loss.item(), _grads(net), time.perf_counter() - t0)
+        del net
+    return card_vs_cpu(f"pretrain step (fresh BurstAlignLite, B={TRAIN_B}, "
+                       f"N={TRAIN_N})", out, "alignment_net.extractor.")
+
+
+def entry_phase(module, config, kwargs, epochs_list, per_step_want,
+                net_name):
+    """Drive ``run_training(module, config, ...)`` once for each entry of
+    ``epochs_list`` (each run resumes from the one before), the launch
+    counters reset just before each run and read just after: each kernel
+    must have launched exactly ``per_step_want`` times per train step.
+    Returns the launches per step, the logged running stats by name, the
+    printed text and the checkpoint headers by epoch."""
     from dbsr_tpu_torch.run_training import run_training
+    from dbsr_tpu_torch.training.checkpoint import (list_checkpoints,
+                                                    read_header)
 
-    kwargs = dict(SMOKE_SETTINGS, pwc_checkpoint=ALIGN_LITE)
     steps = kwargs["steps_per_epoch"]
-    log(f"run_training cuts against default_synthetic: steps_per_epoch "
-        f"{steps} of 1000, epochs 2 of 100, pool_size "
-        f"{kwargs['pool_size']} of 2048; no val pass (every 5 epochs); "
-        f"full width, B={TRAIN_B}, N={TRAIN_N}, 384^2 crops")
-    losses, per_step = [], None
-    for epochs in (1, 2):
+    logged, texts, per_step, done = defaultdict(list), [], None, 0
+    for epochs in epochs_list:
         buf = io.StringIO()
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            state = run_training("dbsr", "default_synthetic", epochs=epochs,
-                                 **kwargs)
+            state = run_training(module, config, epochs=epochs, **kwargs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = read_counts()
         text = buf.getvalue()
+        texts.append(text)
         for line in text.splitlines():
             log(f"  | {line}")
-        check_counts(f"run_training epochs={epochs}", counts, steps)
-        per_step = {k: v // steps for k, v in counts.items()}
+        ran = (epochs - done) * steps
+        check_counts(f"run_training {module} {config} epochs={epochs}",
+                     counts, ran, per_step_want)
+        per_step = {k: v // ran for k, v in counts.items()}
         if state.step != epochs * steps:
             raise AssertionError(f"step {state.step} after {epochs} epochs")
         if "Training crashed" in text or "ivergence" in text:
             raise AssertionError("run_training restarted an epoch")
-        if epochs == 2 and not re.search(r"resumed from \S+_ep0001\.ckpt "
-                                         r"\(epoch 1", text):
-            raise AssertionError("the second run did not resume from epoch 1")
-        losses += [float(v) for v in re.findall(r"Loss/total: (\S+?),", text)]
-        log(f"run_training epochs={epochs}: {wall:.1f} s wall")
-    ckpts = sorted(os.listdir(os.path.join(workdir, "dbsr",
-                                           "default_synthetic")))
-    log(f"checkpoints: {ckpts}")
-    if "dbsr_synthetic_ep0002.ckpt" not in ckpts:
-        raise AssertionError("no epoch-2 checkpoint")
+        if done and not re.search(rf"resumed from \S+_ep{done:04d}\.ckpt "
+                                  rf"\(epoch {done}", text):
+            raise AssertionError(f"the run did not resume from epoch {done}")
+        for name, v in re.findall(r"(\S+/\S+): (-?[\d.]+(?:e-?\d+)?|nan|inf)",
+                                  text):
+            logged[name].append(float(v))
+        log(f"run_training {module} {config} epochs={epochs}: {wall:.1f} s "
+            f"wall")
+        done = epochs
+    workspace = os.path.join(os.environ["DBSR_TPU_WORKSPACE_DIR"], module,
+                             config)
+    ckpts = list_checkpoints(workspace, net_name)
+    log(f"checkpoints: {[os.path.basename(p) for _, p in ckpts]}")
+    if not ckpts or ckpts[-1][0] != epochs_list[-1]:
+        raise AssertionError(f"no epoch-{epochs_list[-1]} checkpoint")
+    losses = logged["Loss/total"]
     if not losses or not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"logged losses not all finite: {losses}")
     log(f"logged running losses: {losses}")
-    return per_step, losses
+    return per_step, dict(logged), texts, {e: read_header(p)
+                                           for e, p in ckpts}
+
+
+def training_entry_phase():
+    """Phase 7b: the training entry with the banked aligner, one epoch, then
+    a second resumed from the first; the main path's exact launch counts per
+    train step."""
+    kwargs = dict(SMOKE_SETTINGS, pwc_checkpoint=ALIGN_LITE)
+    log(f"run_training cuts against default_synthetic: steps_per_epoch "
+        f"{kwargs['steps_per_epoch']} of 1000, epochs 2 of 100, pool_size "
+        f"{kwargs['pool_size']} of 2048; no val pass (every 5 epochs); "
+        f"full width, B={TRAIN_B}, N={TRAIN_N}, 384^2 crops")
+    per_step, logged, _, _ = entry_phase(
+        "dbsr", "default_synthetic", kwargs, (1, 2), LAUNCHES_PER_TRAIN_STEP,
+        "dbsr_synthetic")
+    return per_step, logged["Loss/total"]
+
+
+def zero_flow_epe(dev, epoch):
+    """The end-point error of the zero flow on the batches that epoch
+    ``epoch`` of the smoke pretraining trained on: the mean norm of the
+    target (the negated synthesis flow pooled to the packed grid), over the
+    same pools, crops and draws, made again from the trainer's own stream."""
+    from dbsr_tpu_torch.configs.align_lite import pretrain_synthetic
+    from dbsr_tpu_torch.serving import float32_math
+    from dbsr_tpu_torch.training.actors import (end_point_error,
+                                                pack_flow_to)
+
+    trainer = pretrain_synthetic.make_trainer(_settings(**PRETRAIN_SETTINGS),
+                                              dev)
+    trainer.epoch = epoch
+    loader = trainer.loaders[0]
+    gen = trainer.cycle_generator(loader)
+    total = torch.zeros((), device=dev)
+    with torch.no_grad(), float32_math():
+        for _ in range(loader.num_batches()):
+            batch = trainer.prepare_fn(gen, loader.batcher.next_batch())
+            h, w = batch["burst"].shape[2:4]
+            gt = pack_flow_to(-batch["flow"][:, 1:], (h, w))
+            total += end_point_error(gt).mean()
+    return float(total) / loader.num_batches()
+
+
+def pretrain_entry_phase(dev):
+    """Phase 8b: ``run_training("align_lite", "pretrain_synthetic")`` for
+    one epoch, then a second resumed from the first; the exact launches per
+    pretraining step; the epoch's mean ``Stat/epe`` must fall from the first
+    epoch to the second and end below the zero-flow EPE of the second
+    epoch's own batches."""
+    log(f"run_training cuts against align_lite/pretrain_synthetic: "
+        f"steps_per_epoch {PRETRAIN_STEPS} of 1000, epochs 2 of 15, pool_size "
+        f"{PRETRAIN_SETTINGS['pool_size']} of 2048; no val pass (every 5 "
+        f"epochs); full width, B={TRAIN_B}, N={TRAIN_N}, 384^2 crops")
+    per_step, logged, _, headers = entry_phase(
+        "align_lite", "pretrain_synthetic", dict(PRETRAIN_SETTINGS), (1, 2),
+        LAUNCHES_PER_PRETRAIN_STEP, "align_lite")
+    epe = {e: h["stats"]["train"]["Stat/epe"] for e, h in headers.items()}
+    acc = {e: h["stats"]["train"]["Stat/acc_0.5px"]
+           for e, h in headers.items()}
+    zero = {e: zero_flow_epe(dev, e) for e in (1, 2)}
+    log(f"pretraining, mean Stat/epe by epoch (packed px): {epe}; zero-flow "
+        f"EPE of the same batches: {zero}; Stat/acc_0.5px: {acc}; running "
+        f"Stat/epe as logged: {logged['Stat/epe']}")
+    if headers[2]["net_spec"]["cls"] != "BurstAlignLite":
+        raise AssertionError(f"checkpoint header: {headers[2]['net_spec']}")
+    if not epe[2] < epe[1]:
+        raise AssertionError(f"Stat/epe did not fall: {epe}")
+    if not epe[2] < zero[2]:
+        raise AssertionError(f"Stat/epe {epe[2]} of epoch 2 is not below the "
+                             f"zero-flow EPE {zero[2]} of its batches")
+    return per_step, dict(epe_by_epoch=epe, zero_flow_epe_by_epoch=zero,
+                          acc_half_px_by_epoch=acc,
+                          running_epe=logged["Stat/epe"])
 
 
 def _step_part(evt):
@@ -572,36 +889,58 @@ def _labelled(label, fn):
     return call
 
 
-def step_phase(dev):
-    """Phases 7c and 7d: the configured trainer from a fresh network with
-    the grafted aligner; 20 Adam steps on one fixed batch (the generator is
-    reseeded each step, so the crop draw and synthesis repeat), timed by
-    CUDA events; then a profile of three train steps, its device time by
-    part of the step (synthesis, forward, backward, optimizer) and by
-    kernel group."""
+def _settings(**kwargs):
+    from dbsr_tpu_torch.environment import Settings
+
+    settings = Settings()
+    for k, v in kwargs.items():
+        setattr(settings, k, v)
+    return settings
+
+
+def default_synthetic_trainer(dev, **kwargs):
+    """``default_synthetic``'s trainer from a fresh network with the found
+    or given aligner grafted, on a pool of one batch."""
+    from dbsr_tpu_torch.configs.dbsr.default_synthetic import (
+        graft_alignment_params, make_trainer)
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer, flow_ckpt = make_trainer(
+            _settings(**dict(SMOKE_SETTINGS, pool_size=TRAIN_B, **kwargs)),
+            dev)
+    state = trainer.init_state()
+    graft_alignment_params(trainer.net, flow_ckpt)
+    return trainer, state
+
+
+def pretrain_trainer(dev):
+    """``align_lite/pretrain_synthetic``'s trainer from a fresh network, on
+    a pool of one batch."""
+    from dbsr_tpu_torch.configs.align_lite import pretrain_synthetic
+
+    trainer = pretrain_synthetic.make_trainer(
+        _settings(**dict(PRETRAIN_SETTINGS, pool_size=TRAIN_B)), dev)
+    return trainer, trainer.init_state()
+
+
+def step_phase(dev, what, trainer, state, per_step_want, n_steps=20):
+    """Phases 7c-7d, 8c and 9: ``n_steps`` Adam steps of ``trainer`` on one
+    fixed batch (the generator is reseeded each step, so the crop draw and
+    synthesis repeat), timed by CUDA events, the loss must fall; then a
+    profile of three train steps, its device time by part of the step
+    (synthesis, forward, backward, optimizer) and by kernel group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from dbsr_tpu_torch.configs.dbsr.default_synthetic import (
-        graft_alignment_params, make_trainer)
     from dbsr_tpu_torch.data.procedural import make_generator
-    from dbsr_tpu_torch.environment import Settings
     from dbsr_tpu_torch.profile_serving import kernel_group, kernel_us
 
-    settings = Settings()
-    for k, v in dict(SMOKE_SETTINGS, pwc_checkpoint=ALIGN_LITE,
-                     pool_size=TRAIN_B).items():
-        setattr(settings, k, v)
-    with contextlib.redirect_stdout(io.StringIO()):
-        trainer, flow_ckpt = make_trainer(settings, dev)
-    state = trainer.init_state()
-    graft_alignment_params(trainer.net, flow_ckpt)
     pool = trainer.loaders[0].batcher.next_batch()
 
     losses, times = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for i in range(20):
+    for i in range(n_steps):
         if i == 3:
             reset_counts()
         start = torch.cuda.Event(enable_timing=True)
@@ -611,22 +950,23 @@ def step_phase(dev):
         end.record()
         if i == 3:
             torch.cuda.synchronize()
-            check_counts("one train step", read_counts(), 1)
+            check_counts(f"one step, {what}", read_counts(), 1,
+                         per_step_want)
         losses.append(stats["Loss/total"])
         times.append((start, end))
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(v) for v in losses]
     step_ms = statistics.median(s.elapsed_time(e) for s, e in times[5:])
-    log(f"fixed batch, 20 Adam steps from a fresh network: loss "
-        f"{losses[0]:.6f} -> {losses[-1]:.6f}; all: "
+    log(f"{what}: fixed batch, {n_steps} Adam steps from a fresh network: "
+        f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; all: "
         + ", ".join(f"{v:.5f}" for v in losses))
     if not losses[-1] < losses[0]:
-        raise AssertionError("the loss did not fall over 20 steps on one "
-                             "batch")
-    log(f"train step at B={TRAIN_B}: median {step_ms:.2f} ms (CUDA events, "
-        f"steps 6-20), {TRAIN_B / step_ms * 1e3:.2f} samples/s, peak memory "
-        f"{peak:.2f} GiB")
+        raise AssertionError(f"{what}: the loss did not fall over {n_steps} "
+                             f"steps on one batch")
+    log(f"{what}: step at B={TRAIN_B}: median {step_ms:.2f} ms (CUDA events, "
+        f"steps 6-{n_steps}), {TRAIN_B / step_ms * 1e3:.2f} samples/s, peak "
+        f"memory {peak:.2f} GiB")
     gen = make_generator(dev, 8)
     synth_ms = cuda_ms(lambda: trainer.prepare_fn(gen, pool), 1, 5)
 
@@ -652,7 +992,7 @@ def step_phase(dev):
     groups = defaultdict(float)
     for name, us, _ in rows:
         groups[kernel_group(name)] += us
-    log(f"profile of {steps} train steps: wall {wall_us / steps / 1e3:.2f} "
+    log(f"{what}: profile of {steps} train steps: wall {wall_us / steps / 1e3:.2f} "
         f"ms/step, device busy {busy_us / steps / 1e3:.2f} ms/step "
         f"({100 * busy_us / wall_us:.1f}% of wall); synthesis (prepare "
         f"alone, CUDA events) {synth_ms:.2f} ms")
@@ -691,6 +1031,63 @@ def step_phase(dev):
                 profile_ms_per_step_by_part={p: dict(g)
                                              for p, g in split.items()},
                 device_busy_share=busy_us / wall_us)
+
+
+def closing_phase(dev):
+    """Phase 9: in the workspace that the smoke pretraining wrote,
+    ``default_synthetic`` with no ``pwc_checkpoint`` finds the port's own
+    aligner checkpoint, grafts it and takes a few steps frozen; asking the
+    same workspace for ``train_alignment=True`` is refused; from a fresh
+    ``dbsr`` workspace it takes a few steps with the aligner unfrozen. Then
+    one unfrozen step's gradients against the CPU's (B=1), and the unfrozen
+    step's time and peak memory at B=16."""
+    import shutil
+
+    from dbsr_tpu_torch.run_training import run_training
+    from dbsr_tpu_torch.training.checkpoint import resolve_checkpoint
+
+    workspace = os.environ["DBSR_TPU_WORKSPACE_DIR"]
+    flow_ckpt = resolve_checkpoint(os.path.join(
+        workspace, "align_lite", "pretrain_synthetic"), "align_lite")
+    out = {}
+    for name, extra, want in (
+            ("frozen", {}, LAUNCHES_PER_TRAIN_STEP),
+            ("train_alignment", {"train_alignment": True},
+             LAUNCHES_PER_UNFROZEN_STEP)):
+        kwargs = dict(SMOKE_SETTINGS, steps_per_epoch=5, **extra)
+        if extra:
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    run_training("dbsr", "default_synthetic", epochs=2,
+                                 **kwargs)
+            except ValueError as e:
+                if "cross-restore" not in str(e):
+                    raise
+                log(f"resume of the frozen run's workspace with "
+                    f"train_alignment=True refused: {e}")
+            else:
+                raise AssertionError("a masked workspace resumed unmasked")
+            shutil.rmtree(os.path.join(workspace, "dbsr"))
+        per_step, logged, texts, headers = entry_phase(
+            "dbsr", "default_synthetic", kwargs, (1,), want, "dbsr_synthetic")
+        if (f"using pretrained flow weights: {flow_ckpt} (flow_net=lite, "
+                f"train_alignment={bool(extra)})") not in texts[0] \
+                or "grafted pretrained flow weights" not in texts[0]:
+            raise AssertionError(f"{name}: the port's own aligner checkpoint "
+                                 f"{flow_ckpt} was not found and grafted")
+        if headers[1]["settings"] != {"masked_adam": not extra}:
+            raise AssertionError(f"{name}: header {headers[1]['settings']}")
+        out[name] = dict(launches_per_step=per_step,
+                         losses=logged["Loss/total"])
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = grad_phase(train_alignment=True,
+                                    flow_ckpt=flow_ckpt)
+    torch.cuda.empty_cache()
+    trainer, state = default_synthetic_trainer(dev, train_alignment=True)
+    out["step"] = step_phase(dev, "default_synthetic, train_alignment=True",
+                             trainer, state, LAUNCHES_PER_UNFROZEN_STEP,
+                             n_steps=10)
+    return out
 
 
 def main():
@@ -763,8 +1160,6 @@ def main():
             raise AssertionError(f"{k}: {launches[k]} launches in "
                                  f"{len(requests)} forwards, expected "
                                  f"{per_forward} per forward")
-    for e in results:
-        e["launches"] = launches[e["name"]]
 
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -812,24 +1207,57 @@ def main():
     results += new
     torch.cuda.empty_cache()
 
-    # 7. training
+    # 7. training with the banked aligner, frozen
     grads = grad_phase()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         os.environ["DBSR_TPU_ENV"] = os.path.join(workdir, "env.json")
-        os.environ["DBSR_TPU_WORKSPACE_DIR"] = workdir
+        os.environ["DBSR_TPU_WORKSPACE_DIR"] = os.path.join(workdir, "banked")
         os.environ.pop("DBSR_TPU_ZURICHRAW2RGB_DIR", None)
-        per_step, run_losses = training_entry_phase(workdir)
+        per_step, run_losses = training_entry_phase()
         torch.cuda.empty_cache()
-        train = step_phase(dev)
-    for e in new:
-        e["launches"] = per_step[e["name"]]  # per train step
+        trainer, state = default_synthetic_trainer(dev,
+                                                   pwc_checkpoint=ALIGN_LITE)
+        train = step_phase(dev, "default_synthetic", trainer, state,
+                           LAUNCHES_PER_TRAIN_STEP)
+        del trainer, state
+        torch.cuda.empty_cache()
+
+        # 8. pretraining the aligner; 9. default_synthetic from its checkpoint
+        os.environ["DBSR_TPU_WORKSPACE_DIR"] = os.path.join(workdir, "own")
+        pre_grads = pretrain_grad_phase(dev)
+        torch.cuda.empty_cache()
+        pre_per_step, pretrain = pretrain_entry_phase(dev)
+        torch.cuda.empty_cache()
+        trainer, state = pretrain_trainer(dev)
+        pretrain["step"] = step_phase(dev, "align_lite pretraining", trainer,
+                                      state, LAUNCHES_PER_PRETRAIN_STEP)
+        del trainer, state
+        torch.cuda.empty_cache()
+        closing = closing_phase(dev)
+    paths = {"train_step": per_step, "pretrain_step": pre_per_step,
+             "train_alignment_step":
+                 closing["train_alignment"]["launches_per_step"]}
+    for e in results:
+        # launches on each driven path: the three serving requests, then per
+        # step of the three training paths; `launches` is the count on the
+        # entry's own path
+        by_path = {"serving_3_requests": launches[e["name"]],
+                   **{k: v[e["name"]] for k, v in paths.items()}}
+        e["launches_by_path"] = by_path
+        e["launches"] = by_path[e["path"]]
+        if not e["launches"]:
+            raise AssertionError(f"{e['name']} was not launched on its path "
+                                 f"{e['path']}")
 
     summary = dict(bursts_per_s_b8=B / req_s, request_ms_b8=req_s * 1e3,
                    forward_ms_b8=fwd_ms, card_vs_cpu_max_abs=diff,
                    peak_mem_gib=serving_peak, train=train,
                    train_card_vs_cpu=grads, run_training_losses=run_losses,
-                   launches_per_train_step=per_step, build_s=secs,
+                   launches_per_train_step=per_step,
+                   pretrain=pretrain, pretrain_card_vs_cpu=pre_grads,
+                   launches_per_pretrain_step=pre_per_step,
+                   closing_the_loop=closing, build_s=secs,
                    total_s=time.perf_counter() - t_start, card=smi)
     log("summary " + json.dumps(summary))
     log(smi)

@@ -6,12 +6,16 @@ before the 24 px border crop) at x4 downsampling, <= 24 px translation and
 <= 1 degree rotation, fused resampling; L1 loss with boundary_ignore 40;
 Adam 1e-4 with StepLR(40 epochs, 0.2). Source imagery is the procedural
 dead-leaves pool on the device. The AlignLite aligner is grafted from a
-pretrained checkpoint and frozen (the reference protocol).
+pretrained checkpoint and frozen (the reference protocol): the latest
+checkpoint of ``align_lite/pretrain_synthetic`` in the workspace (run
+``python -m dbsr_tpu_torch.run_training align_lite pretrain_synthetic``
+first), or ``--set pwc_checkpoint=<path>``. ``--set train_alignment=True``
+trains the grafted aligner with the rest (Adam then covers it too).
 
 Settings read (``--set K=V``): ``batch_size``, ``epochs``,
 ``steps_per_epoch``, ``print_interval``, ``seed``, ``pool_size``,
-``fused_resample``, ``pwc_checkpoint``, ``grad_clip``; and, to refuse what
-the port does not run, ``compute_dtype``, ``mix``, ``train_alignment`` and
+``fused_resample``, ``pwc_checkpoint``, ``train_alignment``, ``grad_clip``;
+and, to refuse what the port does not run, ``compute_dtype``, ``mix`` and
 ``flow_net``.
 """
 
@@ -25,12 +29,13 @@ PRETRAINED_HINT = ("--set pwc_checkpoint="
                    "dbsr_tpu/artifacts/align_lite_params.ckpt")
 
 
-VAL_BATCHES, VAL_INTERVAL = 200, 5  # a val pass of 200 batches every 5 epochs
-
-
-def make_data(settings, cfg, steps_per_epoch: int, device):
+def make_data(settings, cfg, steps_per_epoch: int, device,
+              val_batches: int = 200, val_interval: int = 5):
     """``(loaders, prepare_fn)``: device-resident procedural dead-leaves
-    pools for train and val (the val pool an eighth of the train pool)."""
+    pools for train and val (the val pool an eighth of the train pool; a val
+    pass of ``val_batches`` batches every ``val_interval`` epochs). Shared
+    with ``align_lite/pretrain_synthetic``, so both train on the same source
+    distribution."""
     from dbsr_tpu_torch.data.procedural import (ProceduralImagePool,
                                                 ProceduralPoolBatcher,
                                                 make_pool_prepare_fn)
@@ -55,8 +60,8 @@ def make_data(settings, cfg, steps_per_epoch: int, device):
     loaders = [
         LoaderSpec("train", ProceduralPoolBatcher(train_pool, B,
                                                   steps_per_epoch)),
-        LoaderSpec("val", ProceduralPoolBatcher(val_pool, B, VAL_BATCHES),
-                   training=False, epoch_interval=VAL_INTERVAL),
+        LoaderSpec("val", ProceduralPoolBatcher(val_pool, B, val_batches),
+                   training=False, epoch_interval=val_interval),
     ]
     return loaders, make_pool_prepare_fn(cfg, B)
 
@@ -104,6 +109,27 @@ def graft_alignment_params(net, flow_ckpt_path: str) -> None:
     aligner.load_state_dict(sub, strict=True)
 
 
+def check_resume_matches(workspace: str, net_name: str,
+                         masked: bool) -> None:
+    """Refuse to resume a workspace whose checkpoints were written with the
+    other optimizer structure: Adam over the trainable parameters only
+    (``masked``, the frozen aligner) and Adam over all of them
+    (``train_alignment=True``) do not restore into each other."""
+    from dbsr_tpu_torch.training.checkpoint import (read_header,
+                                                    resolve_checkpoint)
+
+    path = resolve_checkpoint(workspace, net_name)
+    if path is None:
+        return
+    recorded = read_header(path).get("settings", {}).get("masked_adam")
+    if recorded is not None and bool(recorded) != masked:
+        raise ValueError(
+            f"{path} was written with masked_adam={bool(recorded)} "
+            f"(train_alignment={not recorded}), but this run asks for "
+            f"train_alignment={not masked}: the two optimizer states cannot "
+            "cross-restore. Keep the setting, or start a fresh workspace.")
+
+
 def make_trainer(settings, device="cuda"):
     """``(trainer, flow_ckpt)``: the configured :class:`Trainer` (fresh
     network, procedural pools, Adam) and the pretrained AlignLite
@@ -134,12 +160,15 @@ def make_trainer(settings, device="cuda"):
     flow_ckpt = find_pretrained_flow(settings)
     if flow_ckpt is None or flow_net_kind(flow_ckpt) != "lite":
         raise RuntimeError(
-            "the port trains DBSR with a pretrained, frozen AlignLite "
-            f"aligner and found {'none' if flow_ckpt is None else flow_ckpt}"
-            f"; pass {PRETRAINED_HINT} (end-to-end aligner training is not "
-            "ported)")
+            "the port trains DBSR from a pretrained AlignLite aligner and "
+            f"found {'none' if flow_ckpt is None else flow_ckpt}; run "
+            "`python -m dbsr_tpu_torch.run_training align_lite "
+            f"pretrain_synthetic` first, or pass {PRETRAINED_HINT} (the "
+            "fallback without one is end-to-end training of PWC-Net, which "
+            "is not ported)")
+    train_alignment = bool(getattr(settings, "train_alignment", False))
     print(f"using pretrained flow weights: {flow_ckpt} (flow_net=lite, "
-          "train_alignment=False)", flush=True)
+          f"train_alignment={train_alignment})", flush=True)
 
     dev = torch.device(device)
     loaders, prepare_fn = make_data(settings, cfg, steps_per_epoch, dev)
@@ -150,12 +179,16 @@ def make_trainer(settings, device="cuda"):
         upsample_factor=cfg.downsample_factor * 2,
         offset_feat_dim=64, weight_pred_proj_dim=64,
         num_weight_predictor_res=3, gauss_blur_sd=1.0, icnrinit=True,
-        train_alignment=getattr(settings, "train_alignment", False),
+        train_alignment=train_alignment,
         flow_net=getattr(settings, "flow_net", "lite"),
         fused_s2d_decoder=getattr(settings, "fused_s2d_decoder", True))
     actor = make_synthetic_actor(net, loss_weight=1.0, boundary_ignore=40)
     workspace = os.path.join(settings.env.workspace_dir, "dbsr",
                              "default_synthetic")
+    # Adam runs over the trainable parameters: with the aligner frozen that
+    # is the JAX package's masked Adam, with train_alignment its plain one
+    masked = not train_alignment
+    check_resume_matches(workspace, "dbsr_synthetic", masked)
     tx = make_optimizer(base_lr=1e-4, step_size_epochs=40, gamma=0.2,
                         steps_per_epoch=steps_per_epoch,
                         clip_norm=getattr(settings, "grad_clip", None))
@@ -163,7 +196,7 @@ def make_trainer(settings, device="cuda"):
                       net_name="dbsr_synthetic",
                       print_interval=settings.print_interval,
                       seed=getattr(settings, "seed", 0),
-                      header_settings={"masked_adam": True}, device=dev)
+                      header_settings={"masked_adam": masked}, device=dev)
     return trainer, flow_ckpt
 
 

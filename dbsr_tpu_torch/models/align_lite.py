@@ -1,12 +1,18 @@
 """AlignLite, the 3-level siamese correlation aligner (port of
-``dbsr_tpu/models/align_lite.py:55-175``).
+``dbsr_tpu/models/align_lite.py:55-209``).
 
 ``AlignLiteNet(source, target) -> flow [..., H, W, 2]`` in input pixels,
 with ``target(p) ~= source(p + flow(p))``. Each level correlates with the
 81-channel cost volume (``ops/correlation.py``, the CUDA kernel on the
 card); the finer levels backwarp the source features by the upsampled
 coarser flow first (``ops/interp.py:backwarp``, the CUDA warp kernel on the
-card).
+card). The whole net is differentiable: in training the gradient runs
+through the flow's resize, the backwarp (features and flow) and the cost
+volume, whose backward kernels the card launches.
+
+``BurstAlignLite(burst) -> flow [B, N-1, h, w, 2]`` is the standalone
+wrapper that pretraining trains; its checkpoint grafts into
+``DBSRNet.encoder.alignment_net``.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dbsr_tpu_torch.models.layers import ConvBlock
+from dbsr_tpu_torch.ops.camera import demosaic_naive
 from dbsr_tpu_torch.ops.correlation import NUM_OFFSETS, cost_volume
 from dbsr_tpu_torch.ops.interp import backwarp, resize_bilinear
 
@@ -70,12 +77,11 @@ class LiteDecoder(nn.Module):
 
     def forward(self, feat_tgt, feat_src, flow_up):
         if flow_up is None:
-            volume = _leaky(cost_volume(feat_tgt.contiguous(),
-                                        feat_src.contiguous()))
+            volume = _leaky(cost_volume(feat_tgt, feat_src))
             x = torch.cat([volume, feat_tgt], dim=-1)
         else:
             warped = backwarp(feat_src, flow_up)
-            volume = _leaky(cost_volume(feat_tgt.contiguous(), warped))
+            volume = _leaky(cost_volume(feat_tgt, warped))
             x = torch.cat([volume, feat_tgt, flow_up], dim=-1)
         for i in range(len(DEC_CH[self.level])):
             x = _leaky(getattr(self, f"dec{i}")(x))
@@ -108,7 +114,11 @@ class AlignLiteNet(nn.Module):
     ``target_repeat > 1`` declares that every ``target_repeat`` consecutive
     sources share one target (N-1 burst frames against one reference):
     ``target``'s leading size is then ``sources / target_repeat`` and its
-    pyramid is extracted once per target and repeated."""
+    pyramid is extracted once per target and repeated.
+
+    With ``return_pyramid=True`` it returns ``(flow, {"pyramid": {2: ..,
+    1: .., 0: ..}})``: each level's flow in its own grid's pixels, level 0
+    the refined full-resolution flow, for multi-scale supervision."""
 
     def __init__(self):
         super().__init__()
@@ -117,7 +127,8 @@ class AlignLiteNet(nn.Module):
             self.add_module(f"dec{lvl}", LiteDecoder(lvl))
         self.refiner = LiteRefiner(DEC_CH[0][-1] + 2)
 
-    def forward(self, source_img, target_img, target_repeat: int = 1):
+    def forward(self, source_img, target_img, target_repeat: int = 1,
+                return_pyramid: bool = False):
         if source_img.shape[-3:] != target_img.shape[-3:]:
             raise ValueError(f"source {tuple(source_img.shape)} and target "
                              f"{tuple(target_img.shape)} frame shapes differ")
@@ -136,6 +147,7 @@ class AlignLiteNet(nn.Module):
         if target_repeat > 1:
             f_tgt = [f.repeat_interleave(target_repeat, dim=0) for f in f_tgt]
 
+        pyramid = {}
         flow = None
         for lvl in (2, 1, 0):
             if flow is not None:
@@ -144,5 +156,52 @@ class AlignLiteNet(nn.Module):
                 flow = resize_bilinear(flow, (lh, lw)) * 2.0
             flow, feat = getattr(self, f"dec{lvl}")(f_tgt[lvl], f_src[lvl],
                                                     flow)
+            pyramid[lvl] = flow
         flow = flow + self.refiner(torch.cat([feat, flow], dim=-1))
-        return flow.float().reshape(lead + (H, W, 2))
+        pyramid[0] = flow  # the refined full-resolution flow is supervised
+
+        flow = flow.float().reshape(lead + (H, W, 2))
+        if return_pyramid:
+            return flow, {"pyramid": {
+                lvl: f.float().reshape(lead + f.shape[-3:])
+                for lvl, f in pyramid.items()}}
+        return flow
+
+
+class BurstAlignLite(nn.Module):
+    """Burst -> flow wrapper for AlignLite pretraining: the DBSR aligner's
+    input contract (demosaiced packed burst, frames 1..N-1 against frame 0,
+    as ``models.dbsr.AlignedEncoder``), the inner module named
+    ``alignment_net`` so that a checkpoint grafts into ``DBSRNet``'s
+    ``encoder.alignment_net``.
+
+    ``forward(burst [B, N, h, w, 4]) -> flow [B, N-1, h, w, 2]`` in
+    packed-grid pixels; with ``return_pyramid=True`` also the per-level
+    flows, each with the flattened ``[B*(N-1)]`` lead."""
+
+    # the JAX package's module of the same parameters (a checkpoint's
+    # ``net_spec``)
+    jax_spec = ("dbsr_tpu.models.align_lite", "BurstAlignLite")
+
+    def __init__(self, dtype=None):
+        super().__init__()
+        if dtype not in (None, "float32", torch.float32):
+            raise NotImplementedError(
+                f"BurstAlignLite port: dtype={dtype!r} is not supported yet")
+        self.spec_kwargs = {"dtype": dtype}
+        self.alignment_net = AlignLiteNet()
+
+    def forward(self, burst, return_pyramid: bool = False):
+        if burst.ndim != 5 or burst.shape[-1] != 4:
+            raise ValueError(f"expected [B, N, h, w, 4] packed burst, got "
+                             f"{tuple(burst.shape)}")
+        B, N = burst.shape[0], burst.shape[1]
+        rgb = demosaic_naive(burst)
+        oth = rgb[:, 1:].reshape((-1,) + rgb.shape[-3:])
+        if return_pyramid:
+            flow, aux = self.alignment_net(oth, rgb[:, 0],
+                                           target_repeat=N - 1,
+                                           return_pyramid=True)
+            return flow.reshape((B, N - 1) + flow.shape[-3:]), aux
+        flow = self.alignment_net(oth, rgb[:, 0], target_repeat=N - 1)
+        return flow.reshape((B, N - 1) + flow.shape[-3:])

@@ -7,8 +7,11 @@ batch for the per-frame convs. Three CUDA kernels run on the forward for
 CUDA tensors: the 512-channel feature warp (``ops/warp.py``), AlignLite's
 cost volumes (``ops/correlation.py``) and the frame-softmax merge
 (``ops/merge.py``); in training, the warp's d_feat and the merge's backward
-kernels run on the backward. The aligner is frozen: its flow is computed
-without gradient and its parameters do not require one.
+kernels run on the backward. By default the aligner is frozen: its flow is
+computed without gradient and its parameters do not require one. With
+``train_alignment=True`` the flow carries a gradient, and the backward also
+launches the warp's d_flow and, inside the aligner, the cost volume's
+d_first and d_second kernels.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from torch import nn
 
 from dbsr_tpu_torch.models.align_lite import AlignLiteNet
 from dbsr_tpu_torch.models.layers import ConvBlock, PixShuffleUpsampler, ResBlock
-from dbsr_tpu_torch.ops.camera import demosaic_naive
+from dbsr_tpu_torch.ops.camera import demosaic_naive, uniform
 from dbsr_tpu_torch.ops.merge import fused_softmax_merge
 from dbsr_tpu_torch.ops.warp import warp_feat
 
@@ -52,14 +55,16 @@ class ResEncoder(nn.Module):
 
 class AlignedEncoder(nn.Module):
     """Encode the burst frames and warp the non-reference embeddings to the
-    reference frame by AlignLite's flow, computed without gradient (the
-    aligner is frozen). Returns ``ref_feat`` ``[B, 1, h, w, C]``,
+    reference frame by AlignLite's flow, computed without gradient unless
+    ``train_alignment``. Returns ``ref_feat`` ``[B, 1, h, w, C]``,
     ``oth_feat`` ``[B, N-1, h, w, C]`` (warped) and ``offsets``
     ``[B, N-1, h, w, 2]``."""
 
     def __init__(self, init_dim: int = 64, num_res_blocks: int = 9,
-                 out_dim: int = 512, activation: str = "relu"):
+                 out_dim: int = 512, activation: str = "relu",
+                 train_alignment: bool = False):
         super().__init__()
+        self.train_alignment = train_alignment
         self.alignment_net = AlignLiteNet()
         self.embed = ResEncoder(4, init_dim, num_res_blocks, out_dim,
                                 activation)
@@ -70,7 +75,8 @@ class AlignedEncoder(nn.Module):
                              f"{tuple(burst.shape)}")
         B, N = burst.shape[0], burst.shape[1]
         rgb = demosaic_naive(burst)
-        with torch.no_grad():
+        with torch.set_grad_enabled(self.train_alignment
+                                    and torch.is_grad_enabled()):
             flow = self.alignment_net(_flatten_frames(rgb[:, 1:]), rgb[:, 0],
                                       target_repeat=N - 1)
         feat = self.embed(_flatten_frames(burst))
@@ -87,7 +93,12 @@ class WeightedSumMerge(nn.Module):
     against the base (reference-frame projection, or the frame mean),
     embed the sub-pixel offsets (mod ``offset_modulo``), predict per-pixel
     per-frame logits over ``input_dim`` channels, softmax over the frames
-    and sum (``ops/merge.py``)."""
+    and sum (``ops/merge.py``).
+
+    The reference frame's offsets are zeros, or ``ref_offsets``
+    ``[B, 1, h, w, 2]`` when the caller passes a draw of
+    :func:`draw_ref_offset_noise` (so that the net cannot find the
+    reference frame by "offset exactly 0")."""
 
     def __init__(self, input_dim: int = 512, project_dim: int = 64,
                  offset_feat_dim: int = 64,
@@ -119,7 +130,8 @@ class WeightedSumMerge(nn.Module):
         self.weight_out = ConvBlock(2 * project_dim, input_dim, 3,
                                     activation="none")
 
-    def forward(self, enc, return_fusion_weights: bool = False):
+    def forward(self, enc, return_fusion_weights: bool = False,
+                ref_offsets: Optional[torch.Tensor] = None):
         ref_feat, oth_feat, offsets = (enc["ref_feat"], enc["oth_feat"],
                                        enc["offsets"])
         B = ref_feat.shape[0]
@@ -135,7 +147,12 @@ class WeightedSumMerge(nn.Module):
 
         pred_in = [base_b, diff]
         if self.use_offset:
-            offs = torch.cat([torch.zeros_like(offsets[:, :1]), offsets], dim=1)
+            if ref_offsets is None:
+                ref_offsets = torch.zeros_like(offsets[:, :1])
+            elif ref_offsets.shape != offsets[:, :1].shape:
+                raise ValueError(f"ref_offsets {tuple(ref_offsets.shape)} vs "
+                                 f"{tuple(offsets[:, :1].shape)}")
+            offs = torch.cat([ref_offsets.to(offsets.dtype), offsets], dim=1)
             offs = _flatten_frames(offs)
             if self.offset_modulo is not None:
                 # floor-mod, as jnp's %, never torch.fmod
@@ -195,18 +212,32 @@ class PixShuffleDecoder(nn.Module):
         return self.ConvBlock_1(x)
 
 
+def draw_ref_offset_noise(generator: torch.Generator, shape,
+                          amplitude: float) -> torch.Tensor:
+    """The reference frame's offset noise: U[-amplitude, amplitude) of
+    ``shape`` ``[B, 1, h, w, 2]`` on the generator's device."""
+    return uniform(generator, tuple(shape), -amplitude, amplitude)
+
+
 class DBSRNet(nn.Module):
     """Full burst SR network: ``forward(burst [B, N, h, w, 4]) ->
     (pred [B, r*h, r*w, 3], aux)`` with ``aux['offsets']`` and, when asked,
     ``aux['fusion_weights']``.
 
     The constructor takes the JAX package's ``DBSRNet`` fields, so a
-    checkpoint's ``net_spec`` rebuilds it. What this port does not run yet
-    raises: another aligner than ``'lite'``, a trainable aligner, the
-    reference-offset noise, non-softmax fusion, and a compute dtype other
-    than float32. ``fused_s2d_decoder`` selects a TPU layout of the same
-    decoder, so it has no effect here.
+    checkpoint's ``net_spec`` rebuilds it. ``train_alignment=True`` trains
+    the aligner with the rest; ``ref_offset_noise > 0`` perturbs the
+    reference frame's zero offsets, only when ``forward`` is handed a
+    ``noise_generator`` (a training caller's choice; none passes zeros).
+    What this port does not run yet raises: another aligner than
+    ``'lite'``, non-softmax fusion, and a compute dtype other than float32.
+    ``fused_s2d_decoder`` selects a TPU layout of the same decoder, so it
+    has no effect here.
     """
+
+    # the JAX package's module of the same parameters (a checkpoint's
+    # ``net_spec``)
+    jax_spec = ("dbsr_tpu.models.dbsr", "DBSRNet")
 
     def __init__(self, enc_init_dim: int = 64, enc_num_res_blocks: int = 9,
                  enc_out_dim: int = 512, dec_init_conv_dim: int = 64,
@@ -230,8 +261,6 @@ class DBSRNet(nn.Module):
                             if k not in ("self", "__class__")}
         unsupported = {  # name: (value, unsupported?)
             "flow_net": (flow_net, flow_net != "lite"),
-            "train_alignment": (train_alignment, train_alignment),
-            "ref_offset_noise": (ref_offset_noise, ref_offset_noise > 0.0),
             "softmax": (softmax, not softmax),
             "dtype": (dtype, dtype not in (None, "float32", torch.float32)),
         }
@@ -239,8 +268,10 @@ class DBSRNet(nn.Module):
         if bad:
             raise NotImplementedError(
                 "DBSRNet port: not supported yet: " + ", ".join(bad))
+        self.ref_offset_noise = float(ref_offset_noise)
         self.encoder = AlignedEncoder(enc_init_dim, enc_num_res_blocks,
-                                      enc_out_dim, activation)
+                                      enc_out_dim, activation,
+                                      train_alignment)
         self.merging = WeightedSumMerge(
             enc_out_dim, weight_pred_proj_dim, offset_feat_dim,
             num_offset_feat_extractor_res, num_weight_predictor_res,
@@ -252,9 +283,15 @@ class DBSRNet(nn.Module):
         if not train_alignment:  # frozen: no gradient, no optimizer state
             self.encoder.alignment_net.requires_grad_(False)
 
-    def forward(self, burst, return_fusion_weights: bool = False):
+    def forward(self, burst, return_fusion_weights: bool = False,
+                noise_generator: Optional[torch.Generator] = None):
         enc = self.encoder(burst)
-        merged = self.merging(enc, return_fusion_weights)
+        ref_offsets = None
+        if self.ref_offset_noise > 0.0 and noise_generator is not None:
+            ref_offsets = draw_ref_offset_noise(
+                noise_generator, enc["offsets"][:, :1].shape,
+                self.ref_offset_noise)
+        merged = self.merging(enc, return_fusion_weights, ref_offsets)
         pred = self.decoder(merged["fused_enc"])
         aux = {"offsets": enc["offsets"]}
         if return_fusion_weights:

@@ -27,7 +27,7 @@ from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, load_predictor
 BATCH, FORWARDS = 8, 3
 OWN_KERNELS = ("warp_kernel", "correlation_kernel", "merge_kernel",
                "resample_kernel", "dfeat_kernel", "dflow_kernel",
-               "merge_bwd_kernel")
+               "merge_bwd_kernel", "dfirst_kernel", "dsecond_kernel")
 
 
 def kernel_group(name: str) -> str:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from dbsr_tpu_torch import resolve_device
+from dbsr_tpu_torch.models.align_lite import BurstAlignLite
 from dbsr_tpu_torch.models.dbsr import DBSRNet
 from dbsr_tpu_torch.utils.convert import params_from_flax, params_to_flax
 
@@ -265,17 +266,18 @@ def write_checkpoint(path: str, header: dict, tree: Any) -> str:
     return path
 
 
-def network_spec(net: DBSRNet) -> Dict[str, Any]:
-    """The JAX package's ``net_spec`` of the port's network: its module path
-    and class and the constructor kwargs (dtypes as ``{"__dtype__": name}``),
-    so ``dbsr_tpu.training.checkpoint.load_network`` rebuilds it."""
+def network_spec(net) -> Dict[str, Any]:
+    """The JAX package's ``net_spec`` of a port network (``DBSRNet``,
+    ``BurstAlignLite``): the JAX module's path and class (``net.jax_spec``)
+    and the constructor kwargs (dtypes as ``{"__dtype__": name}``), so
+    ``dbsr_tpu.training.checkpoint.load_network`` rebuilds it."""
     kwargs = {}
     for k, v in net.spec_kwargs.items():
         if isinstance(v, torch.dtype):
             v = {"__dtype__": str(v).replace("torch.", "")}
         kwargs[k] = v
-    return {"module": "dbsr_tpu.models.dbsr", "cls": "DBSRNet",
-            "kwargs": kwargs}
+    module, cls = net.jax_spec
+    return {"module": module, "cls": cls, "kwargs": kwargs}
 
 
 def save_checkpoint(directory: str, net_name: str, epoch: int, state,
@@ -337,7 +339,7 @@ def load_train_state(path: str, state) -> dict:
 
 
 # net_spec (module, cls) of the JAX package -> the port's class
-_NETWORKS = {("dbsr_tpu.models.dbsr", "DBSRNet"): DBSRNet}
+_NETWORKS = {cls.jax_spec: cls for cls in (DBSRNet, BurstAlignLite)}
 
 
 def load_network(path: str, device="cuda", **kwarg_overrides):

@@ -127,16 +127,20 @@ class Trainer:
         return stats
 
     # ------------------------------------------------------------------
+    def cycle_generator(self, loader: LoaderSpec) -> torch.Generator:
+        """The stream of one pass over ``loader`` in the current epoch. After
+        a divergence rollback the epoch is retried on a different stream:
+        replaying the same batches could reproduce the blow-up."""
+        return make_generator(self.device, self.seed + 1,
+                              self.epoch * 131 + (0 if loader.training else 1)
+                              + 1_000_003 * self._retry_salt)
+
     def _cycle(self, state: TrainState, loader: LoaderSpec) -> TrainState:
         """One pass over a loader."""
         stats = self.stats[loader.name]
         stats.new_epoch()
         n = loader.num_batches()
-        # after a divergence rollback the epoch is retried on a different
-        # stream: replaying the same batches could reproduce the blow-up
-        g = make_generator(self.device, self.seed + 1,
-                           self.epoch * 131 + (0 if loader.training else 1)
-                           + 1_000_003 * self._retry_salt)
+        g = self.cycle_generator(loader)
         t0 = time.perf_counter()
         samples_done = 0
         pending: List[tuple] = []

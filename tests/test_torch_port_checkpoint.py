@@ -99,12 +99,14 @@ def test_port_imports_neither_jax_nor_reference_package():
         "    dbsr_tpu_torch.__path__, 'dbsr_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'msgpack', 'dbsr_tpu'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'msgpack',\n"
+        "              'dbsr_tpu'))\n"
         "assert len(names) >= 15, names\n"
         "new = ['data.synthetic', 'data.procedural', 'ops.resample',\n"
         "       'ops.augment', 'ops.metrics', 'training.trainer',\n"
         "       'training.state', 'training.actors', 'run_training',\n"
-        "       'configs.dbsr.default_synthetic', 'environment']\n"
+        "       'configs.dbsr.default_synthetic', 'environment',\n"
+        "       'configs.align_lite.pretrain_synthetic']\n"
         "missing = [n for n in new if 'dbsr_tpu_torch.' + n not in names]\n"
         "assert not missing, missing\n"
         "assert not bad, bad\n"

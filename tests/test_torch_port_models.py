@@ -149,7 +149,7 @@ def test_load_predictor_cuda_without_card_raises():
 
 @pytest.mark.parametrize("override", [{"dtype": "bfloat16"},
                                       {"flow_net": "pwc"},
-                                      {"ref_offset_noise": 0.1}])
+                                      {"softmax": False}])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError, match=next(iter(override))):
         load_network(FLAGSHIP, device="cpu", **{"dtype": None, **override})
