@@ -5,17 +5,27 @@
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
 
+Phases 4-9 pin the decoder at fine resolution (``fused_s2d=False``,
+``fused_s2d_decoder=False``), so that their numbers stay comparable with
+the earlier runs; phase 10 drives the s2d decoder, the entry points'
+default.
+
 1. environment: torch / CUDA versions, the card's name and power limit;
    the predictor's forward runs its convs and matmuls with TF32 off
    (float32), which the script checks by leaving PyTorch's defaults on;
-2. build the nine CUDA kernels (seven sources) from
+2. build the ten CUDA kernels (eight sources) from
    ``dbsr_tpu_torch/kernels/csrc`` (one ``nvcc`` per source, all started
    together);
-3. each kernel against its plain PyTorch version on the card, float32, at
-   the shapes the serving forward gives it (B=8, N=14) and at those the
-   train step gives it (B=16, N=8), inputs from a fixed seed; times of the
-   kernel, the plain version and (warp only) ``F.grid_sample`` as a
-   library yardstick, by CUDA events, median of several runs after warm-up;
+3. each forward kernel against its plain PyTorch version on the card,
+   float32, at the shapes the serving forward gives it (B=8, N=14) and at
+   those the train step gives it (B=16, N=8), inputs from a fixed seed;
+   times of the kernel, the plain version and, where there is one, a
+   PyTorch library call as a yardstick (``F.grid_sample`` for the warp; for
+   the s2d conv the structured-dense ``F.conv2d`` on the s2d tensor, and,
+   for context, the fine-resolution ``F.conv2d`` on the unfolded tensor),
+   by CUDA events, median of several runs after warm-up; the s2d conv also
+   in its d_input orientation and against the fine-resolution conv, and
+   its ``Function``'s backward against autograd of the plain version;
 4. serving: ``load_predictor`` on the banked flagship checkpoint (full
    width, batch 8, 14 frames, 48x48 -> 384x384) answers three requests
    (8 bursts, 3 bursts, one burst) with the launch counters reset just
@@ -60,12 +70,24 @@ result line):
    ``train_alignment=True`` (exact launches per step; ``warp_dflow`` and
    the cost volume's backward now run inside DBSR's step); one unfrozen
    step's gradients against the CPU's at B=1; the unfrozen step's time and
-   peak memory at B=16.
+   peak memory at B=16;
+10. the s2d decoder: (a) ``load_predictor`` with its defaults answers the
+    three requests of phase 4 with ``DBSR_FINE_PATCH_S2D=1`` (exactly 8
+    ``conv_s2d`` launches per forward) and without it (the structured-dense
+    conv, none), and the fine decoder again, each form's bursts/s and peak
+    memory; (b) the card's forward with the kernel against the CPU's; (c)
+    one ``default_synthetic`` step with ``fused_s2d_decoder=True`` and the
+    switch at B=1 on the card against the CPU; (d) ``run_training`` for
+    one epoch of 5 steps with the switch (8 + 8 ``conv_s2d`` launches per
+    step on top of phase 7's); (e) the B=16 step's time and peak memory with
+    the kernel and with the dense conv (the fine form's is 7c's).
 
-The second-to-last line is ``{"kernels": [...]}`` (all nine kernels;
+The second-to-last line is ``{"kernels": [...]}`` (all ten kernels;
 ``launches`` is the count on the entry's own ``path``, whose shapes its
-times are summed over; ``launches_by_path`` has the counts on all four); the last line is
-``{"ok": true, "device": {...}}``.
+times are summed over, except the s2d conv's, whose times are one launch's
+and whose path launches it 8 times per forward; ``launches_by_path`` has
+the counts on all six paths); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 
 import contextlib
@@ -89,8 +111,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
 B, N, HW = 8, 14, 48
 # launches per forward: warp serves the 512-channel feature warp and
-# AlignLite's two backwarps; correlation runs at AlignLite's three levels
+# AlignLite's two backwarps; correlation runs at AlignLite's three levels;
+# the s2d conv runs only in phase 10 (LAUNCHES_S2D_PER_FORWARD)
 LAUNCHES_PER_FORWARD = {"warp": 3, "correlation": 3, "merge": 1}
+# the decoder's 4 post-shuffle ResBlocks x 2 convs, with the switch
+LAUNCHES_S2D_PER_FORWARD = 8
 FRAMES = B * (N - 1)
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6   # vs plain on the card: sum order only
 CARD_VS_CPU_TOL = 1e-3                  # [0, 1] output, whole network
@@ -104,7 +129,7 @@ TRAIN_FRAMES = TRAIN_B * (TRAIN_N - 1)
 LAUNCHES_PER_TRAIN_STEP = {"resample": 1, "warp": 3, "correlation": 3,
                            "merge": 1, "warp_dfeat": 1, "warp_dflow": 0,
                            "merge_backward": 1, "correlation_dfirst": 0,
-                           "correlation_dsecond": 0}
+                           "correlation_dsecond": 0, "conv_s2d": 0}
 # launches per AlignLite pretraining step: the synthesis' resample; the three
 # cost volumes with both gradients each (target and source features both
 # train); the two backwarps with d_feat (the source features) and d_flow (the
@@ -112,24 +137,31 @@ LAUNCHES_PER_TRAIN_STEP = {"resample": 1, "warp": 3, "correlation": 3,
 LAUNCHES_PER_PRETRAIN_STEP = {"resample": 1, "warp": 2, "correlation": 3,
                               "merge": 0, "warp_dfeat": 2, "warp_dflow": 2,
                               "merge_backward": 0, "correlation_dfirst": 3,
-                              "correlation_dsecond": 3}
+                              "correlation_dsecond": 3, "conv_s2d": 0}
 # launches per default_synthetic step with train_alignment=True: the frozen
 # step's, and the backward now runs through the flow (the 512-channel warp's
 # d_flow) and the aligner (its two backwarps and three cost volumes)
 LAUNCHES_PER_UNFROZEN_STEP = {"resample": 1, "warp": 3, "correlation": 3,
                               "merge": 1, "warp_dfeat": 3, "warp_dflow": 3,
                               "merge_backward": 1, "correlation_dfirst": 3,
-                              "correlation_dsecond": 3}
+                              "correlation_dsecond": 3, "conv_s2d": 0}
+# launches per default_synthetic step with the s2d decoder and
+# DBSR_FINE_PATCH_S2D=1: the frozen step's, and the decoder's 8 post-shuffle
+# 3x3 convs launch the s2d conv in the forward and again as d_input
+LAUNCHES_PER_S2D_STEP = dict(LAUNCHES_PER_TRAIN_STEP,
+                             conv_s2d=2 * LAUNCHES_S2D_PER_FORWARD)
 GRAD_TOL = 1e-3    # ||g_card - g_cpu||_2 <= GRAD_TOL ||g_cpu||_2, all grads
 LOSS_RTOL = 1e-5   # card vs CPU loss of one train step
 PRETRAIN_STEPS = 750  # per epoch of the smoke pretraining, two epochs
 # run_training's cuts against default_synthetic (1000 steps x 100 epochs,
 # a pool of 2048 sources; val every 5 epochs, so no val pass here)
-SMOKE_SETTINGS = dict(steps_per_epoch=10, pool_size=128, print_interval=5)
+SMOKE_SETTINGS = dict(steps_per_epoch=10, pool_size=128, print_interval=5,
+                      fused_s2d_decoder=False)
 # pretraining's cuts against align_lite/pretrain_synthetic (1000 steps x 15
 # epochs, a pool of 2048 sources; val every 5 epochs, so no val pass here)
 PRETRAIN_SETTINGS = dict(steps_per_epoch=PRETRAIN_STEPS, pool_size=128,
                          print_interval=150)
+FINE_PATCH_ENV = "DBSR_FINE_PATCH_S2D"  # the fine-patch s2d conv's switch
 ALIGN_LITE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "dbsr_tpu", "artifacts", "align_lite_params.ckpt")
 
@@ -256,7 +288,85 @@ def kernel_phase(dev, g):
                "dbsr_tpu/ops/correlation.py:85", correlation_rows(FRAMES),
                correlation_rows(TRAIN_FRAMES)),
         _entry("merge", csrc + "merge.cu", "dbsr_tpu/ops/merge_pallas.py:78",
-               merge_rows(B, N), merge_rows(TRAIN_B, TRAIN_N))]
+               merge_rows(B, N), merge_rows(TRAIN_B, TRAIN_N)),
+        conv_s2d_entry(dev, g)]
+
+
+def conv_s2d_entry(dev, g):
+    """Phase 3, the s2d conv at the decoder's post-shuffle shape (x8: 48^2
+    -> 384^2 fine, 192^2 coarse, C = O = 32): the forward at the serving
+    batch (the entry's row) and at the train step's, and d_input at the
+    train step's (the rotated weight), each against the plain version and
+    against the fine-resolution conv of the unfolded input; then the
+    ``Function``'s backward (dx by the kernel, dk by PyTorch's weight
+    gradient) against ``torch.autograd.grad`` of the plain version. Times
+    of one launch, TF32 off: the kernel, the plain version, the
+    structured-dense ``F.conv2d`` on the s2d tensor with ``s2d_conv_kernel``
+    weights (``library_ms``: the JAX package's default form, 4x the true
+    work) and the fine-resolution ``F.conv2d`` on the unfolded tensor
+    (``fine_conv_ms``, for context). The bound counts the true conv work,
+    2*9*C*O operations per fine output pixel (the kernel skips the block
+    weight's zero slots), and x and the output once."""
+    from dbsr_tpu_torch.models.layers import (depth_to_space_phase_major,
+                                              s2d_conv_kernel,
+                                              space_to_depth_phase_major)
+    from dbsr_tpu_torch.ops.conv_s2d import (conv3x3_s2d, conv3x3_s2d_forward,
+                                             conv3x3_s2d_plain, rotate_weight)
+    from dbsr_tpu_torch.serving import float32_math
+
+    C = O = 32
+    H2 = W2 = HW * 4
+    rows = []
+    with float32_math():
+        w0 = torch.randn(O, C, 3, 3, generator=g, device=dev) / math.sqrt(
+            9 * C)
+        for b, orient in ((B, "forward"), (TRAIN_B, "forward"),
+                          (TRAIN_B, "d_input")):
+            w = rotate_weight(w0) if orient == "d_input" else w0
+            x = torch.randn(b, H2, W2, 4 * C, generator=g, device=dev)
+            got = conv3x3_s2d_forward(x, w)
+            torch.cuda.synchronize()
+            name = f"conv_s2d {orient} {[b, H2, W2, 4 * C]}"
+            fine_in = depth_to_space_phase_major(x).permute(0, 3, 1, 2)
+            fine = space_to_depth_phase_major(
+                F.conv2d(fine_in, w, padding=1).permute(0, 2, 3, 1))
+            errs = [check_close(name, got, conv3x3_s2d_plain(x, w)),
+                    check_close(name + " vs the fine conv", got, fine)]
+            del fine
+            x_nchw, dense_w = x.permute(0, 3, 1, 2), s2d_conv_kernel(w)
+            bms, by = bound((x.numel() + got.numel()) * 4,
+                            2 * 9 * O * x.numel())
+            rows.append(dict(
+                shape=[list(x.shape), list(got.shape)], orientation=orient,
+                max_abs_err=errs[0], err_vs_fine_conv=errs[1],
+                ms=cuda_ms(lambda: conv3x3_s2d_forward(x, w)),
+                plain_ms=cuda_ms(lambda: conv3x3_s2d_plain(x, w), 1, 3),
+                library_ms=cuda_ms(lambda: F.conv2d(x_nchw, dense_w,
+                                                    padding=1)),
+                fine_conv_ms=cuda_ms(lambda: F.conv2d(fine_in, w, padding=1)),
+                bound_ms=bms, bound_by=by))
+            del got, fine_in, x_nchw
+        # the Function's backward at the train step's shape
+        gout = torch.randn(x.shape, generator=g, device=dev)
+        xs = (x.clone().requires_grad_(True), w0.clone().requires_grad_(True))
+        want = torch.autograd.grad(conv3x3_s2d_plain(*xs), xs, gout)
+        xk = x.clone().requires_grad_(True)
+        wk = w0.clone().requires_grad_(True)
+        before = conv3x3_s2d.launches
+        conv3x3_s2d(xk, wk).backward(gout)
+        torch.cuda.synchronize()
+        if conv3x3_s2d.launches - before != 2:
+            raise AssertionError("conv_s2d Function: forward and d_input "
+                                 "launched "
+                                 f"{conv3x3_s2d.launches - before} times")
+        rows[-1]["err_vs_autograd"] = check_close(
+            "conv_s2d Function dx vs autograd", xk.grad, want[0])
+        rows[-1]["dk_err_vs_autograd"] = check_close(
+            "conv_s2d Function dk (PyTorch's weight gradient) vs autograd",
+            wk.grad, want[1])
+    return _entry("conv_s2d", "dbsr_tpu_torch/kernels/csrc/conv_s2d.cu",
+                  "dbsr_tpu/ops/conv_s2d_pallas.py:160", rows[:1], rows[1:],
+                  path="serving_s2d_3_requests")
 
 
 def _entry(name, source, replaces, rows, other_rows=(),
@@ -555,6 +665,7 @@ def correlation_backward_entries(dev, g):
 
 
 def _counters():
+    from dbsr_tpu_torch.ops.conv_s2d import conv3x3_s2d
     from dbsr_tpu_torch.ops.correlation import (correlation_dfirst,
                                                 correlation_dsecond,
                                                 cost_volume)
@@ -566,7 +677,8 @@ def _counters():
             "warp_dfeat": warp_dfeat, "warp_dflow": warp_dflow,
             "merge_backward": merge_backward,
             "correlation_dfirst": correlation_dfirst,
-            "correlation_dsecond": correlation_dsecond}
+            "correlation_dsecond": correlation_dsecond,
+            "conv_s2d": conv3x3_s2d}
 
 
 def reset_counts():
@@ -651,10 +763,12 @@ def _grads(net):
             if p.requires_grad}
 
 
-def grad_phase(train_alignment=False, flow_ckpt=None):
-    """Phases 7a and 9: one train step of the banked flagship (B=1, N=8) on
-    the card and on the CPU from the same batch, synthesised on the CPU;
-    with ``train_alignment`` the aligner of ``flow_ckpt`` is grafted and
+def grad_phase(train_alignment=False, flow_ckpt=None, s2d=False):
+    """Phases 7a, 9 and 10c: one train step of the banked flagship (B=1,
+    N=8) on the card and on the CPU from the same batch, synthesised on the
+    CPU; the decoder at fine resolution, or with ``s2d`` in the s2d layout
+    (under the caller's ``DBSR_FINE_PATCH_S2D``); with ``train_alignment``
+    the aligner of ``flow_ckpt`` is grafted and
     trains too, and the aligner's gradients are also held together on their
     own (not tensor by tensor: the flow heads' two-element bias gradients
     are sums of d_flow over all pixels that largely cancel, and their
@@ -677,20 +791,30 @@ def grad_phase(train_alignment=False, flow_ckpt=None):
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
         net, _ = load_network(FLAGSHIP_CHECKPOINT, device=device, dtype=None,
-                              train_alignment=train_alignment)
+                              train_alignment=train_alignment,
+                              fused_s2d_decoder=s2d)
         if flow_ckpt is not None:
             graft_alignment_params(net, flow_ckpt)
         b = {k: batch[k].to(device) for k in ("burst", "frame_gt")}
+        reset_counts()
         with float32_math():
             loss, _ = make_synthetic_actor(net, boundary_ignore=40)(b)
             loss.backward()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = read_counts()
         out[device] = (loss.item(), _grads(net), time.perf_counter() - t0)
         del net
     what = ("train step (banked flagship, B=1, N=8"
-            + (", the port's own aligner grafted, train_alignment=True)"
-               if train_alignment else ")"))
-    return card_vs_cpu(what, out, "encoder.alignment_net."
-                       if train_alignment else None, each=False)
+            + (", the port's own aligner grafted, train_alignment=True"
+               if train_alignment else "")
+            + (f", s2d decoder, {FINE_PATCH_ENV}="
+               f"{os.environ.get(FINE_PATCH_ENV)})" if s2d else ")"))
+    log(f"{what}: launches on the card {launches}")
+    res = card_vs_cpu(what, out, "encoder.alignment_net."
+                      if train_alignment else None, each=False)
+    res["launches"] = launches
+    return res
 
 
 def pretrain_grad_phase(dev):
@@ -1090,6 +1214,153 @@ def closing_phase(dev):
     return out
 
 
+def serve(what, pred, requests, per_forward):
+    """Phases 4 and 10a: the three requests with the launch counters reset
+    just before and read just after (each kernel exactly ``per_forward``
+    times per forward, the rest never), outputs checked; then the median
+    request at batch 8 (host clock: it ends in a copy to the host), the
+    forward by CUDA events and the peak memory of the timed requests."""
+    reset_counts()
+    torch.cuda.synchronize()
+    outs = [pred(r) for r in requests]
+    torch.cuda.synchronize()
+    launches = read_counts()
+    log(f"{what}: launches over the three requests (3 forwards): {launches}")
+    for r, o in zip(requests, outs):
+        n = r.shape[0] if r.ndim == 5 else 1
+        if o.shape != (n, HW * 8, HW * 8, 3):
+            raise AssertionError(f"output shape {o.shape} for {n} bursts")
+        if not np.isfinite(o).all() or o.min() < 0 or o.max() > 1:
+            raise AssertionError("output not finite or outside [0, 1]")
+    for k in launches:
+        want = per_forward.get(k, 0)  # no backward here
+        if launches[k] != want * len(requests):
+            raise AssertionError(f"{what}: {k}: {launches[k]} launches in "
+                                 f"{len(requests)} forwards, expected {want} "
+                                 f"per forward")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        pred(requests[0])
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pred(requests[0])  # ends in a copy to the host: synchronous
+        times.append(time.perf_counter() - t0)
+    req_s = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    x = torch.from_numpy(requests[0]).to(pred.device)
+    fwd_ms = cuda_ms(lambda: pred.forward(x), 1, 5)
+    log(f"{what}: request at batch {B}: median {req_s * 1e3:.1f} ms over 5 "
+        f"({B / req_s:.2f} bursts/s), peak memory {peak:.2f} GiB; forward "
+        f"{fwd_ms:.2f} ms (CUDA events)")
+    return dict(bursts_per_s=B / req_s, request_ms=req_s * 1e3,
+                forward_ms=fwd_ms, peak_mem_gib=peak, launches=launches)
+
+
+def forward_vs_cpu(pred, burst, **net_kwargs):
+    """Phases 5 and 10b: the card's forward of ``pred`` (kernels) against
+    the CPU's (plain versions) of the banked flagship rebuilt with
+    ``net_kwargs``, on one burst; the largest difference of the [0, 1]
+    output, which must stay within CARD_VS_CPU_TOL."""
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT
+    from dbsr_tpu_torch.training.checkpoint import load_network
+
+    cpu_net, _ = load_network(FLAGSHIP_CHECKPOINT, device="cpu", dtype=None,
+                              **net_kwargs)
+    on_card = pred.forward(torch.from_numpy(burst).to(pred.device))
+    on_card = on_card.clamp(0, 1).cpu()
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        on_cpu = cpu_net(torch.from_numpy(burst))[0].clamp(0, 1)
+    cpu_s = time.perf_counter() - t0
+    diff = (on_card - on_cpu).abs().max().item()
+    log(f"card (kernels) vs CPU (plain) forward, 1 burst, {net_kwargs}, "
+        f"{FINE_PATCH_ENV}={os.environ.get(FINE_PATCH_ENV)}: max|diff| "
+        f"{diff:.3e} (limit {CARD_VS_CPU_TOL}); CPU forward {cpu_s:.1f} s")
+    if not diff <= CARD_VS_CPU_TOL:
+        raise AssertionError(f"card vs CPU: {diff} > {CARD_VS_CPU_TOL}")
+    return diff
+
+
+@contextlib.contextmanager
+def fine_patch(on):
+    """``DBSR_FINE_PATCH_S2D`` set to 1 (``on``) or unset for the block,
+    then as it was before."""
+    saved = os.environ.pop(FINE_PATCH_ENV, None)
+    if on:
+        os.environ[FINE_PATCH_ENV] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop(FINE_PATCH_ENV, None)
+        if saved is not None:
+            os.environ[FINE_PATCH_ENV] = saved
+
+
+def s2d_phase(dev, requests):
+    """Phase 10: the s2d decoder, the entry points' default, through the
+    entry points: serving in the three decoder forms (10a-b), one train
+    step's gradients against the CPU's (10c), ``run_training`` (10d) and
+    the B=16 step (10e). Returns the launches of the three requests with
+    the switch (``launches``) and per ``run_training`` step
+    (``launches_per_step``) beside the measurements."""
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, load_predictor
+
+    out = {"serving_b8": {}, "step": {}}
+    for form, on, kwargs in (("s2d_kernel", True, {}),
+                             ("s2d_dense", False, {}),
+                             ("fine", False, {"fused_s2d": False})):
+        with fine_patch(on):
+            pred = load_predictor(FLAGSHIP_CHECKPOINT, batch_size=B,
+                                  burst_size=N, burst_hw=(HW, HW),
+                                  device="cuda", **kwargs)
+            if pred.net.decoder.s2d != (form != "fine"):
+                raise AssertionError(f"{form}: decoder s2d "
+                                     f"{pred.net.decoder.s2d}")
+            res = serve(f"serving, {form} decoder", pred, requests,
+                        dict(LAUNCHES_PER_FORWARD, conv_s2d=(
+                            LAUNCHES_S2D_PER_FORWARD if on else 0)))
+            if on:
+                out["launches"] = res.pop("launches")
+                res["card_vs_cpu_max_abs"] = forward_vs_cpu(pred,
+                                                            requests[2][None])
+            else:
+                del res["launches"]
+        out["serving_b8"][form] = res
+        del pred
+        torch.cuda.empty_cache()
+
+    with fine_patch(True):
+        out["card_vs_cpu"] = grad_phase(s2d=True)
+        want = dict(LAUNCHES_PER_S2D_STEP, resample=0)  # CPU synthesis
+        if out["card_vs_cpu"]["launches"] != want:
+            raise AssertionError(f"s2d train step: launches "
+                                 f"{out['card_vs_cpu']['launches']}, "
+                                 f"expected {want}")
+        torch.cuda.empty_cache()
+        kwargs = dict(SMOKE_SETTINGS, steps_per_epoch=5,
+                      pwc_checkpoint=ALIGN_LITE, fused_s2d_decoder=True)
+        per_step, logged, _, headers = entry_phase(
+            "dbsr", "default_synthetic", kwargs, (1,), LAUNCHES_PER_S2D_STEP,
+            "dbsr_synthetic")
+        if not headers[1]["net_spec"]["kwargs"]["fused_s2d_decoder"]:
+            raise AssertionError(f"header: {headers[1]['net_spec']}")
+        out["launches_per_step"] = per_step
+        out["run_training_losses"] = logged["Loss/total"]
+        torch.cuda.empty_cache()
+    for form, on in (("s2d_kernel", True), ("s2d_dense", False)):
+        with fine_patch(on):
+            trainer, state = default_synthetic_trainer(
+                dev, pwc_checkpoint=ALIGN_LITE, fused_s2d_decoder=True)
+            out["step"][form] = step_phase(
+                dev, f"default_synthetic, {form} decoder", trainer, state,
+                LAUNCHES_PER_S2D_STEP if on else LAUNCHES_PER_TRAIN_STEP,
+                n_steps=10)
+        del trainer, state
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing to measure")
@@ -1099,6 +1370,7 @@ def main():
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
+    os.environ.pop(FINE_PATCH_ENV, None)  # phase 10 sets it where it runs
     # 1. environment
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1133,66 +1405,21 @@ def main():
                 f"({r['bound_by']}), library {r['library_ms']}")
     torch.cuda.empty_cache()
 
-    # 4. serving: three requests through the main path
-    t0 = time.perf_counter()
-    pred = load_predictor(FLAGSHIP_CHECKPOINT, batch_size=B, burst_size=N,
-                          burst_hw=(HW, HW), device="cuda")
-    log(f"predictor loaded in {time.perf_counter() - t0:.1f} s")
+    # 4-5. serving through the fine decoder, then card against CPU
     rng = np.random.RandomState(0)
     requests = [rng.rand(B, N, HW, HW, 4).astype(np.float32),
                 rng.rand(3, N, HW, HW, 4).astype(np.float32),
                 rng.rand(N, HW, HW, 4).astype(np.float32)]
-    reset_counts()
-    torch.cuda.synchronize()
-    outs = [pred(r) for r in requests]
-    torch.cuda.synchronize()
-    launches = read_counts()
-    log(f"launches over the three requests (3 forwards): {launches}")
-    for r, o in zip(requests, outs):
-        n = r.shape[0] if r.ndim == 5 else 1
-        if o.shape != (n, HW * 8, HW * 8, 3):
-            raise AssertionError(f"output shape {o.shape} for {n} bursts")
-        if not np.isfinite(o).all() or o.min() < 0 or o.max() > 1:
-            raise AssertionError("output not finite or outside [0, 1]")
-    for k in launches:
-        per_forward = LAUNCHES_PER_FORWARD.get(k, 0)  # no backward here
-        if launches[k] != per_forward * len(requests):
-            raise AssertionError(f"{k}: {launches[k]} launches in "
-                                 f"{len(requests)} forwards, expected "
-                                 f"{per_forward} per forward")
-
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(2):
-        pred(requests[0])
-    for _ in range(5):
-        t0 = time.perf_counter()
-        pred(requests[0])  # ends in a copy to the host: synchronous
-        times.append(time.perf_counter() - t0)
-    req_s = statistics.median(times)
-    log(f"request at batch {B}: median {req_s * 1e3:.1f} ms over 5 "
-        f"({B / req_s:.2f} bursts/s), peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-    x = torch.from_numpy(requests[0]).to(dev)
-    fwd_ms = cuda_ms(lambda: pred.forward(x), 1, 5)
-    log(f"forward at batch {B} on the card: {fwd_ms:.2f} ms (CUDA events)")
-
-    # 5. the card's forward against the CPU's plain forward
-    from dbsr_tpu_torch.training.checkpoint import load_network
-    cpu_net, _ = load_network(FLAGSHIP_CHECKPOINT, device="cpu", dtype=None)
-    burst = requests[2][None]
-    on_card = pred.forward(torch.from_numpy(burst).to(dev)).clamp(0, 1).cpu()
-    with torch.inference_mode():
-        t0 = time.perf_counter()
-        on_cpu = cpu_net(torch.from_numpy(burst))[0].clamp(0, 1)
-    cpu_s = time.perf_counter() - t0
-    diff = (on_card - on_cpu).abs().max().item()
-    log(f"card (kernels) vs CPU (plain) forward, 1 burst: max|diff| "
-        f"{diff:.3e} (limit {CARD_VS_CPU_TOL}); CPU forward {cpu_s:.1f} s")
-    if not diff <= CARD_VS_CPU_TOL:
-        raise AssertionError(f"card vs CPU: {diff} > {CARD_VS_CPU_TOL}")
-    serving_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    del pred, cpu_net, x
+    t0 = time.perf_counter()
+    pred = load_predictor(FLAGSHIP_CHECKPOINT, batch_size=B, burst_size=N,
+                          burst_hw=(HW, HW), device="cuda", fused_s2d=False)
+    log(f"predictor loaded in {time.perf_counter() - t0:.1f} s")
+    serving = serve("serving, fine decoder", pred, requests,
+                    LAUNCHES_PER_FORWARD)
+    launches = serving.pop("launches")
+    serving["card_vs_cpu_max_abs"] = forward_vs_cpu(
+        pred, requests[2][None], fused_s2d_decoder=False)
+    del pred
     torch.cuda.empty_cache()
 
     # 6. the training path's kernels against their plain versions
@@ -1235,29 +1462,35 @@ def main():
         del trainer, state
         torch.cuda.empty_cache()
         closing = closing_phase(dev)
+        torch.cuda.empty_cache()
+
+        # 10. the s2d decoder
+        os.environ["DBSR_TPU_WORKSPACE_DIR"] = os.path.join(workdir, "s2d")
+        s2d = s2d_phase(dev, requests)
     paths = {"train_step": per_step, "pretrain_step": pre_per_step,
              "train_alignment_step":
-                 closing["train_alignment"]["launches_per_step"]}
+                 closing["train_alignment"]["launches_per_step"],
+             "s2d_train_step": s2d.pop("launches_per_step")}
+    serving_launches = {"serving_3_requests": launches,
+                        "serving_s2d_3_requests": s2d.pop("launches")}
     for e in results:
-        # launches on each driven path: the three serving requests, then per
-        # step of the three training paths; `launches` is the count on the
-        # entry's own path
-        by_path = {"serving_3_requests": launches[e["name"]],
-                   **{k: v[e["name"]] for k, v in paths.items()}}
+        # launches on each driven path: the three serving requests through
+        # each decoder, then per step of the four training paths; `launches`
+        # is the count on the entry's own path
+        by_path = {k: v[e["name"]]
+                   for k, v in {**serving_launches, **paths}.items()}
         e["launches_by_path"] = by_path
         e["launches"] = by_path[e["path"]]
         if not e["launches"]:
             raise AssertionError(f"{e['name']} was not launched on its path "
                                  f"{e['path']}")
 
-    summary = dict(bursts_per_s_b8=B / req_s, request_ms_b8=req_s * 1e3,
-                   forward_ms_b8=fwd_ms, card_vs_cpu_max_abs=diff,
-                   peak_mem_gib=serving_peak, train=train,
+    summary = dict(serving_b8=serving, train=train,
                    train_card_vs_cpu=grads, run_training_losses=run_losses,
                    launches_per_train_step=per_step,
                    pretrain=pretrain, pretrain_card_vs_cpu=pre_grads,
                    launches_per_pretrain_step=pre_per_step,
-                   closing_the_loop=closing, build_s=secs,
+                   closing_the_loop=closing, s2d_decoder=s2d, build_s=secs,
                    total_s=time.perf_counter() - t_start, card=smi)
     log("summary " + json.dumps(summary))
     log(smi)

@@ -10,12 +10,17 @@ pretrained checkpoint and frozen (the reference protocol): the latest
 checkpoint of ``align_lite/pretrain_synthetic`` in the workspace (run
 ``python -m dbsr_tpu_torch.run_training align_lite pretrain_synthetic``
 first), or ``--set pwc_checkpoint=<path>``. ``--set train_alignment=True``
-trains the grafted aligner with the rest (Adam then covers it too).
+trains the grafted aligner with the rest (Adam then covers it too). The
+decoder runs its post-shuffle stage on the space-to-depth-2 layout, as the
+JAX config does (``fused_s2d_decoder``, default True; with
+``DBSR_FINE_PATCH_S2D=1`` its 3x3 convs launch the fine-patch conv kernel,
+forward and d_input).
 
 Settings read (``--set K=V``): ``batch_size``, ``epochs``,
 ``steps_per_epoch``, ``print_interval``, ``seed``, ``pool_size``,
-``fused_resample``, ``pwc_checkpoint``, ``train_alignment``, ``grad_clip``;
-and, to refuse what the port does not run, ``compute_dtype``, ``mix`` and
+``fused_resample``, ``pwc_checkpoint``, ``train_alignment``, ``grad_clip``,
+``fused_s2d_decoder`` (``False``: the decoder at fine resolution); and, to
+refuse what the port does not run, ``compute_dtype``, ``mix`` and
 ``flow_net``.
 """
 

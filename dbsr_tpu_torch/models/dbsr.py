@@ -11,7 +11,11 @@ kernels run on the backward. By default the aligner is frozen: its flow is
 computed without gradient and its parameters do not require one. With
 ``train_alignment=True`` the flow carries a gradient, and the backward also
 launches the warp's d_flow and, inside the aligner, the cost volume's
-d_first and d_second kernels.
+d_first and d_second kernels. With ``fused_s2d_decoder=True`` the decoder's
+stage after the pixel shuffle runs on the phase-major space-to-depth-2
+layout; with ``DBSR_FINE_PATCH_S2D=1`` its 3x3 convs launch the fine-patch
+conv kernel (``ops/conv_s2d.py``) in the forward and again as d_input in the
+backward.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import torch
 from torch import nn
 
 from dbsr_tpu_torch.models.align_lite import AlignLiteNet
-from dbsr_tpu_torch.models.layers import ConvBlock, PixShuffleUpsampler, ResBlock
+from dbsr_tpu_torch.models.layers import (ConvBlock, PixShuffleUpsampler,
+                                          ResBlock, depth_to_space_phase_major)
 from dbsr_tpu_torch.ops.camera import demosaic_naive, uniform
 from dbsr_tpu_torch.ops.merge import fused_softmax_merge
 from dbsr_tpu_torch.ops.warp import warp_feat
@@ -178,29 +183,32 @@ class WeightedSumMerge(nn.Module):
 class PixShuffleDecoder(nn.Module):
     """conv -> pre ResBlocks -> PixShuffle x r -> post ResBlocks -> 1x1 conv
     to linear RGB, ending in a ReLU (the reference's final conv block has
-    the default activation)."""
+    the default activation). With ``fused_s2d`` and an even ``r`` the stage
+    after the shuffle runs on the phase-major s2d layout and ends in
+    ``depth_to_space_phase_major``: the same function and parameters."""
 
     def __init__(self, in_dim: int = 512, init_conv_dim: int = 64,
                  num_pre_res_blocks: int = 5, post_conv_dim: int = 32,
                  num_post_res_blocks: int = 4, upsample_factor: int = 8,
                  icnrinit: bool = True, gauss_blur_sd: Optional[float] = 1.0,
                  gauss_ksz: int = 3, activation: str = "relu",
-                 final_activation: str = "relu"):
+                 final_activation: str = "relu", fused_s2d: bool = False):
         super().__init__()
         self.n_pre = num_pre_res_blocks
         self.n_post = num_post_res_blocks
+        self.s2d = s2d = fused_s2d and upsample_factor % 2 == 0
         self.ConvBlock_0 = ConvBlock(in_dim, init_conv_dim, 3,
                                      activation=activation)
         for i in range(num_pre_res_blocks):
             self.add_module(f"ResBlock_{i}", ResBlock(init_conv_dim, activation))
         self.PixShuffleUpsampler_0 = PixShuffleUpsampler(
             init_conv_dim, post_conv_dim, upsample_factor, activation,
-            icnrinit, gauss_blur_sd, gauss_ksz)
+            icnrinit, gauss_blur_sd, gauss_ksz, s2d_output=s2d)
         for i in range(num_post_res_blocks):
             self.add_module(f"ResBlock_{num_pre_res_blocks + i}",
-                            ResBlock(post_conv_dim, activation))
+                            ResBlock(post_conv_dim, activation, s2d=s2d))
         self.ConvBlock_1 = ConvBlock(post_conv_dim, 3, 1,
-                                     activation=final_activation)
+                                     activation=final_activation, s2d=s2d)
 
     def forward(self, fused):
         x = self.ConvBlock_0(fused)
@@ -209,7 +217,8 @@ class PixShuffleDecoder(nn.Module):
         x = self.PixShuffleUpsampler_0(x)
         for i in range(self.n_pre, self.n_pre + self.n_post):
             x = getattr(self, f"ResBlock_{i}")(x)
-        return self.ConvBlock_1(x)
+        x = self.ConvBlock_1(x)
+        return depth_to_space_phase_major(x) if self.s2d else x
 
 
 def draw_ref_offset_noise(generator: torch.Generator, shape,
@@ -229,10 +238,10 @@ class DBSRNet(nn.Module):
     the aligner with the rest; ``ref_offset_noise > 0`` perturbs the
     reference frame's zero offsets, only when ``forward`` is handed a
     ``noise_generator`` (a training caller's choice; none passes zeros).
+    ``fused_s2d_decoder=True`` runs the decoder's post-shuffle stage on the
+    s2d layout (:class:`PixShuffleDecoder`), as the JAX package does.
     What this port does not run yet raises: another aligner than
     ``'lite'``, non-softmax fusion, and a compute dtype other than float32.
-    ``fused_s2d_decoder`` selects a TPU layout of the same decoder, so it
-    has no effect here.
     """
 
     # the JAX package's module of the same parameters (a checkpoint's
@@ -279,7 +288,8 @@ class DBSRNet(nn.Module):
         self.decoder = PixShuffleDecoder(
             enc_out_dim, dec_init_conv_dim, dec_num_pre_res_blocks,
             dec_post_conv_dim, dec_num_post_res_blocks, upsample_factor,
-            icnrinit, gauss_blur_sd, gauss_ksz, activation, final_activation)
+            icnrinit, gauss_blur_sd, gauss_ksz, activation, final_activation,
+            fused_s2d_decoder)
         if not train_alignment:  # frozen: no gradient, no optimizer state
             self.encoder.alignment_net.requires_grad_(False)
 

@@ -1,9 +1,15 @@
 """Where the serving forward's device time goes, on one CUDA card.
 
-    python -m dbsr_tpu_torch.profile_serving
+    python -m dbsr_tpu_torch.profile_serving \
+        [--decoder {s2d_dense,s2d_kernel,fine}]
 
 Loads the banked flagship checkpoint at full width into the predictor
-(batch 8; float32, TF32 off), warms up, then traces three forwards with
+(batch 8; float32, TF32 off) with the decoder in the given form
+(``s2d_dense``, the default: the s2d layout that ``load_predictor``
+defaults to, with ``DBSR_FINE_PATCH_S2D`` unset, so its 3x3 convs run as
+the structured-dense conv; ``s2d_kernel``: the same with
+``DBSR_FINE_PATCH_S2D=1``, the fine-patch conv kernel; ``fine``:
+``fused_s2d=False``), warms up, then traces three forwards with
 ``torch.profiler``.
 Prints the device time by kernel (top 15), grouped into the port's own
 kernels, convolutions and the rest, and the device's busy share of the
@@ -12,7 +18,9 @@ traced wall time; the last line is the same as one JSON object.
 
 from __future__ import annotations
 
+import argparse
 import json
+import os
 import subprocess
 import time
 from collections import defaultdict
@@ -27,7 +35,9 @@ from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, load_predictor
 BATCH, FORWARDS = 8, 3
 OWN_KERNELS = ("warp_kernel", "correlation_kernel", "merge_kernel",
                "resample_kernel", "dfeat_kernel", "dflow_kernel",
-               "merge_bwd_kernel", "dfirst_kernel", "dsecond_kernel")
+               "merge_bwd_kernel", "dfirst_kernel", "dsecond_kernel",
+               "conv_s2d_kernel")
+DECODERS = ("s2d_dense", "s2d_kernel", "fine")
 
 
 def kernel_group(name: str) -> str:
@@ -61,16 +71,23 @@ def kernel_us(evt) -> float:
 def conv_flops(pred, x: torch.Tensor) -> int:
     """Operations of every ``nn.Conv2d`` in one forward of the predictor
     ``pred`` on ``x`` (2 per multiply-add), counted from the shapes by
-    forward hooks."""
+    forward hooks: the true work of each conv, whatever form computes it
+    (an s2d ``ConvBlock`` uses its ``Conv_0``'s parameters without calling
+    it, and its output holds as many values as the fine one)."""
+    from dbsr_tpu_torch.models.layers import ConvBlock
+
     total = 0
 
-    def hook(mod, _inp, out):
+    def count(conv, out):
         nonlocal total
-        kh, kw = mod.kernel_size
-        total += 2 * out.numel() * (mod.in_channels // mod.groups) * kh * kw
+        kh, kw = conv.kernel_size
+        total += 2 * out.numel() * (conv.in_channels // conv.groups) * kh * kw
 
-    hooks = [m.register_forward_hook(hook) for m in pred.net.modules()
-             if isinstance(m, torch.nn.Conv2d)]
+    hooks = [m.register_forward_hook(lambda mod, _i, out: count(mod, out))
+             for m in pred.net.modules() if isinstance(m, torch.nn.Conv2d)]
+    hooks += [m.register_forward_hook(
+        lambda mod, _i, out: count(mod.Conv_0, out))
+        for m in pred.net.modules() if isinstance(m, ConvBlock) and m.s2d]
     try:
         pred.forward(x)
     finally:
@@ -79,7 +96,11 @@ def conv_flops(pred, x: torch.Tensor) -> int:
     return total
 
 
-def main():
+def main(argv=None):
+    p = argparse.ArgumentParser(description="Device-time breakdown of the "
+                                            "serving forward.")
+    p.add_argument("--decoder", choices=DECODERS, default=DECODERS[0])
+    decoder = p.parse_args(argv).decoder
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: CUDA is not available")
     card = subprocess.run(
@@ -87,8 +108,12 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
 
+    if decoder == "s2d_kernel":
+        os.environ["DBSR_FINE_PATCH_S2D"] = "1"
+    else:
+        os.environ.pop("DBSR_FINE_PATCH_S2D", None)
     pred = load_predictor(FLAGSHIP_CHECKPOINT, batch_size=BATCH,
-                          device="cuda")
+                          device="cuda", fused_s2d=decoder != "fine")
     x = torch.from_numpy(np.random.RandomState(0).rand(
         BATCH, 14, 48, 48, 4).astype(np.float32)).cuda()
     flops = conv_flops(pred, x)
@@ -113,7 +138,7 @@ def main():
     if busy_us == 0:
         raise SystemExit("profile_serving: the trace holds no device time")
     print(card)
-    print(f"batch {BATCH}, {per_fwd} forwards traced: wall "
+    print(f"decoder {decoder}; batch {BATCH}, {per_fwd} forwards traced: wall "
           f"{wall_us / per_fwd / 1e3:.2f} ms/forward, device busy "
           f"{busy_us / per_fwd / 1e3:.2f} ms/forward "
           f"({100 * busy_us / wall_us:.1f}% of wall)")
@@ -128,7 +153,8 @@ def main():
     print("top kernels (ms/forward, launches/forward):")
     for name, us, n in rows[:15]:
         print(f"  {us / per_fwd / 1e3:8.3f}  {n / per_fwd:6.1f}  {name[:100]}")
-    out = {"card": card, "batch": BATCH, "forwards": per_fwd,
+    out = {"card": card, "decoder": decoder, "batch": BATCH,
+           "forwards": per_fwd,
            "wall_ms_per_forward": wall_us / per_fwd / 1e3,
            "device_busy_ms_per_forward": busy_us / per_fwd / 1e3,
            "conv_gflop_per_forward": flops / 1e9,

@@ -8,9 +8,12 @@ Usage::
     rgb = pred(burst)   # [<=8, 14, 48, 48, 4] in [0, 1] -> [n, 384, 384, 3]
 
 The predictor runs in float32 (bf16 serving is not ported yet) on
-``device`` ("cuda" by default; "cuda" with no card raises). Its forward
-turns TF32 off for cuDNN convs and matmuls, which PyTorch otherwise lets
-cuDNN use, and restores the caller's settings afterwards.
+``device`` ("cuda" by default; "cuda" with no card raises), with the JAX
+package's fused s2d decoder by default (``fused_s2d=True``: the stage after
+the pixel shuffle on the space-to-depth-2 layout; ``DBSR_FINE_PATCH_S2D=1``
+runs its 3x3 convs through the fine-patch conv kernel). Its forward turns
+TF32 off for cuDNN convs and matmuls, which PyTorch otherwise lets cuDNN
+use, and restores the caller's settings afterwards.
 """
 
 from __future__ import annotations
@@ -82,10 +85,12 @@ class Predictor:
 
 def load_predictor(checkpoint_path: str, batch_size: int = 8,
                    burst_size: int = 14, burst_hw=(48, 48), device="cuda",
-                   **net_overrides) -> Predictor:
-    """Rebuild the network from a checkpoint at float32 and wrap it in a
-    :class:`Predictor` on ``device``."""
-    overrides = {"dtype": None, **net_overrides}
+                   fused_s2d: bool = True, **net_overrides) -> Predictor:
+    """Rebuild the network from a checkpoint at float32, with the s2d
+    decoder unless ``fused_s2d=False``, and wrap it in a :class:`Predictor`
+    on ``device``."""
+    overrides = {"dtype": None, "fused_s2d_decoder": fused_s2d,
+                 **net_overrides}
     net, _ = load_network(checkpoint_path, device=device, **overrides)
     return Predictor(net, batch_size, burst_size, burst_hw,
                      next(net.parameters()).device)

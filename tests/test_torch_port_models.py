@@ -76,14 +76,19 @@ def test_dbsrnet_tiny_matches_jax():
 
 
 def test_flagship_banked_params_match_jax():
-    """Full width, epoch-60 params: the port (fine-resolution decoder)
-    against the JAX package's fused s2d decoder. Tolerance 2e-4 on outputs
-    of order 1 (observed ~4e-5: 512-channel sums in another order)."""
+    """Full width, epoch-60 params: the port with its decoder pinned at
+    fine resolution against the JAX package's fused s2d decoder (the two
+    forms compute one function; ``test_torch_port_s2d.py`` holds the port's
+    s2d form, which the checkpoint's header selects). Tolerance 2e-4 on
+    outputs of order 1 (observed ~4e-5: 512-channel sums in another
+    order)."""
     x = _burst((1, 3, 16, 16, 4), 2)
     jnet, jparams, _ = jax_load_network(FLAGSHIP, dtype=None,
                                         fused_s2d_decoder=True)
     want, waux = jax.jit(jnet.apply)(jparams, jnp.asarray(x))
-    net, header = load_network(FLAGSHIP, device="cpu", dtype=None)
+    net, header = load_network(FLAGSHIP, device="cpu", dtype=None,
+                               fused_s2d_decoder=False)
+    assert not net.decoder.s2d
     assert header["epoch"] == 60
     with torch.no_grad():
         got, aux = net(torch.from_numpy(x))
