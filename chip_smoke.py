@@ -27,13 +27,14 @@ default.
    (``ms``: what a caller pays, the host's dispatch included), median of
    several runs after warm-up, and, for the wrapper and the yardsticks
    alike, the device time of all the call's device activity from
-   ``torch.profiler`` (``device_ms``; the wrapper's kernel alone is
-   ``kernel_device_ms``); the s2d conv
+   ``torch.profiler`` (``device_ms``; the wrapper's kernels alone are
+   ``kernel_device_ms``, the cost volume's also by level); the s2d conv
    also in its d_input orientation and against the fine-resolution conv,
    and its ``Function``'s backward against autograd of the plain version;
    then the s2d conv, forward and d_input, at C in {3, 5, 33} and O in {1,
-   7, 70} on an odd plane, and the affine resample at an odd width with C
-   in {1, 4} (bit-identical to its plain version);
+   7, 70} on an odd plane, the affine resample at an odd width with C
+   in {1, 4} (bit-identical to its plain version), and the cost volume on
+   a ragged plane with C in {1, 3, 5, 33, 196};
 4. serving: ``load_predictor`` on the banked flagship checkpoint (full
    width, batch 8, 14 frames, 48x48 -> 384x384) answers three requests
    (8 bursts, 3 bursts, one burst) with the launch counters reset just
@@ -48,7 +49,12 @@ default.
    backwarp shapes), the cost volume's d_first and d_second (AlignLite's
    three levels and an odd shape; then the ``Function`` on the card) and
    the merge backward, each also against ``torch.autograd.grad`` of the
-   plain forward (the resample bit-identical to its plain version); times
+   plain forward (the resample bit-identical to its plain version);
+   d_feat called twice must give the same bits, with flows of +-5 px and
+   with a pile-up of every source onto one 3x3 patch (also against the
+   plain version, its time recorded), and a flow with every tap out of
+   range must give zeros; d_feat also at C=12 on a ragged plane and on a
+   96x96 plane (its CSR built outside shared memory); times
    as in phase 3 (the yardsticks ``F.grid_sample`` and its autograd: for
    d_feat with respect to the input alone, for d_flow with respect to
    both); the host's microseconds per call of the resample and of
@@ -65,7 +71,11 @@ default.
    often per train step as the step asks; (c) 20 Adam steps on one fixed
    batch from a fresh network with the grafted aligner (the loss must
    fall), timed by CUDA events, with peak memory; (d) a ``torch.profiler``
-   trace of three train steps, device time by group;
+   trace of three train steps, device time by group; (e) determinism: one
+   step's loss and gradients twice on the card from the same parameters
+   and batch, at B=1 and B=16, and cuDNN's conv backward alone twice (an
+   encoder-like conv, and the conv of the differing gradient nearest the
+   loss at its shape in the step), logged, not required;
 8. pretraining the aligner: (a) one ``BurstAlignLite`` train step at B=16,
    N=8 on the card against the same step on the CPU from the same fresh
    parameters and batch (loss, all gradients, and each extractor tensor's
@@ -125,14 +135,18 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
 TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 tensor-core rate (dense)
-# the kernel each entry's wrapper launches, as the profiler names it
-KERNEL_NAMES = {"warp": "warp_kernel", "correlation": "correlation_kernel",
-                "merge": "merge_kernel", "resample": "resample_kernel",
-                "warp_dfeat": "dfeat_kernel", "warp_dflow": "dflow_kernel",
-                "merge_backward": "merge_bwd_kernel",
-                "correlation_dfirst": "correlation_dfirst_kernel",
-                "correlation_dsecond": "correlation_dsecond_kernel",
-                "conv_s2d": "conv_s2d_kernel"}
+# the CUDA kernels each entry's wrapper launches, as the profiler names
+# them (warp_dfeat's call builds its CSR of the transposed taps, then
+# gathers; its kernel_device_ms is the two summed)
+KERNEL_NAMES = {"warp": ("warp_kernel",),
+                "correlation": ("correlation_kernel",),
+                "merge": ("merge_kernel",), "resample": ("resample_kernel",),
+                "warp_dfeat": ("dfeat_build_kernel", "dfeat_gather_kernel"),
+                "warp_dflow": ("dflow_kernel",),
+                "merge_backward": ("merge_bwd_kernel",),
+                "correlation_dfirst": ("correlation_dfirst_kernel",),
+                "correlation_dsecond": ("correlation_dsecond_kernel",),
+                "conv_s2d": ("conv_s2d_kernel",)}
 CALL_GAP_S = 0.005  # idle time between the profiled calls of device_ms
 HOST_CALLS = 200    # calls of the host-cost loop
 B, N, HW = 8, 14, 48
@@ -219,12 +233,13 @@ def cuda_ms(fn, warmup=2, reps=10):
     return statistics.median(times)
 
 
-def device_ms(fn, kernel=None, reps=10):
+def device_ms(fn, kernels=None, reps=10):
     """Median device milliseconds of ``fn()`` from ``torch.profiler``'s CUDA
     activity: per call, the summed durations of all of it (kernels, memsets
-    and copies: what the call costs the card); with ``kernel`` (a kernel of
-    the port, e.g. ``resample_kernel``), also of the activity whose name
-    holds it alone. Returns ``(all, kernel's or None)``. The calls, each
+    and copies: what the call costs the card); with ``kernels`` (names of
+    kernels of the port, e.g. ``("resample_kernel",)``), also of the
+    activity whose name holds one of them, summed. Returns ``(all, the
+    kernels' or None)``. The calls, each
     followed by a synchronize and an idle gap, are told apart by that gap;
     a first step of calls that is traced and thrown away (the schedule's
     warm-up) takes CUPTI's start-up, and every one of the ``reps`` calls
@@ -246,7 +261,8 @@ def device_ms(fn, kernel=None, reps=10):
             fn()
             torch.cuda.synchronize()
         prof.step()
-    pat = re.compile(rf"\b{kernel}\b") if kernel else None
+    pat = (re.compile(r"\b(" + "|".join(kernels) + r")\b") if kernels
+           else None)
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA
@@ -262,7 +278,7 @@ def device_ms(fn, kernel=None, reps=10):
         last_end = end if last_end is None else max(last_end, end)
     if len(calls) != reps or (pat is not None and not all(c[1] for c in calls)):
         raise AssertionError(
-            f"device_ms({kernel}): {len(calls)} profiled calls of {reps}, "
+            f"device_ms({kernels}): {len(calls)} profiled calls of {reps}, "
             f"{sum(bool(c[1]) for c in calls)} with the kernel; (start us, "
             f"name) of the activity: {[(s, n) for s, _, n in spans]}")
     return (statistics.median(c[0] for c in calls) / 1e3,
@@ -272,9 +288,10 @@ def device_ms(fn, kernel=None, reps=10):
 def timings(name, kernel_fn, plain_fn, library_fn=None):
     """The times of one row: entry ``name``'s wrapper by CUDA events around
     one call (``ms``: what a caller pays, the host's dispatch included), by
-    all the device activity of a call (``device_ms``: the kernel and the
-    wrapper's other device work, such as an output's zero fill) and by its
-    kernel's activity alone (``kernel_device_ms``); the plain version by
+    all the device activity of a call (``device_ms``: the kernels and the
+    wrapper's other device work, such as a fill or a copy) and by its
+    kernels' activity alone (``kernel_device_ms``, summed over the kernels
+    of ``KERNEL_NAMES[name]``); the plain version by
     CUDA events; the library call, where there is one, by events and by all
     its device activity."""
     lib = library_fn is not None
@@ -331,14 +348,24 @@ def odd_shape_phase(dev, g):
     conv forward and d_input (the rotated weight) at C in {3, 5, 33} and O in
     {1, 7, 70} on an odd coarse plane (B=2, 13x22), against the plain
     version; the affine resample at an odd OW with C in {1, 4}, bit-equal to
-    its plain version."""
+    its plain version; the cost volume on a ragged plane (B=2, 13x22) at C
+    in {1, 3, 5, 33, 196} (4-byte and 16-byte copies, a part-filled channel
+    chunk, PWC-Net's widest level)."""
     from dbsr_tpu_torch.ops.conv_s2d import (conv3x3_s2d_forward,
                                              conv3x3_s2d_plain, rotate_weight)
+    from dbsr_tpu_torch.ops.correlation import correlation_plain, cost_volume
     from dbsr_tpu_torch.ops.resample import (affine_resample,
                                              affine_resample_plain)
     from dbsr_tpu_torch.serving import float32_math
 
     rows = []
+    for c in (1, 3, 5, 33, 196):
+        a = torch.randn(2, 13, 22, c, generator=g, device=dev)
+        b = torch.randn(2, 13, 22, c, generator=g, device=dev)
+        err = check_close(f"correlation {list(a.shape)}", cost_volume(a, b),
+                          correlation_plain(a, b))
+        rows.append(dict(kernel="correlation", shape=list(a.shape),
+                         max_abs_err=err))
     with float32_math():
         for c in (3, 5, 33):
             for o in (1, 7, 70):
@@ -451,12 +478,19 @@ def kernel_phase(dev, g):
                       lambda: fused_softmax_merge_plain(feat, logits)))]
 
     csrc = "dbsr_tpu_torch/kernels/csrc/"
+    corr = _entry("correlation", csrc + "correlation.cu",
+                  "dbsr_tpu/ops/correlation.py:90", correlation_rows(FRAMES),
+                  correlation_rows(TRAIN_FRAMES))
+    # AlignLite's three levels in one serving forward, each its own launch
+    corr["device_ms_by_level"] = {
+        f"{r['shape'][1]}x{r['shape'][2]}x{r['shape'][3]}": r["device_ms"]
+        for r in corr["per_shape"]}
+    log(f"  correlation device ms by level (serving): "
+        f"{corr['device_ms_by_level']}, summed {corr['device_ms']:.4f}")
     return [
         _entry("warp", csrc + "warp.cu", "dbsr_tpu/ops/warp_pallas.py:125",
                warp_rows(FRAMES), warp_rows(TRAIN_FRAMES)),
-        _entry("correlation", csrc + "correlation.cu",
-               "dbsr_tpu/ops/correlation.py:90", correlation_rows(FRAMES),
-               correlation_rows(TRAIN_FRAMES)),
+        corr,
         _entry("merge", csrc + "merge.cu", "dbsr_tpu/ops/merge_pallas.py:84",
                merge_rows(B, N), merge_rows(TRAIN_B, TRAIN_N)),
         conv_s2d_entry(dev, g)]
@@ -558,7 +592,7 @@ def log_row(name, r):
     lib = ("none" if r["library_ms"] is None else
            f"{r['library_ms']:.4f} ms (device {r['library_device_ms']:.4f})")
     log(f"  {name} {r['shape']}: kernel {r['ms']:.4f} ms (device "
-        f"{r['device_ms']:.4f}, the kernel alone {r['kernel_device_ms']:.4f}"
+        f"{r['device_ms']:.4f}, its kernels alone {r['kernel_device_ms']:.4f}"
         f"), plain {r['plain_ms']:.4f} ms, bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}")
 
@@ -570,7 +604,8 @@ def _entry(name, source, replaces, rows, other_rows=(),
     its rows at other shapes (checked and timed, listed apart). ``path``
     names the driven path that ``launches`` is read from."""
     e = dict(name=name, route="cuda", source=source, replaces=replaces,
-             path=path, shape=[r["shape"] for r in rows], per_shape=rows)
+             path=path, shape=[r["shape"] for r in rows], per_shape=rows,
+             kernel_device_ms_of=list(KERNEL_NAMES[name]))
     for k in ("ms", "device_ms", "kernel_device_ms", "plain_ms", "bound_ms",
               "tc_bound_ms", "ffma_bound_ms"):
         if k in rows[0]:
@@ -729,6 +764,7 @@ def backward_kernel_phase(dev, g):
     results.append(_entry("warp_dfeat", "dbsr_tpu_torch/kernels/csrc/warp_bwd.cu",
                           "dbsr_tpu/ops/warp_pallas.py:266", rows_dfeat[:1],
                           rows_dfeat[1:], path="train_step"))
+    results[-1]["determinism"] = dfeat_determinism(dev, g)
     results.append(_entry("warp_dflow", "dbsr_tpu_torch/kernels/csrc/warp_bwd.cu",
                           "dbsr_tpu/ops/warp_pallas.py:281", rows_dflow,
                           path="train_alignment_step"))
@@ -790,6 +826,68 @@ def backward_kernel_phase(dev, g):
         path="train_step"))
     del feat, logits, gout, xs, out
     return results
+
+
+def check_repeat(name, fn):
+    """Two calls of ``fn()`` must give the same bits; returns the first."""
+    a, b = fn(), fn()
+    diff = (a - b).abs().max().item()
+    log(f"  {name}: two calls, max|first - second| = {diff:.3e} "
+        f"(bit-identical required)")
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two calls on the same inputs differ "
+                             f"by up to {diff}")
+    return a
+
+
+def dfeat_determinism(dev, g):
+    """Phase 6, ``warp_dfeat``'s determinism at the encoder's shape of the
+    train step: two calls on the same inputs give the same bits, with
+    flows of +-5 px (some on exact integers) and with a pile-up (every
+    source of a frame pulled onto one 3x3 patch: buckets of ~1000 sources,
+    the sort's heapsort), where it also agrees with the plain version
+    (its device time recorded); a flow whose every tap is out of range
+    gives zeros. Then two odd shapes, against the plain version and
+    repeated: C=12 on a ragged 13x22 plane (one 4-channel group a thread,
+    part-filled 4x8 target tiles) and a 96x96 plane, whose CSR is built
+    in the scratch, not in shared memory."""
+    from dbsr_tpu_torch.ops.warp import base_grid, warp_dfeat, warp_dfeat_plain
+
+    s = (TRAIN_FRAMES, 48, 48, 512)
+    gout = torch.randn(*s, generator=g, device=dev)
+    fl = torch.rand(*s[:3], 2, generator=g, device=dev) * 10 - 5
+    fl[:, ::5] = torch.round(fl[:, ::5])  # taps on exact pixel centres
+    fl = fl.contiguous()
+    check_repeat(f"warp d_feat {list(s)}, flows +-5 px",
+                 lambda: warp_dfeat(fl, gout))
+    # p + flow = (20.3, 17.6) + [0, 2)^2 px for every source p
+    pile = (torch.tensor([20.3, 17.6], device=dev) - base_grid(48, 48, dev)
+            + 2 * torch.rand(*s[:3], 2, generator=g, device=dev)).contiguous()
+    got = check_repeat(f"warp d_feat {list(s)}, pile-up onto a 3x3 patch",
+                       lambda: warp_dfeat(pile, gout))
+    err = check_close(f"warp d_feat {list(s)}, pile-up", got,
+                      warp_dfeat_plain(pile, gout))
+    pile_ms = device_ms(lambda: warp_dfeat(pile, gout))[0]
+    log(f"  warp d_feat pile-up: device {pile_ms:.4f} ms")
+    out_of_range = torch.full((*s[:3], 2), 60.0, device=dev)
+    zeros = warp_dfeat(out_of_range, gout)
+    if not torch.equal(zeros, torch.zeros_like(zeros)):
+        raise AssertionError("warp d_feat: a flow with every tap out of range "
+                             "gave non-zeros")
+    log("  warp d_feat, every tap out of range: all zeros")
+    odd = []
+    for shape in ((3, 13, 22, 12), (2, 96, 96, 8)):
+        go = torch.randn(*shape, generator=g, device=dev)
+        fo = (torch.rand(*shape[:3], 2, generator=g, device=dev) * 10
+              - 5).contiguous()
+        odd.append(dict(shape=list(shape), max_abs_err=check_close(
+            f"warp d_feat {list(shape)}",
+            check_repeat(f"warp d_feat {list(shape)}",
+                         lambda: warp_dfeat(fo, go)),
+            warp_dfeat_plain(fo, go))))
+    return dict(repeat_identical=True, pile_up_identical=True,
+                pile_up_max_abs_err=err, pile_up_device_ms=pile_ms,
+                out_of_range_zeros=True, odd_shapes=odd)
 
 
 def correlation_backward_entries(dev, g):
@@ -1076,6 +1174,147 @@ def grad_phase(train_alignment=False, flow_ckpt=None, s2d=False):
     res.update(launches=launches, batch_seed=seed,
                wrapped_offsets_by_seed=wrapped_by_seed)
     return res
+
+
+def _repeat_step(actor, net, batch):
+    """The loss and every gradient of one step (no optimizer step) of
+    ``actor`` on ``batch``, twice from the same parameters."""
+    from dbsr_tpu_torch.serving import float32_math
+
+    runs = []
+    for _ in range(2):
+        net.zero_grad(set_to_none=True)
+        with float32_math():
+            loss, _ = actor(batch)
+            loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.detach().clone(),
+                     {k: p.grad.detach().clone()
+                      for k, p in net.named_parameters() if p.grad is not None}))
+    return runs
+
+
+def _compare_runs(what, net, runs):
+    """Log whether two runs' loss and gradients are bit-identical; where
+    not, the tensors that differ by module type, and the largest relative
+    difference, with the tensor nearest the loss that differs (the backward
+    reaches it first)."""
+    (l1, g1), (l2, g2) = runs
+    kinds = {name: type(m).__name__ for name, m in net.named_modules()}
+    differ = [k for k in g1 if not torch.equal(g1[k], g2[k])]
+
+    def rel(k):
+        return float((g1[k] - g2[k]).norm()) / max(float(g1[k].norm()), 1e-30)
+
+    by_kind = defaultdict(int)
+    for k in differ:
+        by_kind[kinds.get(k.rsplit(".", 1)[0], "?")] += 1
+    res = dict(loss_identical=bool(torch.equal(l1, l2)),
+               loss_abs_diff=float((l1 - l2).abs()), gradients=len(g1),
+               gradients_differing=len(differ), differing=differ,
+               differing_by_module_type=dict(by_kind),
+               worst=max(differ, key=rel) if differ else None,
+               worst_rel=max(map(rel, differ)) if differ else 0.0,
+               nearest_loss=differ[-1] if differ else None)
+    log(f"{what}, run twice on the card: loss bit-identical "
+        f"{res['loss_identical']} (|diff| {res['loss_abs_diff']:.3e}); "
+        f"{len(differ)} of {len(g1)} gradients differ, by module type "
+        f"{res['differing_by_module_type']}; worst {res['worst']} "
+        f"(||diff||/||g|| {res['worst_rel']:.2e}); the differing tensor "
+        f"nearest the loss: {res['nearest_loss']}")
+    return res
+
+
+def _conv_backward_repeat(dev, what, conv, nchw):
+    """cuDNN's float32 backward of ``conv`` alone, twice, on a random input
+    of shape ``nchw`` handed as ``layers.conv_nhwc`` hands it (a
+    channels-last view) and a random output gradient: whether d_input,
+    d_weight and d_bias repeat bit for bit."""
+    from dbsr_tpu_torch.serving import float32_math
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    n, c, h, w = nchw
+    x = torch.randn(n, h, w, c, generator=gen, device=dev)
+    params = (conv.weight.detach(),
+              None if conv.bias is None else conv.bias.detach())
+    grads, gout = [], None
+    for _ in range(2):
+        xs = [x.clone().requires_grad_(True)] + [
+            t.clone().requires_grad_(True) for t in params if t is not None]
+        with float32_math():
+            out = F.conv2d(xs[0].permute(0, 3, 1, 2), xs[1],
+                           xs[2] if len(xs) > 2 else None, conv.stride,
+                           conv.padding, conv.dilation, conv.groups)
+            if gout is None:
+                gout = torch.randn(out.shape, generator=gen, device=dev)
+            grads.append(torch.autograd.grad(out, xs, gout))
+    res = dict(conv=what, input_nchw=list(nchw),
+               weight=list(conv.weight.shape),
+               **{f"d_{k}_identical": bool(torch.equal(a, b))
+                  for k, a, b in zip(("input", "weight", "bias"), *grads)})
+    log(f"  cuDNN conv backward alone, twice: {res}")
+    return res
+
+
+def determinism_phase(dev, trainer):
+    """Phase 7e: the card's training step against itself. One frozen
+    ``default_synthetic`` step (loss and gradients, no optimizer step)
+    twice from the same parameters and batch, at B=1 (the banked flagship
+    and 7a's first batch, synthesised on the CPU) and at B=16 (``trainer``'s
+    network, the batch synthesised on the card from one seed, twice, and
+    compared too); then cuDNN's conv backward alone: an encoder-like conv,
+    and the conv of the differing gradient nearest the loss at the shape
+    the B=16 step gives it. Logged, not required:
+    the port's kernels are deterministic, and what still varies is named
+    here."""
+    from dbsr_tpu_torch.data.procedural import (dead_leaves_image,
+                                                make_generator)
+    from dbsr_tpu_torch.data.synthetic import BurstConfig, synthesize_batch
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, float32_math
+    from dbsr_tpu_torch.training.actors import make_synthetic_actor
+    from dbsr_tpu_torch.training.checkpoint import load_network
+
+    out = {}
+    cfg = BurstConfig(fused_resample=True)
+    gen = make_generator("cpu", BATCH_SEEDS[0])
+    batch = synthesize_batch(
+        gen, dead_leaves_image(gen, 1, cfg.pre_crop_sz), cfg)
+    net, _ = load_network(FLAGSHIP_CHECKPOINT, device="cuda", dtype=None,
+                          fused_s2d_decoder=False)
+    b = {k: batch[k].to(dev) for k in ("burst", "frame_gt")}
+    out["b1"] = _compare_runs(
+        "determinism, frozen step B=1 (banked flagship)", net,
+        _repeat_step(make_synthetic_actor(net, boundary_ignore=40), net, b))
+    del net, b
+    pool = trainer.loaders[0].batcher.next_batch()
+    with float32_math():
+        b1 = trainer.prepare_fn(make_generator(dev, 7), pool)
+        b2 = trainer.prepare_fn(make_generator(dev, 7), pool)
+    out["b16_synthesis_identical"] = all(torch.equal(b1[k], b2[k])
+                                         for k in ("burst", "frame_gt"))
+    log(f"determinism, on-card synthesis of the B={TRAIN_B} batch twice from "
+        f"one seed: bit-identical {out['b16_synthesis_identical']}")
+    out["b16"] = _compare_runs(
+        f"determinism, frozen step B={TRAIN_B}", trainer.net,
+        _repeat_step(trainer.actor_fn, trainer.net, b1))
+    # cuDNN's backward alone: the encoder's 3x3 64 -> 64 conv at the
+    # step's 112 frames, and the conv of the differing gradient nearest
+    # the loss at the shape the step gives it
+    enc = torch.nn.Conv2d(64, 64, 3, padding=1).to(dev)
+    out["conv_backward"] = [_conv_backward_repeat(
+        dev, "encoder-like 3x3 64->64", enc, (TRAIN_FRAMES, 64, 48, 48))]
+    if out["b16"]["nearest_loss"] is not None:
+        name = out["b16"]["nearest_loss"].rsplit(".", 1)[0]
+        conv, shapes = trainer.net.get_submodule(name), []
+        hook = conv.register_forward_hook(
+            lambda m, i, o: shapes.append(tuple(i[0].shape)))
+        with torch.no_grad(), float32_math():
+            trainer.actor_fn(b1)
+        hook.remove()
+        out["conv_backward"].append(
+            _conv_backward_repeat(dev, name, conv, shapes[0]))
+    return out
 
 
 def pretrain_grad_phase(dev):
@@ -1662,7 +1901,7 @@ def main():
     for e in results:
         for r in e["per_shape"] + e["other_shapes"]:
             log_row(e["name"], r)
-    log("the s2d conv and the resample at odd shapes:")
+    log("the s2d conv, the resample and the cost volume at odd shapes:")
     odd_shapes = odd_shape_phase(dev, g)
     torch.cuda.empty_cache()
 
@@ -1706,6 +1945,7 @@ def main():
                                                    pwc_checkpoint=ALIGN_LITE)
         train = step_phase(dev, "default_synthetic", trainer, state,
                            LAUNCHES_PER_TRAIN_STEP)
+        determinism = determinism_phase(dev, trainer)
         del trainer, state
         torch.cuda.empty_cache()
 
@@ -1746,6 +1986,7 @@ def main():
 
     summary = dict(serving_b8=serving, train=train,
                    train_card_vs_cpu=grads, run_training_losses=run_losses,
+                   determinism=determinism,
                    launches_per_train_step=per_step,
                    pretrain=pretrain, pretrain_card_vs_cpu=pre_grads,
                    launches_per_pretrain_step=pre_per_step,

@@ -134,10 +134,14 @@ def require_cuda_f32(op: str, *tensors: torch.Tensor) -> None:
 def launch(lib_name: str, fn_name: str, tensors: Sequence[torch.Tensor],
            ints: Sequence[int]) -> None:
     """Call C entry ``fn_name(ptrs..., ints..., stream)`` of library
-    ``lib_name`` on the current stream of the tensors' device; raise on a
-    CUDA error from the launch. The entry's ``argtypes`` and ``restype`` are
-    set at its first call only: a later call costs the host the int checks,
-    the pointers, the stream and the call."""
+    ``lib_name`` on the current stream of the tensors' device, with that
+    device current for the call (the C entry launches, and sets kernel
+    attributes, on the CUDA runtime's current device); raise on a CUDA error
+    from the launch. The device is switched only when another one is
+    current, and the previous one is current again afterwards, also when
+    the entry fails. The entry's ``argtypes`` and ``restype`` are set at its
+    first call only: a later call costs the host the int checks, the
+    device check, the pointers, the stream and the call."""
     bound = _BOUND.get((lib_name, fn_name))
     if bound is None:
         lib = library(lib_name)
@@ -150,8 +154,19 @@ def launch(lib_name: str, fn_name: str, tensors: Sequence[torch.Tensor],
     for v in ints:
         if not 0 <= v < 2 ** 31:
             raise ValueError(f"{fn_name}: size {v} out of int32 range")
-    stream = torch.cuda.current_stream(tensors[0].device).cuda_stream
-    err = fn(*[t.data_ptr() for t in tensors], *ints, stream)
+    device = tensors[0].device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    args = (*[t.data_ptr() for t in tensors], *ints, stream)
+    # an index of None is the current device ("cuda")
+    prev = None if device.index is None else torch.cuda.current_device()
+    if prev is None or prev == device.index:
+        err = fn(*args)
+    else:
+        torch.cuda.set_device(device.index)
+        try:
+            err = fn(*args)
+        finally:
+            torch.cuda.set_device(prev)
     if err != 0:
         msg = lib.dbsr_error_string(err).decode(errors="replace")
         raise RuntimeError(f"{fn_name}: CUDA error {err} ({msg})")

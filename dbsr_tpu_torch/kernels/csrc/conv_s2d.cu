@@ -125,28 +125,6 @@ __device__ __forceinline__ void mma_from_zero(float (&d)[4],
         "f"(0.0f));
 }
 
-// cp.async of kBytes (4 or 16) with src_bytes of them read, the rest zeros
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(src), "r"(src_bytes));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                 :: "r"(d), "l"(src), "r"(src_bytes));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
 // Copy channels c0..c0+7 of the 18x34 halo'd tile at fine (y0-1, x0-1)
 // into s (pixel-major, 8 floats a pixel): kParts copies of 8/kParts
 // channels per pixel, thread i taking part i % kParts of every
@@ -256,7 +234,7 @@ conv_s2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
     stage_input<8>(s_in, xb, y0, x0, H, W, W2, C, 0);
   stage_weights(s_raw, w, C, Op, oc0, 0);
   cp_async_commit();
-  cp_async_wait_all();
+  cp_async_wait();
   __syncthreads();
   split_weights(s_w, s_raw);
 
@@ -322,7 +300,7 @@ conv_s2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
 
     if (more) {
-      cp_async_wait_all();
+      cp_async_wait();
       __syncthreads();  // the next stage's input and raw weights are in
       split_weights(s_w + (cur ^ 1) * kWItems, s_raw);
     }

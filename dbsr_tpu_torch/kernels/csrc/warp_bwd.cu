@@ -13,16 +13,37 @@
 // at an integer coordinate, which is what the gather VJP and grid_sample
 // give), and weight and derivatives 0 for an out-of-range tap.
 //
-// dbsr_warp_dfeat_f32 -- d_feat = W^T g. Bound on the H100: memory; the
-// least traffic is one read of g and flow and one write of d_feat: at the
-// encoder's [112, 48, 48, 512] ~1.06 GB, ~0.32 ms at 3.35 TB/s. Design:
-// scatter form. One block per tile of kPix output pixels of one frame; the
-// first kPix threads compute each pixel's tap offsets and weights once into
-// shared memory; then all threads walk (pixel, 4-channel group) pairs, load
-// g with a 16-byte load and atomicAdd w_tap * g into the taps of the zeroed
-// output (the wrapper zeroes it on the stream), one 16-byte (float4) atomic
-// per tap and 4-channel group. The order of the atomic sums is not fixed,
-// so the result matches the plain version to rounding.
+// dbsr_warp_dfeat_f32 -- d_feat = W^T g, i.e. d_feat[q] = sum over the
+// (source p, tap) pairs whose nonzero-weight tap lands on q of w * g[p].
+// Bound on the H100: memory; the least traffic is one read of g and flow
+// and one write of d_feat: at the encoder's [112, 48, 48, 512] ~1.06 GB,
+// ~0.32 ms at 3.35 TB/s. Design: a gather, deterministic like the JAX
+// kernel's W^T tile @ g, with no atomics on the output and no zero fill.
+// Flows are unbounded, so the transposed taps are built per call as a CSR
+// per frame, in scratch the wrapper allocates (~10 words per pixel, ~1% of
+// the bound's traffic at the encoder's shape), by one 1024-thread block per
+// frame, in shared memory where a frame's CSR fits (up to ~5800 pixels;
+// then copied out), in four steps parted by __syncthreads:
+//   1. count: each source pixel adds 1 (an integer atomic, so the counts do
+//      not depend on the order) to the count of each target its
+//      nonzero-weight taps land on;
+//   2. scan: the counts become each target's bucket start (an exclusive
+//      scan) and are zeroed for step 3;
+//   3. fill: each source pixel takes a slot in each of its targets'
+//      buckets (an integer atomic: the order within a bucket is not fixed)
+//      and writes (source, weight) there;
+//   4. sort: each target's bucket by source (insertion sort: a bucket
+//      holds ~4 entries for a smooth flow; a heapsort above 32, for a
+//      pile-up of many sources on one target, slow but right);
+//   5. gather, a second kernel: a block takes a 4x8 tile of targets x a
+//      slab of G x V 4-channel groups (G up to 8, V up to 2); each thread
+//      walks its target's bucket in ascending source order, sums
+//      w * g[p, c:c+4] for its V groups (G apart, so that neighbouring
+//      threads load neighbouring 16 bytes) in float4 registers, and writes
+//      each once. Neighbouring targets of a tile share sources, which the
+//      L1 then serves; one frame of g (4.7 MB at the encoder's shape) stays
+//      in the 50 MB L2. The sums' order is fixed by the CSR, so the output
+//      is bit-identical from call to call.
 //
 // dbsr_warp_dflow_f32 -- d_flow[p] = sum_c g[p, c] * sum_tap dw_tap/d(x,y) *
 // feat[tap, c]. Bound: memory; one read of g and feat (+ flow), ~1.06 GB at
@@ -30,22 +51,29 @@
 // lanes walk the channels in 4-channel groups (16-byte loads of g and of
 // the four taps of feat), accumulate both sums in registers and reduce
 // them with shuffles; lane 0 writes the pixel's two values.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPix = 16;
+constexpr int kBuildThreads = 1024;
+// the shared memory a block may opt in to, less the build's static 128 B
+constexpr long long kMaxSmem = 227 * 1024 - 128;
+constexpr int kTileY = 4;  // gather: a block's targets, 4 rows x 8 columns
+constexpr int kTileX = 8;
+constexpr int kTargets = kTileY * kTileX;
 
 struct Taps {
-  long long off[4];  // element offset of each tap in the frame (clamped)
-  float w[4];        // tap weight, 0 out of range
-  float dx[4];       // d w / d x, 0 out of range
-  float dy[4];       // d w / d y, 0 out of range
+  int q[4];     // flat pixel index of each tap in the frame (clamped)
+  float w[4];   // tap weight, 0 out of range
+  float dx[4];  // d w / d x, 0 out of range
+  float dy[4];  // d w / d y, 0 out of range
 };
 
 __device__ __forceinline__ Taps tap_geometry(const float* fl, int p, int H,
-                                             int W, int C) {
+                                             int W) {
   Taps t;
   const float x = __fadd_rn(static_cast<float>(p % W), fl[0]);
   const float y = __fadd_rn(static_cast<float>(p / W), fl[1]);
@@ -67,7 +95,7 @@ __device__ __forceinline__ Taps tap_geometry(const float* fl, int p, int H,
                        xi < static_cast<float>(W);
     const int yc = static_cast<int>(fminf(fmaxf(yi, 0.0f), H - 1.0f));
     const int xc = static_cast<int>(fminf(fmaxf(xi, 0.0f), W - 1.0f));
-    t.off[k] = (static_cast<long long>(yc) * W + xc) * C;
+    t.q[k] = yc * W + xc;
     t.w[k] = valid ? w[k] : 0.0f;
     t.dx[k] = valid ? dx[k] : 0.0f;
     t.dy[k] = valid ? dy[k] : 0.0f;
@@ -75,47 +103,231 @@ __device__ __forceinline__ Taps tap_geometry(const float* fl, int p, int H,
   return t;
 }
 
-__global__ void __launch_bounds__(kThreads)
-dfeat_kernel(const float* __restrict__ flow, const float* __restrict__ g,
-             float* __restrict__ dfeat, int H, int W, int C) {
-  __shared__ long long s_off[kPix][4];
-  __shared__ float s_w[kPix][4];
+// The CSR of one call in the wrapper's int32 scratch: per frame, the
+// targets' counts [P] and their bucket starts [P + 1] (start[P] = the
+// frame's entries), then, 16-byte aligned, the entries [4 P] of (source,
+// weight bits): csr_words words in all (ops/warp.py:_dfeat_scratch_words
+// computes the same).
+struct Csr {
+  int* count;
+  int* start;
+  int2* entries;
+};
 
+inline long long csr_heads(long long frames, long long P) {
+  return (frames * (2 * P + 1) + 3) / 4 * 4;
+}
+
+inline long long csr_words(long long frames, long long P) {
+  return csr_heads(frames, P) + frames * 8 * P;
+}
+
+inline Csr csr_layout(int* scratch, long long frames, long long P) {
+  return Csr{scratch, scratch + frames * P,
+             reinterpret_cast<int2*>(scratch + csr_heads(frames, P))};
+}
+
+// A bucket sorted by source (a source's four taps land on four different
+// targets, so the sources of a bucket are distinct): insertion sort up to
+// kInsertionMax entries, else heapsort, so that a pile-up of many sources
+// on one target costs n log n
+constexpr int kInsertionMax = 32;
+
+__device__ __forceinline__ void sift_down(int2* e, int root, int n) {
+  const int2 v = e[root];
+  int child;
+  while ((child = 2 * root + 1) < n) {
+    if (child + 1 < n && e[child + 1].x > e[child].x) ++child;
+    if (e[child].x <= v.x) break;
+    e[root] = e[child];
+    root = child;
+  }
+  e[root] = v;
+}
+
+__device__ void sort_bucket(int2* e, int n) {
+  if (n <= kInsertionMax) {
+    for (int a = 1; a < n; ++a) {
+      const int2 v = e[a];
+      int b = a - 1;
+      while (b >= 0 && e[b].x > v.x) {
+        e[b + 1] = e[b];
+        --b;
+      }
+      e[b + 1] = v;
+    }
+    return;
+  }
+  for (int root = n / 2 - 1; root >= 0; --root) sift_down(e, root, n);
+  for (int end = n - 1; end > 0; --end) {
+    const int2 top = e[0];
+    e[0] = e[end];
+    e[end] = top;
+    sift_down(e, 0, end);
+  }
+}
+
+// Bytes of shared memory that hold a frame's whole CSR in the build.
+inline long long build_smem_bytes(long long P) {
+  return (2 * P + 2) * 4 + 4 * P * 8;
+}
+
+// Steps 1-4, one block per frame, the steps parted by __syncthreads. With
+// kShared (a frame's CSR fits in shared memory: P up to ~5800) the counts,
+// starts and entries are built there and the starts and entries copied to
+// the scratch at the end; else they are built in the scratch.
+template <bool kShared>
+__global__ void __launch_bounds__(kBuildThreads)
+dfeat_build_kernel(const float* __restrict__ flow, int* __restrict__ count,
+                   int* __restrict__ start, int2* __restrict__ entries, int H,
+                   int W) {
+  __shared__ int s_warp[kBuildThreads / 32];
+  extern __shared__ int2 s_csr[];  // kShared: entries [4P], count [P],
+                                   // start [P + 1]
   const int P = H * W;
-  const long long frame = blockIdx.y;
-  const int p0 = blockIdx.x * kPix;
-  const int npix = min(kPix, P - p0);
+  const long long frame = blockIdx.x;
+  const float* fl = flow + frame * P * 2;
+  int* c = kShared ? reinterpret_cast<int*>(s_csr + 4 * P) : count + frame * P;
+  int* s = kShared ? c + P : start + frame * (P + 1);
+  int2* e = kShared ? s_csr : entries + frame * 4 * P;
+  const int tid = threadIdx.x;
 
-  if (threadIdx.x < npix) {
-    const int p = p0 + threadIdx.x;
-    const Taps t = tap_geometry(flow + (frame * P + p) * 2, p, H, W, C);
+  for (int q = tid; q < P; q += kBuildThreads) c[q] = 0;
+  __syncthreads();
+  // 1. count
+  for (int p = tid; p < P; p += kBuildThreads) {
+    const Taps t = tap_geometry(fl + 2 * p, p, H, W);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (t.w[k] != 0.0f) atomicAdd(c + t.q[k], 1);
+  }
+  __syncthreads();
+  // 2. scan: each thread a run of `per` counts, then the block's prefix
+  const int per = (P + kBuildThreads - 1) / kBuildThreads;
+  const int lo = min(P, tid * per);
+  const int hi = min(P, lo + per);
+  int sum = 0;
+  for (int i = lo; i < hi; ++i) sum += c[i];
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int v = sum;  // inclusive scan over the warp's threads
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int n = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += n;
+  }
+  if (lane == 31) s_warp[warp] = v;
+  __syncthreads();
+  if (warp == 0) {  // inclusive scan over the warps' totals
+    int w = s_warp[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int n = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += n;
+    }
+    s_warp[lane] = w;
+  }
+  __syncthreads();
+  int run = v - sum + (warp ? s_warp[warp - 1] : 0);
+  for (int i = lo; i < hi; ++i) {
+    s[i] = run;
+    run += c[i];
+    c[i] = 0;  // the fill's cursor
+  }
+  if (tid == kBuildThreads - 1) s[P] = run;  // the frame's total
+  __syncthreads();
+  // 3. fill
+  for (int p = tid; p < P; p += kBuildThreads) {
+    const Taps t = tap_geometry(fl + 2 * p, p, H, W);
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      s_off[threadIdx.x][k] = t.off[k];
-      s_w[threadIdx.x][k] = t.w[k];
+      if (t.w[k] == 0.0f) continue;
+      const int q = t.q[k];
+      e[s[q] + atomicAdd(c + q, 1)] = make_int2(p, __float_as_int(t.w[k]));
     }
   }
   __syncthreads();
+  // 4. sort
+  for (int q = tid; q < P; q += kBuildThreads)
+    sort_bucket(e + s[q], s[q + 1] - s[q]);
+  if constexpr (kShared) {
+    __syncthreads();
+    int* gs = start + frame * (P + 1);
+    int2* ge = entries + frame * 4 * P;
+    for (int q = tid; q <= P; q += kBuildThreads) gs[q] = s[q];
+    for (int i = tid; i < s[P]; i += kBuildThreads) ge[i] = e[i];
+  }
+}
 
-  const int C4 = C / 4;
-  const float* gb = g + (frame * P + p0) * C;
-  float* db = dfeat + frame * P * C;
-  for (int i = threadIdx.x; i < npix * C4; i += kThreads) {
-    const int q = i / C4;
-    const int c = (i - q * C4) * 4;
-    const float4 v = __ldg(reinterpret_cast<const float4*>(
-        gb + static_cast<long long>(q) * C + c));
+// 5. d_feat[q, c:c+4] = sum over q's bucket, in ascending source order, of
+// w * g[p, c:c+4]; a block is a 4x8 tile of targets x a slab of G x V
+// 4-channel groups, thread (target, j) the groups j, j + G, .. of the slab
+template <int G, int V>
+__global__ void __launch_bounds__(kTargets * G)
+dfeat_gather_kernel(const float* __restrict__ g, const int* __restrict__ start,
+                    const int2* __restrict__ entries, float* __restrict__ dfeat,
+                    int H, int W, int C, int tiles_x, int tiles, int slabs) {
+  const int P = H * W;
+  long long bid = blockIdx.x;
+  const int slab = static_cast<int>(bid % slabs);
+  bid /= slabs;
+  const int tile = static_cast<int>(bid % tiles);
+  const long long frame = bid / tiles;
+  const int lt = threadIdx.x / G;
+  const int y = (tile / tiles_x) * kTileY + lt / kTileX;
+  const int x = (tile % tiles_x) * kTileX + lt % kTileX;
+  if (y >= H || x >= W) return;
+  const int q = y * W + x;
+  const int c = (slab * G * V + static_cast<int>(threadIdx.x) % G) * 4;
+  const int* s = start + frame * (P + 1);
+  const int2* e = entries + frame * 4 * P;
+  const float* gb = g + frame * P * C + c;
+  float4 acc[V];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float w = s_w[q][k];
-      if (w == 0.0f) continue;  // out of range, or a zero-weight tap
-      // sm_90's 16-byte atomicAdd on global memory: one atomic per
-      // 4-channel group (d is 16-byte aligned: C % 4 == 0, c % 4 == 0)
-      atomicAdd(reinterpret_cast<float4*>(db + s_off[q][k] + c),
-                make_float4(__fmul_rn(v.x, w), __fmul_rn(v.y, w),
-                            __fmul_rn(v.z, w), __fmul_rn(v.w, w)));
+  for (int v = 0; v < V; ++v) acc[v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const int hi = s[q + 1];
+#pragma unroll 2
+  for (int k = s[q]; k < hi; ++k) {
+    const int2 ent = __ldg(e + k);
+    const float w = __int_as_float(ent.y);
+    const float* gp = gb + static_cast<long long>(ent.x) * C;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float4 val = __ldg(reinterpret_cast<const float4*>(gp + v * G * 4));
+      acc[v].x = fmaf(w, val.x, acc[v].x);
+      acc[v].y = fmaf(w, val.y, acc[v].y);
+      acc[v].z = fmaf(w, val.z, acc[v].z);
+      acc[v].w = fmaf(w, val.w, acc[v].w);
     }
   }
+  float* out = dfeat + (frame * P + q) * C + c;
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+    *reinterpret_cast<float4*>(out + v * G * 4) = acc[v];
+}
+
+template <int G, int V>
+void launch_gather(const float* g, const Csr& csr, float* dfeat, int frames,
+                   int H, int W, int C, cudaStream_t stream) {
+  const int tiles_x = (W + kTileX - 1) / kTileX;
+  const int tiles = ((H + kTileY - 1) / kTileY) * tiles_x;
+  const int slabs = C / 4 / (G * V);
+  const long long blocks = static_cast<long long>(frames) * tiles * slabs;
+  dfeat_gather_kernel<G, V><<<static_cast<unsigned>(blocks), kTargets * G, 0,
+                              stream>>>(g, csr.start, csr.entries, dfeat, H, W,
+                                        C, tiles_x, tiles, slabs);
+}
+
+// G: the widest of 8, 4, 2, 1 4-channel groups that divides C / 4; V: 2
+// slabs of G a thread where they divide it too (two 16-byte loads in
+// flight per entry; 4 was slower at the encoder's C = 512)
+template <int G>
+void launch_gather_v(const float* g, const Csr& csr, float* dfeat, int frames,
+                     int H, int W, int C, cudaStream_t stream) {
+  if ((C / 4) % (2 * G) == 0)
+    launch_gather<G, 2>(g, csr, dfeat, frames, H, W, C, stream);
+  else
+    launch_gather<G, 1>(g, csr, dfeat, frames, H, W, C, stream);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -128,7 +340,7 @@ dflow_kernel(const float* __restrict__ feat, const float* __restrict__ flow,
   if (pix >= total) return;  // whole warps leave together
   const long long frame = pix / P;
   const int p = static_cast<int>(pix - frame * P);
-  const Taps t = tap_geometry(flow + pix * 2, p, H, W, C);
+  const Taps t = tap_geometry(flow + pix * 2, p, H, W);
   const float* fb = feat + frame * P * C;
   const float* gp = g + pix * C;
   float sx = 0.0f, sy = 0.0f;
@@ -139,7 +351,8 @@ dflow_kernel(const float* __restrict__ feat, const float* __restrict__ flow,
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       if (t.dx[k] == 0.0f && t.dy[k] == 0.0f) continue;
-      const float4 v = __ldg(reinterpret_cast<const float4*>(fb + t.off[k] + c));
+      const float4 v = __ldg(reinterpret_cast<const float4*>(
+          fb + static_cast<long long>(t.q[k]) * C + c));
       fx.x = fmaf(t.dx[k], v.x, fx.x);
       fx.y = fmaf(t.dx[k], v.y, fx.y);
       fx.z = fmaf(t.dx[k], v.z, fx.z);
@@ -166,15 +379,41 @@ dflow_kernel(const float* __restrict__ feat, const float* __restrict__ flow,
 }  // namespace
 
 // flow [frames, H, W, 2], g and dfeat [frames, H, W, C]; all float32,
-// contiguous, 16-byte aligned; C % 4 == 0; dfeat zeroed by the caller.
+// contiguous, 16-byte aligned; C % 4 == 0; scratch int32, 16-byte aligned,
+// of at least scratch_words words (the CSR; csr_words). dfeat needs no
+// initial value: every element is written once.
 DBSR_EXPORT int dbsr_warp_dfeat_f32(const float* flow, const float* g,
-                                    float* dfeat, int frames, int H, int W,
-                                    int C, void* stream) {
-  if (C % 4 != 0 || frames > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (frames == 0 || H == 0 || W == 0 || C == 0) return 0;
-  const dim3 grid((H * W + kPix - 1) / kPix, frames);
-  dfeat_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      flow, g, dfeat, H, W, C);
+                                    float* dfeat, int* scratch, int frames,
+                                    int H, int W, int C, int scratch_words,
+                                    void* stream) {
+  const long long P = static_cast<long long>(H) * W;
+  if (C % 4 != 0 || P > INT_MAX / 4
+      || csr_words(frames, P) > static_cast<long long>(scratch_words))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (frames == 0 || P == 0 || C == 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Csr csr = csr_layout(scratch, frames, P);
+  const long long smem = build_smem_bytes(P);
+  if (smem <= kMaxSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(  // on the current device
+        dfeat_build_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dfeat_build_kernel<true><<<frames, kBuildThreads, smem, st>>>(
+        flow, csr.count, csr.start, csr.entries, H, W);
+  } else {
+    dfeat_build_kernel<false><<<frames, kBuildThreads, 0, st>>>(
+        flow, csr.count, csr.start, csr.entries, H, W);
+  }
+  const int c4 = C / 4;
+  if (c4 % 8 == 0)
+    launch_gather_v<8>(g, csr, dfeat, frames, H, W, C, st);
+  else if (c4 % 4 == 0)
+    launch_gather_v<4>(g, csr, dfeat, frames, H, W, C, st);
+  else if (c4 % 2 == 0)
+    launch_gather_v<2>(g, csr, dfeat, frames, H, W, C, st);
+  else
+    launch_gather_v<1>(g, csr, dfeat, frames, H, W, C, st);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,7 +5,7 @@
                                              * second[b, y+dy, x+dx, c]
 
 with zero padding outside ``second``. ``cost_volume`` is a
-``torch.autograd.Function``. For CUDA tensors (any plane size, C up to 256)
+``torch.autograd.Function``. For CUDA tensors (any plane size, any C >= 1)
 its forward launches ``kernels/csrc/correlation.cu`` and its backward the two
 kernels of ``kernels/csrc/correlation_bwd.cu``, each only when its input needs
 a gradient: ``correlation_dfirst`` and ``correlation_dsecond``. For CPU
@@ -24,7 +24,6 @@ from dbsr_tpu_torch import kernels
 
 MAX_DISP = 4
 NUM_OFFSETS = (2 * MAX_DISP + 1) ** 2  # 81
-_MAX_KERNEL_C = 256  # shared-memory limit of the forward kernel's staged tiles
 
 
 def _offsets():
@@ -103,9 +102,8 @@ def _check_grad(op: str, operand: torch.Tensor, g: torch.Tensor) -> None:
 def _launch_checks(op: str, *tensors: torch.Tensor):
     kernels.require_cuda_f32(op, *tensors)
     B, H, W, C = tensors[0].shape
-    if not 0 < C <= _MAX_KERNEL_C:
-        raise ValueError(f"{op}: kernel takes 0 < C <= {_MAX_KERNEL_C}, "
-                         f"got C={C}")
+    if C < 1:
+        raise ValueError(f"{op}: kernel takes C >= 1, got C={C}")
     return B, H, W, C
 
 
@@ -177,7 +175,7 @@ class _Correlation(torch.autograd.Function):
 def cost_volume(first: torch.Tensor, second: torch.Tensor) -> torch.Tensor:
     """81-channel local cost volume of ``[B, H, W, C]`` features,
     differentiable in both: the CUDA kernels for CUDA tensors (float32,
-    C <= 256), the plain versions for CPU tensors. A non-contiguous input
+    any C >= 1), the plain versions for CPU tensors. A non-contiguous input
     (a broadcast target pyramid, a masked backwarp) is copied first."""
     return _Correlation.apply(first.contiguous(), second.contiguous())
 

@@ -5,9 +5,10 @@ of ``dbsr_tpu/ops/warp_pallas.py`` and the gather ``warp`` /
 ``warp_feat`` is a ``torch.autograd.Function``. For CUDA tensors its
 forward launches ``kernels/csrc/warp.cu`` and its backward the two kernels
 of ``kernels/csrc/warp_bwd.cu``: ``warp_dfeat`` (the transposed 4-tap
-operator applied to the output gradient, a scatter with atomics) when the
-features need a gradient, and ``warp_dflow`` (the floor-tap derivative of
-the taps against the features) only when the flow needs one. For CPU
+operator applied to the output gradient, a deterministic gather over a
+per-call CSR of the transposed taps) when the features need a gradient,
+and ``warp_dflow`` (the floor-tap derivative of the taps against the
+features) only when the flow needs one. For CPU
 tensors the same ``Function`` runs the plain versions
 (``warp_feat_plain``, ``warp_feat_backward_plain``). Each kernel wrapper
 counts its launches in ``.launches``.
@@ -157,17 +158,26 @@ def warp_forward(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _dfeat_scratch_words(frames: int, P: int) -> int:
+    """int32 words of the d_feat kernel's CSR (``warp_bwd.cu:csr_words``):
+    per frame the targets' counts [P] and bucket starts [P + 1], rounded up
+    to 16 bytes, then 4 P entries of (source, weight) pairs."""
+    return (frames * (2 * P + 1) + 3) // 4 * 4 + frames * 8 * P
+
+
 def warp_dfeat(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """d_feat of the warp for the output gradient ``g`` ``[B, H, W, C]``:
-    the kernel (scatter with atomics into a zeroed output) for CUDA
-    tensors, the plain scatter-add for CPU ones."""
+    the kernel (a gather over the transposed taps, bit-identical from call
+    to call) for CUDA tensors, the plain scatter-add for CPU ones."""
     _check("warp_dfeat", g, flow)
     if _on_cpu(flow, g):
         return warp_dfeat_plain(flow, g)
     B, H, W, C = _launch_checks("warp_dfeat", g, flow)
-    out = torch.zeros_like(g)
-    kernels.launch("warp_bwd", "dbsr_warp_dfeat_f32", (flow, g, out),
-                   (B, H, W, C))
+    out = torch.empty_like(g)
+    words = _dfeat_scratch_words(B, H * W)
+    scratch = torch.empty(words, dtype=torch.int32, device=g.device)
+    kernels.launch("warp_bwd", "dbsr_warp_dfeat_f32", (flow, g, out, scratch),
+                   (B, H, W, C, words))
     warp_dfeat.launches += 1
     return out
 

@@ -16,7 +16,11 @@ tensor-core design rests on, and the host's launch path.
   accurate, and less accurate than float32 FMAs).
 * ``kernels.launch`` with a stub library: each C entry is bound (its
   ``argtypes``) once over many calls; a non-zero return raises with the
-  library's error string; an int outside int32 raises before the call.
+  library's error string; an int outside int32 raises before the call;
+  the entry runs with the tensors' device current (stand-ins for the
+  current device, the device switch and a tensor on ``cuda:1``), the
+  previous device is current again afterwards, also when the entry fails,
+  and a launch on the current device switches nothing.
 """
 
 import ctypes
@@ -232,3 +236,71 @@ def test_launch_rejects_ints_outside_int32(stub, bad):
     with pytest.raises(ValueError, match="out of int32 range"):
         kernels.launch("stub", "dbsr_stub", (torch.zeros(4),), (5, bad))
     assert lib.dbsr_stub.calls == []
+
+
+class _Devices:
+    """Stand-ins for ``torch.cuda.current_device`` and
+    ``torch.cuda.set_device``: the current index, and every switch."""
+
+    def __init__(self, current=0):
+        self.current, self.switches = current, []
+
+    def current_device(self):
+        return self.current
+
+    def set_device(self, index):
+        self.switches.append(index)
+        self.current = index
+
+
+def _on(index, ptr=4096):
+    """A tensor stand-in whose device reports ``cuda:<index>``."""
+    return SimpleNamespace(device=torch.device("cuda", index),
+                           data_ptr=lambda: ptr)
+
+
+@pytest.fixture
+def devices(stub, monkeypatch):
+    """The stub library of ``rc`` on stand-in devices with ``cuda:0``
+    current; returns the devices and the device current at each call of
+    the entry."""
+    def make(rc=0):
+        lib, _ = stub(rc)
+        devs, seen = _Devices(0), []
+        monkeypatch.setattr(torch.cuda, "current_device", devs.current_device)
+        monkeypatch.setattr(torch.cuda, "set_device", devs.set_device)
+        entry = lib.dbsr_stub
+
+        class _Recording(_StubEntry):
+            def __call__(self, *args):
+                seen.append(devs.current)
+                return entry(*args)
+        lib.dbsr_stub = _Recording(rc)
+        return devs, seen
+    return make
+
+
+def test_launch_runs_the_entry_on_the_tensors_device(devices):
+    devs, seen = devices()
+    x, y = _on(1, 4096), _on(1, 8192)
+    kernels.launch("stub", "dbsr_stub", (x, y), (3,))
+    assert seen == [1]                 # the entry ran with cuda:1 current
+    assert devs.switches == [1, 0]     # in, then back out
+    assert devs.current == 0
+
+
+def test_launch_restores_the_device_when_the_entry_fails(devices):
+    devs, seen = devices(rc=98)
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        kernels.launch("stub", "dbsr_stub", (_on(1),), (1,))
+    assert seen == [1]
+    assert devs.switches == [1, 0]
+    assert devs.current == 0
+
+
+def test_launch_on_the_current_device_switches_nothing(devices):
+    devs, seen = devices()
+    for _ in range(3):
+        kernels.launch("stub", "dbsr_stub", (_on(0),), (1,))
+    assert seen == [0, 0, 0]
+    assert devs.switches == []
