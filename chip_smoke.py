@@ -47,7 +47,10 @@ default.
    affine resample (fused and strict synthesis), the warp's d_feat and
    d_flow (flows up to +-5 px, some on exact integers; also AlignLite's
    backwarp shapes), the cost volume's d_first and d_second (AlignLite's
-   three levels and an odd shape; then the ``Function`` on the card) and
+   three levels, their device time also by level, and an odd shape; each
+   called twice, bit-identical required; untimed, a ragged 13x22 plane at
+   C in {1, 3, 5, 33, 196} and two shapes whose blocks take several
+   channel chunks; then the ``Function`` on the card) and
    the merge backward, each also against ``torch.autograd.grad`` of the
    plain forward (the resample bit-identical to its plain version);
    d_feat called twice must give the same bits, with flows of +-5 px and
@@ -137,15 +140,16 @@ FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
 TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 tensor-core rate (dense)
 # the CUDA kernels each entry's wrapper launches, as the profiler names
 # them (warp_dfeat's call builds its CSR of the transposed taps, then
-# gathers; its kernel_device_ms is the two summed)
+# gathers; its kernel_device_ms is the two summed; d_first and d_second are
+# one template, correlation_bwd_kernel<kShifted, kVec>)
 KERNEL_NAMES = {"warp": ("warp_kernel",),
                 "correlation": ("correlation_kernel",),
                 "merge": ("merge_kernel",), "resample": ("resample_kernel",),
                 "warp_dfeat": ("dfeat_build_kernel", "dfeat_gather_kernel"),
                 "warp_dflow": ("dflow_kernel",),
                 "merge_backward": ("merge_bwd_kernel",),
-                "correlation_dfirst": ("correlation_dfirst_kernel",),
-                "correlation_dsecond": ("correlation_dsecond_kernel",),
+                "correlation_dfirst": ("correlation_bwd_kernel<false",),
+                "correlation_dsecond": ("correlation_bwd_kernel<true",),
                 "conv_s2d": ("conv_s2d_kernel",)}
 CALL_GAP_S = 0.005  # idle time between the profiled calls of device_ms
 HOST_CALLS = 200    # calls of the host-cost loop
@@ -892,12 +896,16 @@ def dfeat_determinism(dev, g):
 
 def correlation_backward_entries(dev, g):
     """Phase 6, the cost volume's d_first and d_second: against their plain
-    versions and ``torch.autograd.grad`` of ``correlation_plain`` at
-    AlignLite's three training shapes (B=16, N=8) and at an odd one (H != W,
-    neither a multiple of the 4x8 tile, C above one staged chunk of 128);
-    then the ``Function`` on the card. ``library_ms`` is None: no single
-    PyTorch call computes either; autograd of the plain version is
-    ``plain_ms``."""
+    versions and ``torch.autograd.grad`` of ``correlation_plain``, and two
+    calls bit-identical, at AlignLite's three training shapes (B=16, N=8;
+    device time also by level) and at an odd one (H != W, neither a
+    multiple of the 8x12 tile, C = 136 in 5 chunks split across blocks);
+    untimed, on a ragged 13x22 plane at C in {1, 3, 5, 33, 196} (4-byte and
+    16-byte copies, part-filled channel groups, PWC-Net's widest level) and
+    at two shapes whose blocks take several chunks each, double-buffered
+    (C = 100 with the chunks also split, C = 33 with 4-byte copies); then
+    the ``Function`` on the card. ``library_ms`` is None: no single PyTorch
+    call computes either; autograd of the plain version is ``plain_ms``."""
     from dbsr_tpu_torch.ops.correlation import (NUM_OFFSETS,
                                                 correlation_dfirst,
                                                 correlation_dfirst_plain,
@@ -923,7 +931,8 @@ def correlation_backward_entries(dev, g):
                  second, auto[0]),
                 ("dsecond", correlation_dsecond, correlation_dsecond_plain,
                  first, auto[1])):
-            got = fn(operand, gout)
+            got = check_repeat(f"correlation {name} {list(s)}",
+                               lambda: fn(operand, gout))
             torch.cuda.synchronize()
             errs = [check_close(f"correlation {name} {list(s)}", got,
                                 plain(operand, gout)),
@@ -934,6 +943,31 @@ def correlation_backward_entries(dev, g):
                 bound_ms=bms, bound_by=by,
                 **timings(f"correlation_{name}", lambda: fn(operand, gout),
                           lambda: plain(operand, gout))))
+        del first, second, gout, xs, auto
+
+    odd = {"dfirst": [], "dsecond": []}
+    for s in ((2, 13, 22, 1), (2, 13, 22, 3), (2, 13, 22, 5),
+              (2, 13, 22, 33), (2, 13, 22, 196), (40, 48, 48, 100),
+              (100, 48, 48, 33)):
+        first, second = randn(*s), randn(*s)
+        gout = randn(*s[:3], NUM_OFFSETS)
+        xs = (first.clone().requires_grad_(True),
+              second.clone().requires_grad_(True))
+        auto = torch.autograd.grad(correlation_plain(*xs), xs, gout)
+        for name, fn, plain, operand, want_auto in (
+                ("dfirst", correlation_dfirst, correlation_dfirst_plain,
+                 second, auto[0]),
+                ("dsecond", correlation_dsecond, correlation_dsecond_plain,
+                 first, auto[1])):
+            got = check_repeat(f"correlation {name} {list(s)}",
+                               lambda: fn(operand, gout))
+            odd[name].append(dict(
+                shape=list(s), repeat_identical=True,
+                max_abs_err=check_close(f"correlation {name} {list(s)}", got,
+                                        plain(operand, gout)),
+                err_vs_autograd=check_close(
+                    f"correlation {name} {list(s)} vs autograd", got,
+                    want_auto)))
         del first, second, gout, xs, auto
 
     # the Function on the card: a volume that needs a gradient has a grad_fn
@@ -968,12 +1002,22 @@ def correlation_backward_entries(dev, g):
         raise AssertionError("cost_volume under no_grad kept a graph")
 
     csrc = "dbsr_tpu_torch/kernels/csrc/correlation_bwd.cu"
-    return [_entry("correlation_dfirst", csrc,
-                   "dbsr_tpu/ops/correlation.py:163", rows["dfirst"][:3],
-                   rows["dfirst"][3:], path="pretrain_step"),
-            _entry("correlation_dsecond", csrc,
-                   "dbsr_tpu/ops/correlation.py:178", rows["dsecond"][:3],
-                   rows["dsecond"][3:], path="pretrain_step")]
+    entries = []
+    for name, line in (("dfirst", 163), ("dsecond", 178)):
+        e = _entry(f"correlation_{name}", csrc,
+                   f"dbsr_tpu/ops/correlation.py:{line}", rows[name][:3],
+                   rows[name][3:], path="pretrain_step")
+        # AlignLite's three levels in one pretraining step, each a launch
+        e["kernel_device_ms_by_level"] = {
+            f"{r['shape'][1]}x{r['shape'][2]}x{r['shape'][3]}":
+                r["kernel_device_ms"] for r in e["per_shape"]}
+        e["repeat_identical"] = True
+        e["odd_shapes"] = odd[name]
+        log(f"  correlation_{name} kernel device ms by level (pretraining): "
+            f"{e['kernel_device_ms_by_level']}, summed "
+            f"{e['kernel_device_ms']:.4f}")
+        entries.append(e)
+    return entries
 
 
 def _counters():

@@ -6,11 +6,14 @@
 
 with zero padding outside ``second``. ``cost_volume`` is a
 ``torch.autograd.Function``. For CUDA tensors (any plane size, any C >= 1)
-its forward launches ``kernels/csrc/correlation.cu`` and its backward the two
-kernels of ``kernels/csrc/correlation_bwd.cu``, each only when its input needs
-a gradient: ``correlation_dfirst`` and ``correlation_dsecond``. For CPU
+its forward launches ``kernels/csrc/correlation.cu`` and its backward the
+kernel of ``kernels/csrc/correlation_bwd.cu`` (one body, two entries), each
+entry only when its input needs a gradient: ``correlation_dfirst`` and
+``correlation_dsecond``. For CPU
 tensors the same ``Function`` runs the plain versions (``correlation_plain``,
-``correlation_dfirst_plain``, ``correlation_dsecond_plain``). The inputs are
+``correlation_dfirst_plain``, ``correlation_dsecond_plain``;
+``correlation_dsecond_shifted_plain`` is d_second in the kernel's form, from
+the gradient shifted per pixel, ``shift_gradient``). The inputs are
 kept for the backward only when a gradient is needed, so nothing is saved
 under ``no_grad``. Each kernel wrapper counts its launches in ``.launches``.
 """
@@ -80,6 +83,35 @@ def correlation_dsecond_plain(first: torch.Tensor,
     for o, (dy, dx) in enumerate(_offsets()):
         ys, xs = slice(p - dy, p - dy + H), slice(p - dx, p - dx + W)
         ds = ds + gp[:, ys, xs, o:o + 1] * fp[:, ys, xs, :]
+    return (ds * (1.0 / C)).to(first.dtype)
+
+
+def shift_gradient(g: torch.Tensor) -> torch.Tensor:
+    """``G'[v, w, o] = g[v-dy_o, w-dx_o, o]``, zero where that read falls
+    outside the plane: ``g`` moved per displacement onto the pixel whose
+    d_second term it feeds (what ``correlation_bwd.cu`` stages for
+    d_second)."""
+    B, H, W, _ = g.shape
+    p = MAX_DISP
+    gp = _pad_plane(g.float())
+    return torch.stack([gp[:, p - dy:p - dy + H, p - dx:p - dx + W, o]
+                        for o, (dy, dx) in enumerate(_offsets())], dim=-1)
+
+
+def correlation_dsecond_shifted_plain(first: torch.Tensor,
+                                      g: torch.Tensor) -> torch.Tensor:
+    """d_second in the form ``correlation_bwd.cu`` computes it: ``(1/C)
+    sum_o G'[v, w, o] * first[v-dy_o, w-dx_o, c]`` with ``G' =
+    shift_gradient(g)``, d_first's sum with the operand's displacement
+    mirrored. The CPU model of the kernel; the wrappers do not call it."""
+    B, H, W, C = first.shape
+    p = MAX_DISP
+    fp = _pad_plane(first.float())
+    gs = shift_gradient(g)
+    ds = torch.zeros((B, H, W, C), dtype=torch.float32, device=first.device)
+    for o, (dy, dx) in enumerate(_offsets()):
+        ds = ds + gs[..., o:o + 1] * fp[:, p - dy:p - dy + H,
+                                        p - dx:p - dx + W, :]
     return (ds * (1.0 / C)).to(first.dtype)
 
 
