@@ -104,13 +104,33 @@ default.
     switch at B=1 on the card against the CPU; (d) ``run_training`` for
     one epoch of 5 steps with the switch (8 + 8 ``conv_s2d`` launches per
     step on top of phase 7's); (e) the B=16 step's time and peak memory with
-    the kernel and with the dense conv (the fine form's is 7c's).
+    the kernel and with the dense conv (the fine form's is 7c's);
+11. the SyntheticBurstVal protocol: (a) ``python -m
+    dbsr_tpu_torch.generate_synthetic_burst_val --procedural 150
+    --num_bursts 300 --seed 20260817`` (its ``main``, in this process: the
+    model zoo's val set, exactly one strict ``resample`` launch per burst),
+    wall time; (b) ``compute_score`` of the flagship and of r4mix over the
+    300 bursts at batch 8, MS-SSIM on, no LPIPS, the launch counters reset
+    just before each and read just after (38 forwards: warp and correlation
+    114, merge 38, nothing else), scores logged beside the JAX package's
+    bf16 ones of the same epochs (another val set: context, not a limit),
+    ms per burst by part (the forward and the scoring by CUDA events, the
+    reader thread, the wait on it, the transfer, the fetch) and peak
+    memory; (c) the flagship's per-burst scores of the first 2 bursts on
+    the card against the CPU's (5e-3 dB, 5e-5); (d) ``save_results``, then
+    the saved predictions scored, equal to (b)'s within 1e-6; (e)
+    ``run_evaluation synburst compute_score dbsr_default --no_lpips
+    --max_bursts 16 --json`` (its ``main``) on phase 7b's workspace, the
+    latest epoch and ``--all_epochs``, equal to the API's within 1e-6; (f)
+    (b)'s flagship run with ``DBSR_FINE_PATCH_S2D=1`` (8 ``conv_s2d``
+    launches per forward), scores within (c)'s limits.
 
 The second-to-last line is ``{"kernels": [...]}`` (all ten kernels;
 ``launches`` is the count on the entry's own ``path``, whose shapes its
 times are summed over, except the s2d conv's, whose times are one launch's
 and whose path launches it 8 times per forward; ``launches_by_path`` has
-the counts on all six paths; ``device_ms``, ``kernel_device_ms`` and
+the counts on all seven paths (``eval``: phase 11's generation and
+flagship scoring); ``device_ms``, ``kernel_device_ms`` and
 ``library_device_ms`` beside ``ms`` and ``library_ms``; the s2d conv's
 ``bound_ms`` is that of its own math, 3xTF32 on the tensor cores, also
 given as ``tc_bound_ms``, and ``ffma_bound_ms`` is the same work's bound
@@ -213,6 +233,18 @@ SMOKE_SETTINGS = dict(steps_per_epoch=10, pool_size=128, print_interval=5,
 PRETRAIN_SETTINGS = dict(steps_per_epoch=PRETRAIN_STEPS, pool_size=128,
                          print_interval=150)
 FINE_PATCH_ENV = "DBSR_FINE_PATCH_S2D"  # the fine-patch s2d conv's switch
+# phase 11, the eval protocol: the model zoo's val set (README "Model zoo":
+# 150 procedural sources, 300 bursts, the campaign seed), scored at batch 8
+# with the protocol's boundary of 40 px
+EVAL_PROCEDURAL, EVAL_BURSTS, EVAL_SEED = 150, 300, 20260817
+EVAL_BATCH, EVAL_BOUNDARY = 8, 40
+EVAL_CPU_BURSTS = 2      # bursts of the card-vs-CPU comparison (11c)
+EVAL_CLI_BURSTS = 16     # bursts of each CLI run (11e)
+EVAL_PSNR_TOL, EVAL_SSIM_TOL = 5e-3, 5e-5   # dB; SSIM and MS-SSIM
+EVAL_SAVED_TOL = 1e-6    # saved vs live, CLI vs API: the same computation
+R4MIX_CHECKPOINT = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "dbsr_tpu", "artifacts",
+    "campaigns", "dbsr_campaign_r4mix_best_params.ckpt")
 ALIGN_LITE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "dbsr_tpu", "artifacts", "align_lite_params.ckpt")
 
@@ -636,33 +668,49 @@ def _grid_sample_grid(coords, H, W):
 def resample_entry(dev, g):
     """Phase 6, the affine resample: fused (d=4, border 24; default_synthetic's
     path) and strict (d=1) synthesis of a batch, affines drawn as
-    default_synthetic draws them, each bit-equal to the plain version;
+    default_synthetic draws them, and strict synthesis of one eval burst as
+    ``generate_synthetic_burst_val`` calls it (14 frames of 432^2, affines of
+    the eval configuration), each bit-equal to the plain version;
     ``F.grid_sample`` at the same coordinates is the yardstick; at the fused
     shape, the host's microseconds per call of each."""
     from dbsr_tpu_torch.data.synthetic import (BurstConfig, burst_transforms,
                                                sample_draws)
+    from dbsr_tpu_torch.generate_synthetic_burst_val import eval_burst_config
     from dbsr_tpu_torch.ops.interp import apply_affine_to_points, invert_2x3
     from dbsr_tpu_torch.ops.resample import (affine_resample,
                                              affine_resample_plain,
                                              fine_grid)
 
+    def batch(cfg, b, gen):
+        H, W = cfg.pre_crop_sz
+        images = torch.rand(b, H, W, 3, generator=gen, device=dev)
+        invs = invert_2x3(burst_transforms(sample_draws(gen, b, cfg), (H, W),
+                                           cfg)).contiguous()
+        return images, invs
+
     cfg = BurstConfig(fused_resample=True)
-    H, W = cfg.pre_crop_sz
-    images = torch.rand(TRAIN_B, H, W, 3, generator=g, device=dev)
-    invs = invert_2x3(burst_transforms(sample_draws(g, TRAIN_B, cfg), (H, W),
-                                       cfg)).contiguous()
-    rows = []
+    train = batch(cfg, TRAIN_B, g)
+    # its own generator: the draws of g that later phases take stay as they were
+    eval_cfg = eval_burst_config()
+    evals = batch(eval_cfg, 1, torch.Generator(device=dev).manual_seed(
+        EVAL_SEED))
     d_lr = cfg.downsample_factor
-    for out_hw, d, border in (((cfg.crop_sz[0] // d_lr, cfg.crop_sz[1] // d_lr),
-                               d_lr, cfg.border_crop), ((H, W), 1, 0)):
+    rows = []
+    for (images, invs), out_hw, d, border in (
+            (train, (cfg.crop_sz[0] // d_lr, cfg.crop_sz[1] // d_lr), d_lr,
+             cfg.border_crop),
+            (train, cfg.pre_crop_sz, 1, 0),
+            (evals, eval_cfg.pre_crop_sz, 1, 0)):
+        H, W = images.shape[1:3]
         args = (images, invs, out_hw, d, border)
         got = affine_resample(*args)
-        err = check_exact(f"resample d={d} border={border}", got,
+        err = check_exact(f"resample {list(images.shape)} x {invs.shape[1]} "
+                          f"frames, d={d} border={border}", got,
                           affine_resample_plain(*args))
         coords = apply_affine_to_points(invs, fine_grid(out_hw, d, border,
                                                         dev))
         grid = _grid_sample_grid(coords, H, W).reshape(
-            TRAIN_B, TRAIN_N * out_hw[0], out_hw[1], 2)
+            images.shape[0], invs.shape[1] * out_hw[0], out_hw[1], 2)
         nchw = images.permute(0, 3, 1, 2)
         lib = F.grid_sample(nchw, grid, align_corners=False,
                             padding_mode="zeros")
@@ -692,7 +740,6 @@ def resample_entry(dev, g):
     return _entry("resample", "dbsr_tpu_torch/kernels/csrc/resample.cu",
                   "dbsr_tpu/ops/resample_pallas.py:132", rows[:1], rows[1:],
                   path="train_step")
-
 
 
 def backward_kernel_phase(dev, g):
@@ -1905,6 +1952,278 @@ def s2d_phase(dev, requests):
     return out
 
 
+
+def _scored(what, nets, root, per_forward, n_forwards, **kwargs):
+    """One ``compute_score`` of ``nets`` (MS-SSIM on, no LPIPS) on the card
+    with the launch counters reset just before and read just after: each
+    kernel exactly ``per_forward`` times per forward of each net, the rest
+    never. Returns the scores and the run's numbers: wall seconds, the
+    parts of its timing per network, peak memory, launches."""
+    from dbsr_tpu_torch.evaluation import synburst
+
+    buf = io.StringIO()
+    timing = {}
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        scores = synburst.compute_score(nets, root, with_lpips=False,
+                                        with_msssim=True, device="cuda",
+                                        timing=timing, **kwargs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = read_counts()
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    want = {k: per_forward.get(k, 0) * n_forwards * len(nets)
+            for k in launches}
+    log(f"{what}: launches {launches}; {wall:.2f} s wall, peak memory "
+        f"{peak:.2f} GiB")
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    per_burst = {}
+    for name, t in timing.items():
+        n = t["bursts"]
+        per_burst[name] = dict(
+            bursts=n, ms_per_burst=t["wall_s"] * 1e3 / n,
+            device_ms_per_burst=t["device_ms"] / n,
+            reader_ms_per_burst=t["reader_s"] * 1e3 / n,
+            waited_ms_per_burst=t["waited_s"] * 1e3 / n,
+            transfer_ms_per_burst=t["transfer_s"] * 1e3 / n,
+            fetch_ms=t["fetch_s"] * 1e3)
+    if set(per_burst) != {n.get_display_name() for n in nets}:
+        raise AssertionError(f"{what}: timing of {sorted(per_burst)}")
+    return scores, dict(wall_s=wall, timing=per_burst, peak_mem_gib=peak,
+                        launches=launches)
+
+
+def _scores_close(what, got, want, db_tol, tol):
+    """Every score of ``got`` against ``want``: PSNR within ``db_tol`` dB,
+    SSIM and MS-SSIM within ``tol``. Returns the largest differences."""
+    diffs = {}
+    for m in want:
+        for name, v in want[m].items():
+            diffs[(m, name)] = abs(got[m][name] - v)
+    worst = {m: max(d for (mm, _), d in diffs.items() if mm == m)
+             for m in want}
+    log(f"{what}: largest |difference| {worst} (limits {db_tol} dB, {tol})")
+    for (m, name), d in diffs.items():
+        if not d <= (db_tol if m == "psnr" else tol):
+            raise AssertionError(f"{what}: {m} of {name}: {got[m][name]} vs "
+                                 f"{want[m][name]}")
+    return worst
+
+
+def _banked_score(ckpt):
+    """The JAX package's own score of a banked checkpoint's epoch, from the
+    campaign's trajectory file beside it (bf16, its own val set): context,
+    not a limit."""
+    from dbsr_tpu_torch.training.checkpoint import read_header
+
+    epoch = read_header(ckpt)["epoch"]
+    path = ckpt.replace("_best_params.ckpt", "_trajectory.jsonl")
+    found = None
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("epoch") == epoch:
+                found = rec  # the last record of the epoch
+    return epoch, found and (found["psnr"], found["ssim"])
+
+
+def card_vs_cpu_scores(root, ckpt, n_bursts):
+    """Phase 11c: the per-burst scores of the first ``n_bursts`` bursts on
+    the card (kernels) and on the CPU (plain versions), the same checkpoint
+    and the same fused forward-quantize-score function."""
+    from dbsr_tpu_torch.data.datasets import SyntheticBurstVal
+    from dbsr_tpu_torch.evaluation import synburst
+    from dbsr_tpu_torch.evaluation.network_param import NetworkParam
+
+    ds = SyntheticBurstVal(root)
+    bursts = synburst._host_u16(np.stack([ds[i][0] for i in range(n_bursts)]))
+    gts = synburst._host_u16(np.stack([ds[i][1] for i in range(n_bursts)]))
+    per_burst = {}
+    for device in ("cuda", "cpu"):
+        net, _ = NetworkParam(checkpoint_path=ckpt).load_net("", device)
+        fn = synburst._scored_forward_fn(
+            net, synburst._make_score_batch(EVAL_BOUNDARY, True))
+        s = fn(torch.from_numpy(bursts).to(device),
+               torch.from_numpy(gts).to(device))
+        per_burst[device] = {m: {str(i): float(v[i]) for i in
+                                 range(n_bursts)} for m, v in s.items()}
+        del net
+    worst = _scores_close(f"card vs CPU, per burst, first {n_bursts} bursts",
+                          per_burst["cuda"], per_burst["cpu"],
+                          EVAL_PSNR_TOL, EVAL_SSIM_TOL)
+    return dict(per_burst=per_burst, max_abs=worst)
+
+
+def eval_phase(workdir, train_workspace):
+    """Phase 11, the SyntheticBurstVal protocol through the port's entry
+    points: (a) the val set generated on the card; (b) ``compute_score`` of
+    the flagship and r4mix over it; (c) per-burst scores, card vs CPU; (d)
+    ``save_results`` rescored; (e) ``run_evaluation``'s CLI against the API
+    on phase 7b's workspace; (f) the flagship with the ``conv_s2d``
+    kernel. Returns the numbers and the phase's launches (``eval``: the
+    generation and the flagship's scoring)."""
+    from dbsr_tpu_torch import generate_synthetic_burst_val as gen
+    from dbsr_tpu_torch import run_evaluation
+    from dbsr_tpu_torch.data.datasets import SyntheticBurstVal
+    from dbsr_tpu_torch.evaluation import synburst
+    from dbsr_tpu_torch.evaluation.network_param import NetworkParam
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT
+    from dbsr_tpu_torch.training.checkpoint import list_checkpoints
+
+    n_bursts = EVAL_BURSTS
+    n_forwards = -(-n_bursts // EVAL_BATCH)
+    out = {"bursts": n_bursts, "forwards_per_net": n_forwards}
+    root = os.path.join(workdir, "synburst_val")
+
+    # (a) the val set, through the generator's entry
+    argv = ["--procedural", str(EVAL_PROCEDURAL), "--num_bursts",
+            str(n_bursts),
+            "--seed", str(EVAL_SEED), "--out_dir", root]
+    buf = io.StringIO()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        gen.main(argv)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = read_counts()
+    log(f"generate_synthetic_burst_val {' '.join(argv[:-2])}: {gen_s:.2f} s "
+        f"({gen_s * 1e3 / n_bursts:.1f} ms per burst); launches "
+        f"{gen_launches}; {buf.getvalue().splitlines()[-1]}")
+    want = {k: (n_bursts if k == "resample" else 0) for k in gen_launches}
+    if gen_launches != want:
+        raise AssertionError(f"generator: launches {gen_launches}, expected "
+                             f"{want} (one strict resample per burst)")
+    ds = SyntheticBurstVal(root)
+    burst, gt, meta = ds[n_bursts - 1]
+    if (len(ds) != n_bursts or burst.shape != (N, HW, HW, 4)
+            or gt.shape != (HW * 8, HW * 8, 3) or ds.cv2_channel_order
+            or meta["burst_name"] != f"{n_bursts - 1:04d}"):
+        raise AssertionError(f"val set: {len(ds)} bursts, {burst.shape}, "
+                             f"{gt.shape}, {meta}")
+    out["generate"] = dict(wall_s=gen_s, ms_per_burst=gen_s * 1e3 / n_bursts,
+                           launches=gen_launches)
+
+    # (b) the zoo's two networks the port builds, through the API
+    nets = [NetworkParam(checkpoint_path=c, display_name=os.path.basename(
+        c).replace("_best_params.ckpt", ""))
+        for c in (FLAGSHIP_CHECKPOINT, R4MIX_CHECKPOINT)]
+    flagship = nets[:1]
+    with contextlib.redirect_stdout(io.StringIO()):  # cuDNN's first calls
+        synburst.compute_score(flagship, root, with_lpips=False,
+                               max_bursts=EVAL_BATCH, device="cuda")
+    scores, runs = {}, {}
+    for n in nets:
+        name = n.get_display_name()
+        s, runs[name] = _scored(f"compute_score {name}, {n_bursts} bursts, "
+                                f"batch {EVAL_BATCH}", [n], root,
+                                LAUNCHES_PER_FORWARD, n_forwards)
+        for m, v in s.items():
+            scores.setdefault(m, {}).update(v)
+        if not all(math.isfinite(v[name]) for v in s.values()):
+            raise AssertionError(f"{name}: scores not finite: {s}")
+        epoch, banked = _banked_score(n.checkpoint_path)
+        log(f"{name} (epoch {epoch}, float32): PSNR {s['psnr'][name]:.4f} "
+            f"dB, SSIM {s['ssim'][name]:.4f}, MS-SSIM "
+            f"{s['msssim'][name]:.4f}; the JAX package's bf16 score of this "
+            f"epoch on its own val set (context, not a limit): {banked}")
+        torch.cuda.empty_cache()
+    out["scores"] = scores
+    out["runs"] = runs
+
+    # (c) card against CPU, per burst
+    out["card_vs_cpu"] = card_vs_cpu_scores(root, FLAGSHIP_CHECKPOINT,
+                                            EVAL_CPU_BURSTS)
+    torch.cuda.empty_cache()
+
+    # (d) saved predictions rescored
+    saved_dir = os.path.join(workdir, "synburst_saved")
+    t0 = time.perf_counter()
+    synburst.save_results(flagship, root, saved_dir, device="cuda")
+    save_s = time.perf_counter() - t0
+    saved, saved_run = _scored("compute_score of the saved predictions",
+                               flagship, root, {}, 0,
+                               saved_results_root=saved_dir)
+    flag_scores = {m: {k: v for k, v in d.items() if k in saved[m]}
+                   for m, d in scores.items()}
+    out["saved"] = dict(save_results_s=save_s, max_abs=_scores_close(
+        "saved vs live", saved, flag_scores, EVAL_SAVED_TOL, EVAL_SAVED_TOL),
+        run=saved_run)
+
+    # (e) the CLI on phase 7b's workspace, against the API
+    saved_env = {k: os.environ.get(k) for k in ("DBSR_TPU_WORKSPACE_DIR",
+                                                "DBSR_TPU_SYNBURSTVAL_DIR")}
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = train_workspace
+    os.environ["DBSR_TPU_SYNBURSTVAL_DIR"] = root
+    try:
+        cli = {}
+        for key, extra in (("latest", []), ("all_epochs", ["--all_epochs"])):
+            path = os.path.join(workdir, f"cli_{key}.json")
+            argv = ["synburst", "compute_score", "dbsr_default", "--no_lpips",
+                    "--max_bursts", str(EVAL_CLI_BURSTS), "--json", path,
+                    *extra]
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                run_evaluation.main(argv)
+            log(f"run_evaluation {' '.join(argv)}: "
+                f"{time.perf_counter() - t0:.2f} s")
+            for line in buf.getvalue().splitlines():
+                log(f"  | {line}")
+            with open(path) as f:
+                cli[key] = json.load(f)
+        epochs = [e for e, _ in list_checkpoints(os.path.join(
+            train_workspace, "dbsr", "default_synthetic"), "dbsr_synthetic")]
+        api = {}
+        for epoch in (None, *epochs):
+            with contextlib.redirect_stdout(io.StringIO()):
+                s = synburst.compute_score(
+                    [NetworkParam(module="dbsr",
+                                  parameter="default_synthetic",
+                                  epoch=epoch)], root,
+                    workspace_dir=train_workspace, with_lpips=False,
+                    max_bursts=EVAL_CLI_BURSTS, device="cuda")
+            for m, v in s.items():
+                api.setdefault(m, {}).update(v)
+        if sorted(cli["all_epochs"]["psnr"]) != [
+                f"dbsr_default_synthetic_ep{e:04d}" for e in epochs]:
+            raise AssertionError(f"--all_epochs scored {cli['all_epochs']}, "
+                                 f"the workspace holds epochs {epochs}")
+        cli_diff = {}
+        for key, got in cli.items():
+            want = {m: {n: api[m][n] for n in got[m]} for m in got}
+            cli_diff[key] = _scores_close(f"CLI --json ({key}) vs API", got,
+                                          want, EVAL_SAVED_TOL,
+                                          EVAL_SAVED_TOL)
+        out["cli"] = dict(scores=cli, max_abs=cli_diff)
+    finally:
+        for k, v in saved_env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+    # (f) the flagship with the conv_s2d kernel
+    with fine_patch(True):
+        s2d_scores, s2d_run = _scored(
+            f"compute_score {flagship[0].get_display_name()} with "
+            f"{FINE_PATCH_ENV}=1", flagship, root,
+            dict(LAUNCHES_PER_FORWARD, conv_s2d=LAUNCHES_S2D_PER_FORWARD),
+            n_forwards)
+    out["s2d_kernel"] = dict(run=s2d_run, max_abs=_scores_close(
+        "conv_s2d kernel vs structured-dense conv", s2d_scores, flag_scores,
+        EVAL_PSNR_TOL, EVAL_SSIM_TOL))
+    name = flagship[0].get_display_name()
+    out["launches"] = {k: gen_launches[k] + runs[name]["launches"][k]
+                       for k in gen_launches}
+    return out
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing to measure")
@@ -2010,16 +2329,25 @@ def main():
         # 10. the s2d decoder
         os.environ["DBSR_TPU_WORKSPACE_DIR"] = os.path.join(workdir, "s2d")
         s2d = s2d_phase(dev, requests)
+        torch.cuda.empty_cache()
+
+        # 11. the eval protocol, scoring phase 7b's run in 11e
+        t0 = time.perf_counter()
+        evaluation = eval_phase(workdir, os.path.join(workdir, "banked"))
+        evaluation["phase_s"] = time.perf_counter() - t0
+        log(f"phase 11: {evaluation['phase_s']:.1f} s")
     paths = {"train_step": per_step, "pretrain_step": pre_per_step,
              "train_alignment_step":
                  closing["train_alignment"]["launches_per_step"],
              "s2d_train_step": s2d.pop("launches_per_step")}
     serving_launches = {"serving_3_requests": launches,
-                        "serving_s2d_3_requests": s2d.pop("launches")}
+                        "serving_s2d_3_requests": s2d.pop("launches"),
+                        "eval": evaluation.pop("launches")}
     for e in results:
         # launches on each driven path: the three serving requests through
-        # each decoder, then per step of the four training paths; `launches`
-        # is the count on the entry's own path
+        # each decoder, the eval protocol (the val set's generation and the
+        # flagship's scoring), then per step of the four training paths;
+        # `launches` is the count on the entry's own path
         by_path = {k: v[e["name"]]
                    for k, v in {**serving_launches, **paths}.items()}
         e["launches_by_path"] = by_path
@@ -2035,6 +2363,7 @@ def main():
                    pretrain=pretrain, pretrain_card_vs_cpu=pre_grads,
                    launches_per_pretrain_step=pre_per_step,
                    closing_the_loop=closing, s2d_decoder=s2d,
+                   eval=evaluation,
                    odd_shapes=odd_shapes, build_s=secs,
                    total_s=time.perf_counter() - t_start, card=smi)
     log("summary " + json.dumps(summary))

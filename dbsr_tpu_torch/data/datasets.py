@@ -1,0 +1,129 @@
+"""The SyntheticBurstVal reader and writer (port of
+``dbsr_tpu/data/datasets.py:133-243``): the pre-generated validation set
+of the synthetic protocol, channels-last numpy arrays, PNGs through the
+port's ``utils/png16.py``.
+
+Sets this writer (or the JAX package's) made carry a ``format.json``
+marker and hold RGB channel order; sets without it were written by OpenCV,
+whose first and third channels are swapped (``cv2_channel_order``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import pickle
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dbsr_tpu_torch.utils.png16 import read_png, write_png
+
+_SCALE = 2 ** 14  # uint16 PNGs hold values in [0, 1] at this scale
+
+
+class SyntheticBurstVal:
+    """The validation set: per index, ``bursts/{idx:04d}/im_raw_{i:02d}.png``
+    (uint16 at 2^14, 4-channel packed RGGB) and ``gt/{idx:04d}/im_rgb.png``
+    with ``meta_info.pkl``.
+
+    Returns numpy: burst ``[14, 48, 48, 4]`` float32, gt ``[384, 384, 3]``
+    float32 and the meta dict with its ``burst_name``.
+    """
+
+    def __init__(self, root: str, burst_size: int = 14,
+                 cv2_channel_order: Optional[bool] = None,
+                 num_bursts: Optional[int] = None):
+        """``num_bursts=None`` infers the set's size from ``gt/`` (300, the
+        reference set's, when it holds none)."""
+        self.root = root
+        if num_bursts is None:
+            gt_dir = os.path.join(root, "gt")
+            if os.path.isdir(gt_dir):
+                num_bursts = sum(
+                    1 for d in os.listdir(gt_dir)
+                    if d.isdigit() and os.path.isdir(
+                        os.path.join(gt_dir, d)))
+            if not num_bursts:
+                num_bursts = 300
+        self.burst_list = list(range(num_bursts))
+        self.burst_size = burst_size
+        if cv2_channel_order is None:
+            cv2_channel_order = not os.path.exists(
+                os.path.join(root, "format.json"))
+        self.cv2_channel_order = cv2_channel_order
+
+    def __len__(self):
+        return len(self.burst_list)
+
+    def _fix_channels(self, im: np.ndarray) -> np.ndarray:
+        """Swap an OpenCV-written file's first and third channels back."""
+        if self.cv2_channel_order and im.ndim == 3 and im.shape[-1] >= 3:
+            im = im.copy()
+            im[..., [0, 2]] = im[..., [2, 0]]
+        return im
+
+    def _read_burst_image(self, index: int, image_id: int) -> np.ndarray:
+        p = os.path.join(self.root, "bursts", f"{index:04d}",
+                         f"im_raw_{image_id:02d}.png")
+        return self._fix_channels(read_png(p)).astype(np.float32) / _SCALE
+
+    def _read_gt_image(self, index: int) -> np.ndarray:
+        p = os.path.join(self.root, "gt", f"{index:04d}", "im_rgb.png")
+        return self._fix_channels(read_png(p)).astype(np.float32) / _SCALE
+
+    def _read_meta_info(self, index: int) -> dict:
+        p = os.path.join(self.root, "gt", f"{index:04d}", "meta_info.pkl")
+        with open(p, "rb") as f:
+            return pickle.load(f)
+
+    def __getitem__(self, index: int):
+        burst = np.stack([self._read_burst_image(index, i)
+                          for i in range(self.burst_size)])
+        gt = self._read_gt_image(index)
+        meta = self._read_meta_info(index)
+        meta["burst_name"] = f"{index:04d}"
+        return burst, gt, meta
+
+
+def write_synthetic_burst_val(root: str, samples) -> None:
+    """Write a SyntheticBurstVal set (uint16 PNGs at 2^14, RGB order, the
+    ``format.json`` marker). ``samples`` yields dicts with ``burst``
+    ``[N, h, w, 4]`` and ``frame_gt`` ``[H, W, 3]`` (floats in [0, 1];
+    numpy arrays or tensors on any device) and ``meta``."""
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "format.json"), "w") as f:
+        json.dump({"writer": "dbsr_tpu_torch", "channel_order": "rgb",
+                   "scale": _SCALE}, f)
+    for idx, s in enumerate(samples):
+        bdir = os.path.join(root, "bursts", f"{idx:04d}")
+        gdir = os.path.join(root, "gt", f"{idx:04d}")
+        os.makedirs(bdir, exist_ok=True)
+        os.makedirs(gdir, exist_ok=True)
+        burst = _numpy(s["burst"])
+        for i in range(burst.shape[0]):
+            arr = (np.clip(burst[i], 0, 1) * _SCALE).astype(np.uint16)
+            write_png(os.path.join(bdir, f"im_raw_{i:02d}.png"), arr)
+        gt = (np.clip(_numpy(s["frame_gt"]), 0, 1) * _SCALE).astype(
+            np.uint16)
+        write_png(os.path.join(gdir, "im_rgb.png"), gt)
+        with open(os.path.join(gdir, "meta_info.pkl"), "wb") as f:
+            pickle.dump(_to_plain(s.get("meta", {})), f)
+
+
+def _numpy(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _to_plain(tree):
+    """A meta dict with tensors and numpy scalars as plain Python (numpy
+    arrays where they have dimensions), for pickling."""
+    if isinstance(tree, dict):
+        return {k: _to_plain(v) for k, v in tree.items()}
+    if hasattr(tree, "shape"):
+        a = _numpy(tree)
+        return a.item() if a.ndim == 0 else a
+    return tree

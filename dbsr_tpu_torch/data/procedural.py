@@ -1,6 +1,7 @@
 """Procedural source imagery on the device: the dead-leaves image model and
-the pool of uint8 source crops that synthetic training draws from (port of
-``dbsr_tpu/data/procedural.py:49-151,306-421``, dead-leaves mix only).
+the pool of uint8 source crops that synthetic training draws from, and the
+image dataset that val-set generation draws from (port of
+``dbsr_tpu/data/procedural.py:49-151,306-448``, dead-leaves mix only).
 
 Per image: a 4-colour palette and background; ``num_leaves`` anti-aliased
 ellipses painted in order (power-law radii, palette colours with jitter and
@@ -260,3 +261,28 @@ def make_pool_prepare_fn(cfg, batch_size: int) -> Callable:
         return synthesize_batch(generator, crops_from_draws(pool, draws), cfg)
 
     return prepare
+
+
+
+class ProceduralImages:
+    """Dataset of dead-leaves source images with the ``get_image`` contract
+    of an image folder, for val-set generation: image ``idx`` is image
+    ``idx`` of round 0 of a :class:`ProceduralImagePool` (its own
+    ``(seed, 0, idx)`` stream, rendered on ``device`` in chunks at first
+    use), returned as uint8 ``[H, W, 3]`` numpy."""
+
+    def __init__(self, num_images: int, hw: Tuple[int, int] = (448, 448),
+                 seed: int = 0, device="cuda", num_leaves: int = 300):
+        self.pool = ProceduralImagePool(num_images, hw, seed=seed,
+                                        device=device, num_leaves=num_leaves)
+
+    def get_num_images(self) -> int:
+        return self.pool.pool_size
+
+    def __len__(self):
+        return self.pool.pool_size
+
+    def get_image(self, idx: int):
+        if not 0 <= idx < len(self):
+            raise IndexError(idx)
+        return self.pool.refresh(0)[idx].cpu().numpy(), {}

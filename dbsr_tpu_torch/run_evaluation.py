@@ -1,0 +1,127 @@
+"""Evaluation entry of the port (counterpart of the top-level
+``run_evaluation.py``):
+
+    python -m dbsr_tpu_torch.run_evaluation synburst compute_score <experiment> [opts]
+    python -m dbsr_tpu_torch.run_evaluation synburst save_results <experiment> [opts]
+
+``<experiment>`` names a module of ``dbsr_tpu_torch/evaluation/experiments``
+whose ``main()`` returns the ``NetworkParam`` list. The val set is
+``--dataset_root`` or the environment's ``synburstval_dir``
+(``DBSR_TPU_SYNBURSTVAL_DIR``); the workspace is ``DBSR_TPU_WORKSPACE_DIR``.
+It runs on the card (``--device cuda``, the default; no card raises)
+unless asked for the CPU. Networks are scored in float32.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import os
+import time
+
+_T0 = time.perf_counter()
+
+
+def _load_experiment(name):
+    mod = importlib.import_module(
+        f"dbsr_tpu_torch.evaluation.experiments.{name}")
+    return mod.main()
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="Evaluate DBSR networks "
+                                            "(PyTorch/CUDA port).")
+    p.add_argument("benchmark", choices=["synburst", "burstsr"])
+    p.add_argument("action",
+                   choices=["compute_score", "save_results", "visualize"])
+    p.add_argument("experiment", help="experiment module name, "
+                                      "e.g. dbsr_default")
+    p.add_argument("--dataset_root", default=None)
+    p.add_argument("--out_dir", default=None)
+    p.add_argument("--load_saved", action="store_true",
+                   help="score saved predictions instead of running nets")
+    p.add_argument("--max_bursts", type=int, default=None)
+    p.add_argument("--no_lpips", action="store_true")
+    p.add_argument("--json", default=None, metavar="PATH",
+                   help="also write compute_score results as JSON")
+    p.add_argument("--all_epochs", action="store_true",
+                   help="score EVERY checkpoint epoch of the experiment's "
+                        "first network in one process (val set staged on "
+                        "the device once; no LPIPS)")
+    p.add_argument("--epochs", default=None, metavar="E1,E2,...",
+                   help="with --all_epochs: score only these checkpoint "
+                        "epochs (comma-separated)")
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+
+    if args.load_saved and not args.out_dir:
+        p.error("--load_saved requires --out_dir (the directory the "
+                "predictions were saved to with save_results)")
+    if args.load_saved and args.action != "compute_score":
+        p.error("--load_saved only applies to compute_score")
+    if args.load_saved and args.benchmark != "synburst":
+        p.error("--load_saved is only supported for the synburst benchmark "
+                "(burstsr scoring needs the burst inputs for spatial-color "
+                "alignment, so it always runs the networks)")
+    if args.all_epochs and (args.benchmark != "synburst"
+                            or args.action != "compute_score"
+                            or args.load_saved):
+        p.error("--all_epochs only applies to synburst compute_score on "
+                "live networks")
+    epochs = None
+    if args.epochs is not None:
+        if not args.all_epochs:
+            p.error("--epochs requires --all_epochs")
+        try:
+            epochs = sorted({int(e) for e in args.epochs.split(",") if e})
+        except ValueError:
+            p.error(f"--epochs must be comma-separated integers, "
+                    f"got {args.epochs!r}")
+        if not epochs:
+            p.error("--epochs must name at least one epoch")
+    if args.benchmark == "burstsr":
+        raise NotImplementedError(
+            "burstsr: the port has no BurstSR benchmark yet; it needs "
+            "PWC-Net and SCA (ROADMAP.md, Queue 1 item 10)")
+    if args.action == "visualize":
+        raise NotImplementedError(
+            "visualize: not ported yet (ROADMAP.md, Queue 1 item 11)")
+
+    from dbsr_tpu_torch import resolve_device
+    from dbsr_tpu_torch.environment import env_settings
+    from dbsr_tpu_torch.evaluation import synburst as ev
+
+    dev = resolve_device(args.device)
+    env = env_settings()
+    network_params = _load_experiment(args.experiment)
+    workspace = env.workspace_dir
+    print(f"[timing] process init (imports + env) "
+          f"{time.perf_counter() - _T0:.1f}s", flush=True)
+
+    root = args.dataset_root or env.synburstval_dir
+    scores = None
+    if args.action == "compute_score" and args.all_epochs:
+        n0 = network_params[0]
+        scores = ev.compute_score_trajectory(
+            n0.module, n0.parameter, root, workspace_dir=workspace,
+            net_name=n0.net_name, burst_sz=n0.burst_sz,
+            epochs=epochs, max_bursts=args.max_bursts, device=dev)
+    elif args.action == "compute_score":
+        scores = ev.compute_score(
+            network_params, root, workspace_dir=workspace,
+            saved_results_root=(args.out_dir if args.load_saved else None),
+            with_lpips=not args.no_lpips, max_bursts=args.max_bursts,
+            device=dev)
+    else:
+        out = args.out_dir or os.path.join(workspace, "synburst_results")
+        ev.save_results(network_params, root, out, workspace_dir=workspace,
+                        device=dev)
+
+    if args.json and scores is not None:
+        with open(args.json, "w") as f:
+            json.dump(scores, f, indent=2)
+
+
+if __name__ == "__main__":
+    main()

@@ -106,7 +106,11 @@ def test_port_imports_neither_jax_nor_reference_package():
         "       'ops.augment', 'ops.metrics', 'training.trainer',\n"
         "       'training.state', 'training.actors', 'run_training',\n"
         "       'configs.dbsr.default_synthetic', 'environment',\n"
-        "       'configs.align_lite.pretrain_synthetic']\n"
+        "       'configs.align_lite.pretrain_synthetic', 'utils.png16',\n"
+        "       'data.datasets', 'data.pipeline', 'evaluation.synburst',\n"
+        "       'evaluation.network_param', 'evaluation.display',\n"
+        "       'evaluation.experiments.dbsr_zoo', 'run_evaluation',\n"
+        "       'generate_synthetic_burst_val']\n"
         "missing = [n for n in new if 'dbsr_tpu_torch.' + n not in names]\n"
         "assert not missing, missing\n"
         "assert not bad, bad\n"
