@@ -31,10 +31,17 @@ default.
    ``kernel_device_ms``, the cost volume's also by level); the s2d conv
    also in its d_input orientation and against the fine-resolution conv,
    and its ``Function``'s backward against autograd of the plain version;
-   then the s2d conv, forward and d_input, at C in {3, 5, 33} and O in {1,
-   7, 70} on an odd plane, the affine resample at an odd width with C
-   in {1, 4} (bit-identical to its plain version), and the cost volume on
-   a ragged plane with C in {1, 3, 5, 33, 196};
+   then PWC-Net's forward shapes at r3d's serving batch (104 frames): the
+   cost volume at its five levels ([104, s, s, C] for s = 1, 2, 4, 8, 16
+   and C = 196, 128, 96, 64, 32; the 1x1 and 2x2 planes in the kernel's
+   whole-plane tile, nearly every tap out of range) and the warp at its
+   four backwarps (levels 5..2, the effective flow ``flow * S/(S-1)``),
+   the whole ``backwarp`` (kernel and mask) also against the CPU's, timed
+   and bounded as the rest (``pwc_shapes`` of each entry, with their sums
+   ``pwc_*``); then the s2d conv, forward and d_input, at C in {3, 5, 33}
+   and O in {1, 7, 70} on an odd plane, the affine resample at an odd
+   width with C in {1, 4} (bit-identical to its plain version), and the
+   cost volume on a ragged plane with C in {1, 3, 5, 33, 196};
 4. serving: ``load_predictor`` on the banked flagship checkpoint (full
    width, batch 8, 14 frames, 48x48 -> 384x384) answers three requests
    (8 bursts, 3 bursts, one burst) with the launch counters reset just
@@ -61,7 +68,10 @@ default.
    as in phase 3 (the yardsticks ``F.grid_sample`` and its autograd: for
    d_feat with respect to the input alone, for d_flow with respect to
    both); the host's microseconds per call of the resample and of
-   ``F.grid_sample`` at the fused shape, over a tight loop of calls;
+   ``F.grid_sample`` at the fused shape, over a tight loop of calls; then
+   PWC-Net's backward shapes at its pretraining batch (112 frames):
+   d_first and d_second at the five levels, d_feat and d_flow at the four
+   backwarps, against plain and autograd, timed (``pwc_shapes``);
 7. training with the banked aligner, frozen: (a) one train step of the
    banked flagship at B=1, N=8 on the card against the same step on the
    CPU (loss and every gradient; as in 9 and 10c, on the first batch seed
@@ -123,14 +133,35 @@ default.
     --max_bursts 16 --json`` (its ``main``) on phase 7b's workspace, the
     latest epoch and ``--all_epochs``, equal to the API's within 1e-6; (f)
     (b)'s flagship run with ``DBSR_FINE_PATCH_S2D=1`` (8 ``conv_s2d``
-    launches per forward), scores within (c)'s limits.
+    launches per forward), scores within (c)'s limits. r3d, the zoo's
+    PWC-Net model, is scored in (b) too (warp and correlation 190, merge 38)
+    and held card against CPU in (c);
+12. PWC-Net: (b) ``load_predictor`` on r3d (PWC-Net, its own s2d decoder,
+    full width) answers the three requests of phase 4 (warp 5, correlation
+    5, merge 1 per forward), bursts/s and peak memory, its forward against
+    the CPU's (1e-3); (c) the banked ``BurstFlowNet``
+    (``pwcnet_synth_params.ckpt``) on the card against the CPU, flows within
+    1e-3 px; (d) one PWC-Net pretraining step at B=16, N=8 on the card
+    against the CPU from the same fresh parameters and batch (as 8a),
+    ``run_training("pwcnet", "pretrain_synthetic", ...)`` for two epochs of
+    50 steps with a resume (exact launches per step: resample 1, warp 4,
+    correlation 5, d_first 5, d_second 5, d_feat 4, d_flow 4; finite
+    losses; ``Stat/epe`` is not asked to fall: a fresh PWC-Net stays on the
+    zero-flow plateau for thousands of steps), and 20 Adam steps on one
+    fixed batch (the loss must fall), step time, peak memory, profile;
+    (e) ``default_synthetic`` in (d)'s workspace, the ``pwcnet_synth``
+    checkpoint found, grafted and frozen, 5 steps, and in a fresh one with
+    no checkpoint, the fallback (PWC-Net trained end to end), 5 steps,
+    exact launches per step for each, and each one's B=16 step time and
+    peak memory; one unfrozen r3d step at B=1 against the CPU's.
 
 The second-to-last line is ``{"kernels": [...]}`` (all ten kernels;
 ``launches`` is the count on the entry's own ``path``, whose shapes its
 times are summed over, except the s2d conv's, whose times are one launch's
 and whose path launches it 8 times per forward; ``launches_by_path`` has
-the counts on all seven paths (``eval``: phase 11's generation and
-flagship scoring); ``device_ms``, ``kernel_device_ms`` and
+the counts on all twelve paths (``eval``: phase 11's generation and
+flagship scoring; ``eval_r3d``, ``serving_r3d_3_requests`` and the
+``pwc_*_step`` paths: PWC-Net's); ``device_ms``, ``kernel_device_ms`` and
 ``library_device_ms`` beside ``ms`` and ``library_ms``; the s2d conv's
 ``bound_ms`` is that of its own math, 3xTF32 on the tensor cores, also
 given as ``tc_bound_ms``, and ``ffma_bound_ms`` is the same work's bound
@@ -247,6 +278,44 @@ R4MIX_CHECKPOINT = os.path.join(
     "campaigns", "dbsr_campaign_r4mix_best_params.ckpt")
 ALIGN_LITE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "dbsr_tpu", "artifacts", "align_lite_params.ckpt")
+# PWC-Net: the banked model that runs it (epoch 100, s2d decoder) and the
+# banked pretrained aligner (epoch 15)
+R3D_CHECKPOINT = os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "dbsr_tpu", "artifacts",
+    "campaigns", "dbsr_campaign_r3d_best_params.ckpt")
+PWC_SYNTH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "dbsr_tpu", "artifacts", "pwcnet_synth_params.ckpt")
+# PWC-Net at 48x48 frames (resized to 64x64): pyramid levels 6..2 are 1x1,
+# 2x2, 4x4, 8x8 and 16x16 planes of 196, 128, 96, 64 and 32 channels; the
+# cost volume runs at all five, the backwarp at levels 5..2
+PWC_LEVELS = ((1, 196), (2, 128), (4, 96), (8, 64), (16, 32))
+# launches per forward of a PWC-Net DBSRNet: the 512-channel warp and the
+# four backwarps; the five cost volumes; the merge
+LAUNCHES_PER_PWC_FORWARD = {"warp": 5, "correlation": 5, "merge": 1}
+# per PWC-Net pretraining step: the synthesis' resample; the five cost
+# volumes with both gradients each; the four backwarps with d_feat (the
+# second image's features) and d_flow (the up-convolved flow); no merge
+LAUNCHES_PER_PWC_PRETRAIN_STEP = {"resample": 1, "warp": 4, "correlation": 5,
+                                  "merge": 0, "warp_dfeat": 4, "warp_dflow": 4,
+                                  "merge_backward": 0,
+                                  "correlation_dfirst": 5,
+                                  "correlation_dsecond": 5, "conv_s2d": 0}
+# per default_synthetic step with a frozen PWC-Net: the forward's, the
+# 512-channel warp's d_feat and the merge backward
+LAUNCHES_PER_PWC_FROZEN_STEP = dict(LAUNCHES_PER_TRAIN_STEP, warp=5,
+                                    correlation=5)
+# per step of default_synthetic's fallback (PWC-Net trained end to end):
+# the frozen step's, and the backward through the 512-channel warp's flow
+# and through the aligner (four backwarps, five cost volumes)
+LAUNCHES_PER_PWC_UNFROZEN_STEP = dict(LAUNCHES_PER_PWC_FROZEN_STEP,
+                                      warp_dfeat=5, warp_dflow=5,
+                                      correlation_dfirst=5,
+                                      correlation_dsecond=5)
+PWC_FLOW_TOL = 1e-3  # px: BurstFlowNet's flows, card vs CPU
+# PWC-Net pretraining's cuts against pwcnet/pretrain_synthetic (1000 steps x
+# 15 epochs, a pool of 2048 sources; val every 5 epochs, so no val pass)
+PWC_PRETRAIN_SETTINGS = dict(steps_per_epoch=50, pool_size=128,
+                             print_interval=25)
 
 
 def log(*a):
@@ -436,6 +505,160 @@ def odd_shape_phase(dev, g):
             rows.append(dict(kernel="resample", shape=list(images.shape),
                              out_hw=list(out_hw), d=d, max_abs_err=err))
     return rows
+
+
+def _pwc_flow(g, dev, frames, s, amplitude=2.0):
+    """A backwarp's flow at an ``s`` x ``s`` level: up to +-``amplitude``
+    px, a seventh of the rows on exact pixel centres."""
+    f = (torch.rand(frames, s, s, 2, generator=g, device=dev) * 2 - 1) \
+        * amplitude
+    f[:, ::7] = torch.round(f[:, ::7])
+    return f.contiguous()
+
+
+def pwc_forward_rows(dev, g, frames=FRAMES):
+    """Phase 3, PWC-Net's forward shapes (r3d's serving forward, B=8, N=14):
+    the cost volume at the five pyramid levels (1x1 and 2x2 planes take the
+    kernel's whole-plane tile with 80 and 77 of 81 taps out of range), and
+    the four backwarps (levels 5..2): the warp kernel at the backwarp's
+    effective flow (``flow * S/(S-1)``, 2 at the 2x2 level) against its
+    plain version, and the whole ``backwarp`` (kernel and mask) against the
+    CPU's plain one, with the share of pixels its mask zeroes. Returns
+    ``{entry name: rows}``, each row timed and bounded as in phase 3."""
+    from dbsr_tpu_torch.ops.correlation import (NUM_OFFSETS,
+                                                correlation_plain, cost_volume)
+    from dbsr_tpu_torch.ops.interp import backwarp
+    from dbsr_tpu_torch.ops.warp import base_grid, warp_feat, warp_feat_plain
+
+    rows = {"correlation": [], "warp": []}
+    for s, c in PWC_LEVELS:
+        a = torch.randn(frames, s, s, c, generator=g, device=dev)
+        b = torch.randn(frames, s, s, c, generator=g, device=dev)
+        err = check_close(f"correlation {list(a.shape)} (PWC-Net)",
+                          cost_volume(a, b), correlation_plain(a, b))
+        bms, by = bound((2 * a.numel() + frames * s * s * NUM_OFFSETS) * 4,
+                        2 * NUM_OFFSETS * a.numel())
+        rows["correlation"].append(dict(
+            shape=list(a.shape), max_abs_err=err, bound_ms=bms, bound_by=by,
+            **timings("correlation", lambda: cost_volume(a, b),
+                      lambda: correlation_plain(a, b))))
+    for s, c in PWC_LEVELS[1:]:
+        feat = torch.randn(frames, s, s, c, generator=g, device=dev)
+        fl = _pwc_flow(g, dev, frames, s)
+        got = backwarp(feat, fl)
+        want = backwarp(feat.cpu(), fl.cpu())
+        mask_err = check_close(f"backwarp {list(feat.shape)} vs the CPU's",
+                               got.cpu(), want)
+        zeroed = float((want == 0).all(-1).float().mean())
+        eff = (fl * (s / (s - 1.0))).contiguous()
+        err = check_close(f"warp {list(feat.shape)} (PWC-Net backwarp)",
+                          warp_feat(feat, eff), warp_feat_plain(feat, eff))
+        grid = _grid_sample_grid(base_grid(s, s, dev) + eff, s, s)
+        nchw = feat.permute(0, 3, 1, 2)
+        bms, by = bound((2 * feat.numel() + eff.numel()) * 4,
+                        7 * feat.numel())
+        log(f"  backwarp {list(feat.shape)}: the mask zeroes "
+            f"{100 * zeroed:.1f}% of the pixels")
+        rows["warp"].append(dict(
+            shape=list(feat.shape), max_abs_err=max(err, mask_err),
+            backwarp_zeroed_share=zeroed, bound_ms=bms, bound_by=by,
+            **timings("warp", lambda: warp_feat(feat, eff),
+                      lambda: warp_feat_plain(feat, eff),
+                      lambda: F.grid_sample(nchw, grid, align_corners=False,
+                                            padding_mode="zeros"))))
+    return rows
+
+
+def pwc_backward_rows(dev, g, frames=TRAIN_FRAMES):
+    """Phase 6, PWC-Net's backward shapes (its pretraining and
+    ``default_synthetic``'s fallback, B=16, N=8): d_first and d_second at
+    the five levels, d_feat and d_flow at the four backwarps (d_feat's CSR
+    has 4 entries a frame at level 5), each against its plain version and
+    autograd of the plain forward, timed and bounded as in phase 6."""
+    from dbsr_tpu_torch.ops.correlation import (NUM_OFFSETS,
+                                                correlation_dfirst,
+                                                correlation_dfirst_plain,
+                                                correlation_dsecond,
+                                                correlation_dsecond_plain,
+                                                correlation_plain)
+    from dbsr_tpu_torch.ops.warp import (warp_dfeat, warp_dfeat_plain,
+                                         warp_dflow, warp_dflow_plain,
+                                         warp_feat_plain)
+
+    rows = {k: [] for k in ("correlation_dfirst", "correlation_dsecond",
+                            "warp_dfeat", "warp_dflow")}
+    for s, c in PWC_LEVELS:
+        first = torch.randn(frames, s, s, c, generator=g, device=dev)
+        second = torch.randn(frames, s, s, c, generator=g, device=dev)
+        gout = torch.randn(frames, s, s, NUM_OFFSETS, generator=g, device=dev)
+        xs = (first.clone().requires_grad_(True),
+              second.clone().requires_grad_(True))
+        auto = torch.autograd.grad(correlation_plain(*xs), xs, gout)
+        bms, by = bound((2 * first.numel() + gout.numel()) * 4,
+                        2 * NUM_OFFSETS * first.numel())
+        for name, fn, plain, operand, want_auto in (
+                ("correlation_dfirst", correlation_dfirst,
+                 correlation_dfirst_plain, second, auto[0]),
+                ("correlation_dsecond", correlation_dsecond,
+                 correlation_dsecond_plain, first, auto[1])):
+            got = fn(operand, gout)
+            errs = [check_close(f"{name} {list(first.shape)} (PWC-Net)", got,
+                                plain(operand, gout)),
+                    check_close(f"{name} {list(first.shape)} vs autograd",
+                                got, want_auto)]
+            rows[name].append(dict(
+                shape=list(first.shape), max_abs_err=errs[0],
+                err_vs_autograd=errs[1], bound_ms=bms, bound_by=by,
+                **timings(name, lambda: fn(operand, gout),
+                          lambda: plain(operand, gout))))
+    for s, c in PWC_LEVELS[1:]:
+        feat = torch.randn(frames, s, s, c, generator=g, device=dev)
+        gout = torch.randn(frames, s, s, c, generator=g, device=dev)
+        fl = (_pwc_flow(g, dev, frames, s) * (s / (s - 1.0))).contiguous()
+        xs = (feat.clone().requires_grad_(True),
+              fl.clone().requires_grad_(True))
+        auto_df, auto_dfl = torch.autograd.grad(warp_feat_plain(*xs), xs,
+                                                gout)
+        n, nf = feat.numel(), fl.numel()
+        for name, fn, plain, want_auto, nbytes, flops in (
+                ("warp_dfeat", lambda: warp_dfeat(fl, gout),
+                 lambda: warp_dfeat_plain(fl, gout), auto_df,
+                 (2 * n + nf) * 4, 8 * n),
+                ("warp_dflow", lambda: warp_dflow(feat, fl, gout),
+                 lambda: warp_dflow_plain(feat, fl, gout), auto_dfl,
+                 (2 * n + 2 * nf) * 4, 20 * n)):
+            got = fn()
+            errs = [check_close(f"{name} {list(feat.shape)} (PWC-Net)", got,
+                                plain()),
+                    check_close(f"{name} {list(feat.shape)} vs autograd",
+                                got, want_auto)]
+            bms, by = bound(nbytes, flops)
+            rows[name].append(dict(
+                shape=list(feat.shape), max_abs_err=errs[0],
+                err_vs_autograd=errs[1], bound_ms=bms, bound_by=by,
+                **timings(name, fn, plain)))
+    return rows
+
+
+def add_pwc_rows(entries, rows, path):
+    """Put PWC-Net's rows beside each entry's own: ``pwc_shapes`` and their
+    sums (one pass of ``path``: a forward, or a step)."""
+    for e in entries:
+        r = rows.get(e["name"])
+        if not r:
+            continue
+        e["pwc_path"] = path
+        e["pwc_shapes"] = r
+        for k in ("ms", "device_ms", "kernel_device_ms", "plain_ms",
+                  "bound_ms"):
+            e[f"pwc_{k}"] = sum(x[k] for x in r)
+        e["max_abs_err"] = max(e["max_abs_err"],
+                               max(x["max_abs_err"] for x in r))
+        for x in r:
+            log_row(f"{e['name']} (PWC-Net)", x)
+        log(f"  {e['name']} at PWC-Net's shapes, summed over one pass of "
+            f"{path}: device {e['pwc_device_ms']:.4f} ms, its kernels "
+            f"{e['pwc_kernel_device_ms']:.4f}, bound {e['pwc_bound_ms']:.4f}")
 
 
 def kernel_phase(dev, g):
@@ -1166,10 +1389,10 @@ def _grads(net):
             if p.requires_grad}
 
 
-def grad_phase(train_alignment=False, flow_ckpt=None, s2d=False):
-    """Phases 7a, 9 and 10c: one train step of the banked flagship (B=1,
-    N=8) on the card and on the CPU from the same batch, synthesised on the
-    CPU; the decoder at fine resolution, or with ``s2d`` in the s2d layout
+def grad_phase(train_alignment=False, flow_ckpt=None, s2d=False, ckpt=None):
+    """Phases 7a, 9, 10c and 12e: one train step of the banked flagship (or
+    of ``ckpt``; B=1, N=8) on the card and on the CPU from the same batch,
+    synthesised on the CPU; the decoder at fine resolution, or with ``s2d`` in the s2d layout
     (under the caller's ``DBSR_FINE_PATCH_S2D``); with ``train_alignment``
     the aligner of ``flow_ckpt`` is grafted and
     trains too, and the aligner's gradients are also held together on their
@@ -1199,9 +1422,10 @@ def grad_phase(train_alignment=False, flow_ckpt=None, s2d=False):
     from dbsr_tpu_torch.training.actors import make_synthetic_actor
     from dbsr_tpu_torch.training.checkpoint import load_network
 
-    what = ("train step (banked flagship, B=1, N=8"
-            + (", the port's own aligner grafted, train_alignment=True"
-               if train_alignment else "")
+    ckpt = ckpt or FLAGSHIP_CHECKPOINT
+    what = (f"train step ({os.path.basename(ckpt)}, B=1, N=8"
+            + (", the port's own aligner grafted" if flow_ckpt else "")
+            + (", train_alignment=True" if train_alignment else "")
             + (f", s2d decoder, {FINE_PATCH_ENV}="
                f"{os.environ.get(FINE_PATCH_ENV)})" if s2d else ")"))
     cfg = BurstConfig(fused_resample=True)
@@ -1213,8 +1437,8 @@ def grad_phase(train_alignment=False, flow_ckpt=None, s2d=False):
         out, offsets = {}, {}
         for device in ("cuda", "cpu"):
             t0 = time.perf_counter()
-            net, _ = load_network(FLAGSHIP_CHECKPOINT, device=device,
-                                  dtype=None, train_alignment=train_alignment,
+            net, _ = load_network(ckpt, device=device, dtype=None,
+                                  train_alignment=train_alignment,
                                   fused_s2d_decoder=s2d)
             if flow_ckpt is not None:
                 graft_alignment_params(net, flow_ckpt)
@@ -1408,20 +1632,29 @@ def determinism_phase(dev, trainer):
     return out
 
 
-def pretrain_grad_phase(dev):
-    """Phase 8a: one ``BurstAlignLite`` train step at full width (B=16, N=8)
-    on the card and on the CPU, from the same fresh parameters and the same
-    batch (synthesised on the card, copied to the CPU). A gradient that
-    stopped at the cost volumes would still be non-zero (the extractor also
-    feeds the decoders directly), so each extractor tensor's gradient is
-    held against the CPU's on its own."""
+def pretrain_grad_phase(dev, pwc=False):
+    """Phases 8a and 12d: one ``BurstAlignLite`` (with ``pwc``,
+    ``BurstFlowNet``) train step at full width (B=16, N=8) on the card and
+    on the CPU, from the same fresh parameters and the same batch
+    (synthesised on the card, copied to the CPU). A gradient that stopped at
+    the cost volumes would still be non-zero (the extractor also feeds the
+    decoders directly), so each extractor tensor's gradient is held against
+    the CPU's on its own."""
     from dbsr_tpu_torch.data.procedural import (dead_leaves_image,
                                                 make_generator)
     from dbsr_tpu_torch.data.synthetic import BurstConfig, synthesize_batch
     from dbsr_tpu_torch.models.align_lite import BurstAlignLite
     from dbsr_tpu_torch.models.layers import init_params
+    from dbsr_tpu_torch.models.pwcnet import BurstFlowNet
     from dbsr_tpu_torch.serving import float32_math
-    from dbsr_tpu_torch.training.actors import make_lite_flow_actor
+    from dbsr_tpu_torch.training.actors import (make_flow_actor,
+                                                make_lite_flow_actor)
+
+    net_cls, make_actor, per_step, extractor = (
+        (BurstFlowNet, make_flow_actor, LAUNCHES_PER_PWC_PRETRAIN_STEP,
+         "alignment_net.net.extractor.") if pwc else
+        (BurstAlignLite, make_lite_flow_actor, LAUNCHES_PER_PRETRAIN_STEP,
+         "alignment_net.extractor."))
 
     cfg = BurstConfig(fused_resample=True)
     gen = make_generator(dev, 21)
@@ -1431,24 +1664,24 @@ def pretrain_grad_phase(dev):
     out = {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
-        net = init_params(BurstAlignLite(), make_generator("cpu", 22))
+        net = init_params(net_cls(), make_generator("cpu", 22))
         net = net.to(device)
         b = {k: batch[k].to(device) for k in ("burst", "flow")}
         reset_counts()
         with float32_math():
-            loss, stats = make_lite_flow_actor(net)(b)
+            loss, stats = make_actor(net)(b)
             loss.backward()
         if device == "cuda":
             torch.cuda.synchronize()
             counts = read_counts()
-            want = dict(LAUNCHES_PER_PRETRAIN_STEP, resample=0)
+            want = dict(per_step, resample=0)
             if counts != want:
                 raise AssertionError(f"pretrain step: launches {counts}, "
                                      f"expected {want}")
         out[device] = (loss.item(), _grads(net), time.perf_counter() - t0)
         del net
-    return card_vs_cpu(f"pretrain step (fresh BurstAlignLite, B={TRAIN_B}, "
-                       f"N={TRAIN_N})", out, "alignment_net.extractor.")
+    return card_vs_cpu(f"pretrain step (fresh {net_cls.__name__}, "
+                       f"B={TRAIN_B}, N={TRAIN_N})", out, extractor)
 
 
 def entry_phase(module, config, kwargs, epochs_list, per_step_want,
@@ -1615,7 +1848,8 @@ def _settings(**kwargs):
 
 def default_synthetic_trainer(dev, **kwargs):
     """``default_synthetic``'s trainer from a fresh network with the found
-    or given aligner grafted, on a pool of one batch."""
+    or given aligner grafted (a fresh PWC-Net trained with the rest where
+    there is none), on a pool of one batch."""
     from dbsr_tpu_torch.configs.dbsr.default_synthetic import (
         graft_alignment_params, make_trainer)
 
@@ -1624,17 +1858,22 @@ def default_synthetic_trainer(dev, **kwargs):
             _settings(**dict(SMOKE_SETTINGS, pool_size=TRAIN_B, **kwargs)),
             dev)
     state = trainer.init_state()
-    graft_alignment_params(trainer.net, flow_ckpt)
+    if flow_ckpt is not None:
+        graft_alignment_params(trainer.net, flow_ckpt)
     return trainer, state
 
 
-def pretrain_trainer(dev):
-    """``align_lite/pretrain_synthetic``'s trainer from a fresh network, on
-    a pool of one batch."""
+def pretrain_trainer(dev, pwc=False):
+    """``align_lite/pretrain_synthetic``'s (with ``pwc``,
+    ``pwcnet/pretrain_synthetic``'s) trainer from a fresh network, on a pool
+    of one batch."""
     from dbsr_tpu_torch.configs.align_lite import pretrain_synthetic
+    from dbsr_tpu_torch.configs.pwcnet import pretrain_synthetic as pwc_config
 
-    trainer = pretrain_synthetic.make_trainer(
-        _settings(**dict(PRETRAIN_SETTINGS, pool_size=TRAIN_B)), dev)
+    config, settings = ((pwc_config, PWC_PRETRAIN_SETTINGS) if pwc else
+                        (pretrain_synthetic, PRETRAIN_SETTINGS))
+    trainer = config.make_trainer(
+        _settings(**dict(settings, pool_size=TRAIN_B)), dev)
     return trainer, trainer.init_state()
 
 
@@ -1848,16 +2087,16 @@ def serve(what, pred, requests, per_forward):
                 forward_ms=fwd_ms, peak_mem_gib=peak, launches=launches)
 
 
-def forward_vs_cpu(pred, burst, **net_kwargs):
-    """Phases 5 and 10b: the card's forward of ``pred`` (kernels) against
-    the CPU's (plain versions) of the banked flagship rebuilt with
-    ``net_kwargs``, on one burst; the largest difference of the [0, 1]
-    output, which must stay within CARD_VS_CPU_TOL."""
+def forward_vs_cpu(pred, burst, ckpt=None, **net_kwargs):
+    """Phases 5, 10b and 12b: the card's forward of ``pred`` (kernels)
+    against the CPU's (plain versions) of the banked flagship (or ``ckpt``)
+    rebuilt with ``net_kwargs``, on one burst; the largest difference of the
+    [0, 1] output, which must stay within CARD_VS_CPU_TOL."""
     from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT
     from dbsr_tpu_torch.training.checkpoint import load_network
 
-    cpu_net, _ = load_network(FLAGSHIP_CHECKPOINT, device="cpu", dtype=None,
-                              **net_kwargs)
+    cpu_net, _ = load_network(ckpt or FLAGSHIP_CHECKPOINT, device="cpu",
+                              dtype=None, **net_kwargs)
     on_card = pred.forward(torch.from_numpy(burst).to(pred.device))
     on_card = on_card.clamp(0, 1).cpu()
     with torch.inference_mode():
@@ -1865,7 +2104,8 @@ def forward_vs_cpu(pred, burst, **net_kwargs):
         on_cpu = cpu_net(torch.from_numpy(burst))[0].clamp(0, 1)
     cpu_s = time.perf_counter() - t0
     diff = (on_card - on_cpu).abs().max().item()
-    log(f"card (kernels) vs CPU (plain) forward, 1 burst, {net_kwargs}, "
+    log(f"card (kernels) vs CPU (plain) forward, 1 burst, "
+        f"{os.path.basename(ckpt or FLAGSHIP_CHECKPOINT)} {net_kwargs}, "
         f"{FINE_PATCH_ENV}={os.environ.get(FINE_PATCH_ENV)}: max|diff| "
         f"{diff:.3e} (limit {CARD_VS_CPU_TOL}); CPU forward {cpu_s:.1f} s")
     if not diff <= CARD_VS_CPU_TOL:
@@ -2111,10 +2351,10 @@ def eval_phase(workdir, train_workspace):
     out["generate"] = dict(wall_s=gen_s, ms_per_burst=gen_s * 1e3 / n_bursts,
                            launches=gen_launches)
 
-    # (b) the zoo's two networks the port builds, through the API
+    # (b) the zoo's three networks, through the API
     nets = [NetworkParam(checkpoint_path=c, display_name=os.path.basename(
         c).replace("_best_params.ckpt", ""))
-        for c in (FLAGSHIP_CHECKPOINT, R4MIX_CHECKPOINT)]
+        for c in (FLAGSHIP_CHECKPOINT, R4MIX_CHECKPOINT, R3D_CHECKPOINT)]
     flagship = nets[:1]
     with contextlib.redirect_stdout(io.StringIO()):  # cuDNN's first calls
         synburst.compute_score(flagship, root, with_lpips=False,
@@ -2122,9 +2362,11 @@ def eval_phase(workdir, train_workspace):
     scores, runs = {}, {}
     for n in nets:
         name = n.get_display_name()
+        pwc = n.checkpoint_path == R3D_CHECKPOINT
         s, runs[name] = _scored(f"compute_score {name}, {n_bursts} bursts, "
                                 f"batch {EVAL_BATCH}", [n], root,
-                                LAUNCHES_PER_FORWARD, n_forwards)
+                                LAUNCHES_PER_PWC_FORWARD if pwc
+                                else LAUNCHES_PER_FORWARD, n_forwards)
         for m, v in s.items():
             scores.setdefault(m, {}).update(v)
         if not all(math.isfinite(v[name]) for v in s.values()):
@@ -2141,6 +2383,8 @@ def eval_phase(workdir, train_workspace):
     # (c) card against CPU, per burst
     out["card_vs_cpu"] = card_vs_cpu_scores(root, FLAGSHIP_CHECKPOINT,
                                             EVAL_CPU_BURSTS)
+    out["card_vs_cpu_r3d"] = card_vs_cpu_scores(root, R3D_CHECKPOINT,
+                                                EVAL_CPU_BURSTS)
     torch.cuda.empty_cache()
 
     # (d) saved predictions rescored
@@ -2222,7 +2466,163 @@ def eval_phase(workdir, train_workspace):
     name = flagship[0].get_display_name()
     out["launches"] = {k: gen_launches[k] + runs[name]["launches"][k]
                        for k in gen_launches}
+    out["launches_r3d"] = runs["dbsr_campaign_r3d"]["launches"]
     return out
+
+def burst_flow_vs_cpu(dev):
+    """Phase 12c: the banked ``BurstFlowNet`` (``pwcnet_synth_params.ckpt``)
+    through ``load_network`` on the card and on the CPU, on one synthesised
+    batch of B=16, N=8: flows within PWC_FLOW_TOL px."""
+    from dbsr_tpu_torch.data.procedural import (dead_leaves_image,
+                                                make_generator)
+    from dbsr_tpu_torch.data.synthetic import BurstConfig, synthesize_batch
+    from dbsr_tpu_torch.serving import float32_math
+    from dbsr_tpu_torch.training.checkpoint import load_network
+
+    cfg = BurstConfig(fused_resample=True)
+    gen = make_generator(dev, 31)
+    with float32_math():
+        burst = synthesize_batch(
+            gen, dead_leaves_image(gen, TRAIN_B, cfg.pre_crop_sz),
+            cfg)["burst"]
+    flows = {}
+    for device in ("cuda", "cpu"):
+        net, header = load_network(PWC_SYNTH, device=device)
+        reset_counts()
+        with torch.no_grad(), float32_math():
+            flows[device] = net(burst.to(device)).cpu()
+        if device == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+            want = {k: LAUNCHES_PER_PWC_FORWARD.get(k, 0) for k in counts}
+            want.update(warp=4, merge=0)  # the backwarps alone, no merge
+            if counts != want:
+                raise AssertionError(f"BurstFlowNet forward: launches "
+                                     f"{counts}, expected {want}")
+        del net
+    diff = float((flows["cuda"] - flows["cpu"]).abs().max())
+    mag = float(flows["cpu"].abs().max())
+    log(f"BurstFlowNet (epoch {header['epoch']}) B={TRAIN_B}, N={TRAIN_N}, "
+        f"card vs CPU: max|diff| {diff:.3e} px (limit {PWC_FLOW_TOL}); "
+        f"largest flow {mag:.3f} px")
+    if not diff <= PWC_FLOW_TOL:
+        raise AssertionError(f"BurstFlowNet card vs CPU: {diff} > "
+                             f"{PWC_FLOW_TOL} px")
+    return dict(max_abs_px=diff, largest_flow_px=mag)
+
+
+def pwc_pretrain_entry_phase():
+    """Phase 12d: ``run_training("pwcnet", "pretrain_synthetic")`` for one
+    epoch, then a second resumed from the first; the exact launches per
+    step and finite losses. A fresh PWC-Net stays on the zero-flow plateau
+    for thousands of steps (the banked epoch-15 checkpoint reads EPE 2.29
+    against a zero-flow 2.31), so no fall of ``Stat/epe`` is asked here."""
+    log(f"run_training cuts against pwcnet/pretrain_synthetic: "
+        f"steps_per_epoch {PWC_PRETRAIN_SETTINGS['steps_per_epoch']} of 1000, "
+        f"epochs 2 of 15, pool_size {PWC_PRETRAIN_SETTINGS['pool_size']} of "
+        f"2048; no val pass (every 5 epochs); full width, B={TRAIN_B}, "
+        f"N={TRAIN_N}, 384^2 crops")
+    per_step, logged, _, headers = entry_phase(
+        "pwcnet", "pretrain_synthetic", dict(PWC_PRETRAIN_SETTINGS), (1, 2),
+        LAUNCHES_PER_PWC_PRETRAIN_STEP, "pwcnet_synth")
+    if headers[2]["net_spec"]["cls"] != "BurstFlowNet":
+        raise AssertionError(f"checkpoint header: {headers[2]['net_spec']}")
+    epe = {e: h["stats"]["train"]["Stat/epe"] for e, h in headers.items()}
+    log(f"PWC-Net pretraining, mean Stat/epe by epoch (packed px): {epe}; "
+        f"running Stat/epe as logged: {logged['Stat/epe']}")
+    return per_step, dict(epe_by_epoch=epe, losses=logged["Loss/total"])
+
+
+def pwc_default_synthetic_phase(dev, workdir):
+    """Phase 12e: ``default_synthetic`` through ``run_training`` with PWC-Net:
+    in the workspace of 12d, the ``pwcnet_synth`` checkpoint found, grafted
+    and frozen, 5 steps; in a fresh workspace, no checkpoint at all: the
+    fallback (a fresh PWC-Net trained end to end), 5 steps; exact launches
+    per step for each, and each one's B=16 step time and peak memory (10
+    Adam steps on one fixed batch, the loss must fall). Then one unfrozen
+    step of r3d (B=1) against the CPU's."""
+    from dbsr_tpu_torch.training.checkpoint import resolve_checkpoint
+
+    workspace = os.environ["DBSR_TPU_WORKSPACE_DIR"]
+    flow_ckpt = resolve_checkpoint(os.path.join(
+        workspace, "pwcnet", "pretrain_synthetic"), "pwcnet_synth")
+    out = {}
+    kwargs = dict(SMOKE_SETTINGS, steps_per_epoch=5)
+    for name, ws, want, said in (
+            ("frozen", workspace, LAUNCHES_PER_PWC_FROZEN_STEP,
+             f"using pretrained flow weights: {flow_ckpt} (flow_net=pwc, "
+             f"train_alignment=False)"),
+            ("fallback", os.path.join(workdir, "pwc_fallback"),
+             LAUNCHES_PER_PWC_UNFROZEN_STEP,
+             "WARNING: no pretrained flow checkpoint found")):
+        os.environ["DBSR_TPU_WORKSPACE_DIR"] = ws
+        per_step, logged, texts, headers = entry_phase(
+            "dbsr", "default_synthetic", kwargs, (1,), want, "dbsr_synthetic")
+        spec = headers[1]["net_spec"]["kwargs"]
+        if said not in texts[0] or spec["flow_net"] != "pwc" \
+                or spec["train_alignment"] != (name == "fallback"):
+            raise AssertionError(f"default_synthetic {name}: {spec}")
+        torch.cuda.empty_cache()
+        trainer, state = default_synthetic_trainer(dev)
+        out[name] = dict(launches_per_step=per_step,
+                         losses=logged["Loss/total"],
+                         step=step_phase(dev, f"default_synthetic, PWC-Net "
+                                         f"{name}", trainer, state, want,
+                                         n_steps=10))
+        del trainer, state
+        torch.cuda.empty_cache()
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = workspace
+    out["card_vs_cpu"] = grad_phase(train_alignment=True, ckpt=R3D_CHECKPOINT)
+    return out
+
+
+def pwc_phase(dev, requests, workdir):
+    """Phase 12, PWC-Net: (b) r3d served, (c) the banked ``BurstFlowNet``
+    card vs CPU, (d) PWC-Net pretraining, (e) ``default_synthetic`` frozen
+    and in its fallback. Returns the numbers and the launches of each
+    path."""
+    from dbsr_tpu_torch.models.pwcnet import PWCNet
+    from dbsr_tpu_torch.serving import load_predictor
+
+    out, paths = {}, {}
+    t0 = time.perf_counter()
+    pred = load_predictor(R3D_CHECKPOINT, batch_size=B, burst_size=N,
+                          burst_hw=(HW, HW), device="cuda")
+    if not (pred.net.decoder.s2d
+            and isinstance(pred.net.encoder.alignment_net, PWCNet)):
+        raise AssertionError("r3d was not rebuilt with PWC-Net and its s2d "
+                             "decoder")
+    log(f"r3d predictor loaded in {time.perf_counter() - t0:.1f} s")
+    out["serving_r3d_b8"] = serve("serving r3d (PWC-Net, s2d decoder)", pred,
+                                  requests, LAUNCHES_PER_PWC_FORWARD)
+    paths["serving_r3d_3_requests"] = out["serving_r3d_b8"].pop("launches")
+    out["serving_r3d_b8"]["card_vs_cpu_max_abs"] = forward_vs_cpu(
+        pred, requests[2][None], ckpt=R3D_CHECKPOINT)
+    del pred
+    torch.cuda.empty_cache()
+
+    out["burst_flow_net"] = burst_flow_vs_cpu(dev)
+    torch.cuda.empty_cache()
+
+    out["pretrain_card_vs_cpu"] = pretrain_grad_phase(dev, pwc=True)
+    torch.cuda.empty_cache()
+    paths["pwc_pretrain_step"], out["pretrain"] = pwc_pretrain_entry_phase()
+    torch.cuda.empty_cache()
+    trainer, state = pretrain_trainer(dev, pwc=True)
+    out["pretrain"]["step"] = step_phase(dev, "PWC-Net pretraining", trainer,
+                                         state,
+                                         LAUNCHES_PER_PWC_PRETRAIN_STEP)
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    out["default_synthetic"] = pwc_default_synthetic_phase(dev, workdir)
+    paths["pwc_frozen_step"] = \
+        out["default_synthetic"]["frozen"]["launches_per_step"]
+    paths["pwc_fallback_step"] = \
+        out["default_synthetic"]["fallback"]["launches_per_step"]
+    torch.cuda.empty_cache()
+    return out, paths
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2264,6 +2664,9 @@ def main():
     for e in results:
         for r in e["per_shape"] + e["other_shapes"]:
             log_row(e["name"], r)
+    log("PWC-Net's forward shapes (r3d serving, B=8, N=14):")
+    add_pwc_rows(results, pwc_forward_rows(dev, g), "serving_r3d_3_requests")
+    torch.cuda.empty_cache()
     log("the s2d conv, the resample and the cost volume at odd shapes:")
     odd_shapes = odd_shape_phase(dev, g)
     torch.cuda.empty_cache()
@@ -2292,6 +2695,9 @@ def main():
     for e in new:
         for r in e["per_shape"] + e["other_shapes"]:
             log_row(e["name"], r)
+    log(f"PWC-Net's backward shapes (its pretraining, B={TRAIN_B}, "
+        f"N={TRAIN_N}):")
+    add_pwc_rows(new, pwc_backward_rows(dev, g), "pwc_pretrain_step")
     results += new
     torch.cuda.empty_cache()
 
@@ -2336,18 +2742,30 @@ def main():
         evaluation = eval_phase(workdir, os.path.join(workdir, "banked"))
         evaluation["phase_s"] = time.perf_counter() - t0
         log(f"phase 11: {evaluation['phase_s']:.1f} s")
+
+        # 12. PWC-Net: r3d served, pretraining, default_synthetic's paths
+        os.environ["DBSR_TPU_WORKSPACE_DIR"] = os.path.join(workdir, "pwc")
+        t0 = time.perf_counter()
+        pwc, pwc_paths = pwc_phase(dev, requests, workdir)
+        pwc["phase_s"] = time.perf_counter() - t0
+        log(f"phase 12: {pwc['phase_s']:.1f} s")
     paths = {"train_step": per_step, "pretrain_step": pre_per_step,
              "train_alignment_step":
                  closing["train_alignment"]["launches_per_step"],
-             "s2d_train_step": s2d.pop("launches_per_step")}
+             "s2d_train_step": s2d.pop("launches_per_step"),
+             **{k: v for k, v in pwc_paths.items() if k.endswith("_step")}}
     serving_launches = {"serving_3_requests": launches,
                         "serving_s2d_3_requests": s2d.pop("launches"),
-                        "eval": evaluation.pop("launches")}
+                        "serving_r3d_3_requests":
+                            pwc_paths["serving_r3d_3_requests"],
+                        "eval": evaluation.pop("launches"),
+                        "eval_r3d": evaluation.pop("launches_r3d")}
     for e in results:
         # launches on each driven path: the three serving requests through
-        # each decoder, the eval protocol (the val set's generation and the
-        # flagship's scoring), then per step of the four training paths;
-        # `launches` is the count on the entry's own path
+        # each decoder and of r3d, the eval protocol (the val set's
+        # generation and the flagship's scoring; r3d's scoring), then per
+        # step of the seven training paths; `launches` is the count on the
+        # entry's own path
         by_path = {k: v[e["name"]]
                    for k, v in {**serving_launches, **paths}.items()}
         e["launches_by_path"] = by_path
@@ -2355,6 +2773,9 @@ def main():
         if not e["launches"]:
             raise AssertionError(f"{e['name']} was not launched on its path "
                                  f"{e['path']}")
+        if "pwc_path" in e and not by_path[e["pwc_path"]]:
+            raise AssertionError(f"{e['name']} was not launched on PWC-Net's "
+                                 f"path {e['pwc_path']}")
 
     summary = dict(serving_b8=serving, train=train,
                    train_card_vs_cpu=grads, run_training_losses=run_losses,
@@ -2363,7 +2784,7 @@ def main():
                    pretrain=pretrain, pretrain_card_vs_cpu=pre_grads,
                    launches_per_pretrain_step=pre_per_step,
                    closing_the_loop=closing, s2d_decoder=s2d,
-                   eval=evaluation,
+                   eval=evaluation, pwc=pwc,
                    odd_shapes=odd_shapes, build_s=secs,
                    total_s=time.perf_counter() - t_start, card=smi)
     log("summary " + json.dumps(summary))

@@ -5,12 +5,18 @@
 before the 24 px border crop) at x4 downsampling, <= 24 px translation and
 <= 1 degree rotation, fused resampling; L1 loss with boundary_ignore 40;
 Adam 1e-4 with StepLR(40 epochs, 0.2). Source imagery is the procedural
-dead-leaves pool on the device. The AlignLite aligner is grafted from a
-pretrained checkpoint and frozen (the reference protocol): the latest
-checkpoint of ``align_lite/pretrain_synthetic`` in the workspace (run
-``python -m dbsr_tpu_torch.run_training align_lite pretrain_synthetic``
-first), or ``--set pwc_checkpoint=<path>``. ``--set train_alignment=True``
-trains the grafted aligner with the rest (Adam then covers it too). The
+dead-leaves pool on the device. The aligner is grafted from a pretrained
+checkpoint and frozen (the reference protocol): ``--set
+pwc_checkpoint=<path>``, else the latest checkpoint of
+``align_lite/pretrain_synthetic`` in the workspace, else that of
+``pwcnet/pretrain_synthetic`` (``python -m dbsr_tpu_torch.run_training
+align_lite pretrain_synthetic`` or ``pwcnet pretrain_synthetic``); an
+``align_lite*`` checkpoint grafts as ``flow_net='lite'``, any other as
+``flow_net='pwc'``. With no checkpoint at all it warns and trains a fresh
+PWC-Net end to end with the rest (``flow_net='pwc'``,
+``train_alignment=True``), as the JAX package does. ``--set
+train_alignment=True`` trains a grafted aligner with the rest (Adam then
+covers it too). The
 decoder runs its post-shuffle stage on the space-to-depth-2 layout, as the
 JAX config does (``fused_s2d_decoder``, default True; with
 ``DBSR_FINE_PATCH_S2D=1`` its 3x3 convs launch the fine-patch conv kernel,
@@ -19,9 +25,9 @@ forward and d_input).
 Settings read (``--set K=V``): ``batch_size``, ``epochs``,
 ``steps_per_epoch``, ``print_interval``, ``seed``, ``pool_size``,
 ``fused_resample``, ``pwc_checkpoint``, ``train_alignment``, ``grad_clip``,
-``fused_s2d_decoder`` (``False``: the decoder at fine resolution); and, to
-refuse what the port does not run, ``compute_dtype``, ``mix`` and
-``flow_net``.
+``fused_s2d_decoder`` (``False``: the decoder at fine resolution),
+``flow_net`` (the checkpoint's kind by default); and, to refuse what the
+port does not run, ``compute_dtype`` and ``mix``.
 """
 
 from __future__ import annotations
@@ -29,10 +35,6 @@ from __future__ import annotations
 import os
 
 import torch
-
-PRETRAINED_HINT = ("--set pwc_checkpoint="
-                   "dbsr_tpu/artifacts/align_lite_params.ckpt")
-
 
 def make_data(settings, cfg, steps_per_epoch: int, device,
               val_batches: int = 200, val_interval: int = 5):
@@ -74,15 +76,20 @@ def make_data(settings, cfg, steps_per_epoch: int, device,
 def find_pretrained_flow(settings):
     """The pretrained aligner checkpoint: ``settings.pwc_checkpoint``, else
     the latest ``align_lite/pretrain_synthetic`` checkpoint of the
-    workspace, else None."""
+    workspace, else the latest ``pwcnet/pretrain_synthetic`` one, else
+    None."""
     from dbsr_tpu_torch.training.checkpoint import resolve_checkpoint
 
     explicit = getattr(settings, "pwc_checkpoint", None)
     if explicit:
         return explicit
-    return resolve_checkpoint(
-        os.path.join(settings.env.workspace_dir, "align_lite",
-                     "pretrain_synthetic"), "align_lite")
+    ws = settings.env.workspace_dir
+    return (resolve_checkpoint(os.path.join(ws, "align_lite",
+                                            "pretrain_synthetic"),
+                               "align_lite")
+            or resolve_checkpoint(os.path.join(ws, "pwcnet",
+                                               "pretrain_synthetic"),
+                                  "pwcnet_synth"))
 
 
 def flow_net_kind(flow_ckpt_path: str) -> str:
@@ -137,9 +144,9 @@ def check_resume_matches(workspace: str, net_name: str,
 
 def make_trainer(settings, device="cuda"):
     """``(trainer, flow_ckpt)``: the configured :class:`Trainer` (fresh
-    network, procedural pools, Adam) and the pretrained AlignLite
-    checkpoint that :func:`run` grafts into it. Raises, naming
-    :data:`PRETRAINED_HINT`, when no AlignLite checkpoint is found."""
+    network, procedural pools, Adam) and the pretrained aligner checkpoint
+    that :func:`run` grafts into it, None when there is none (the aligner
+    then trains from scratch with the rest)."""
     from dbsr_tpu_torch.data.synthetic import BurstConfig
     from dbsr_tpu_torch.models.dbsr import dbsrnet_cvpr2021
     from dbsr_tpu_torch.training.actors import make_synthetic_actor
@@ -162,21 +169,25 @@ def make_trainer(settings, device="cuda"):
         raise NotImplementedError(
             f"compute_dtype={compute_dtype!r}: the port trains float32")
 
+    # the reference protocol: a pretrained aligner, frozen; without one the
+    # aligner trains end to end
     flow_ckpt = find_pretrained_flow(settings)
-    if flow_ckpt is None or flow_net_kind(flow_ckpt) != "lite":
-        raise RuntimeError(
-            "the port trains DBSR from a pretrained AlignLite aligner and "
-            f"found {'none' if flow_ckpt is None else flow_ckpt}; run "
-            "`python -m dbsr_tpu_torch.run_training align_lite "
-            f"pretrain_synthetic` first, or pass {PRETRAINED_HINT} (the "
-            "fallback without one is end-to-end training of PWC-Net, which "
-            "is not ported)")
-    train_alignment = bool(getattr(settings, "train_alignment", False))
-    print(f"using pretrained flow weights: {flow_ckpt} (flow_net=lite, "
-          f"train_alignment={train_alignment})", flush=True)
+    train_alignment = bool(getattr(settings, "train_alignment",
+                                   flow_ckpt is None))
+    if flow_ckpt is None:
+        flow_net = getattr(settings, "flow_net", "pwc")
+        print("WARNING: no pretrained flow checkpoint found — training "
+              "the aligner end-to-end (reference protocol is "
+              "pretrained+frozen; run `python run_training.py align_lite "
+              "pretrain_synthetic` first)", flush=True)
+    else:
+        flow_net = getattr(settings, "flow_net", flow_net_kind(flow_ckpt))
+        print(f"using pretrained flow weights: {flow_ckpt} "
+              f"(flow_net={flow_net}, train_alignment={train_alignment})",
+              flush=True)
 
-    dev = torch.device(device)
-    loaders, prepare_fn = make_data(settings, cfg, steps_per_epoch, dev)
+    # the network first: an aligner the port does not run raises before
+    # the source pools are rendered
     net = dbsrnet_cvpr2021(
         enc_init_dim=64, enc_num_res_blocks=9, enc_out_dim=512,
         dec_init_conv_dim=64, dec_num_pre_res_blocks=5,
@@ -184,9 +195,10 @@ def make_trainer(settings, device="cuda"):
         upsample_factor=cfg.downsample_factor * 2,
         offset_feat_dim=64, weight_pred_proj_dim=64,
         num_weight_predictor_res=3, gauss_blur_sd=1.0, icnrinit=True,
-        train_alignment=train_alignment,
-        flow_net=getattr(settings, "flow_net", "lite"),
+        train_alignment=train_alignment, flow_net=flow_net,
         fused_s2d_decoder=getattr(settings, "fused_s2d_decoder", True))
+    dev = torch.device(device)
+    loaders, prepare_fn = make_data(settings, cfg, steps_per_epoch, dev)
     actor = make_synthetic_actor(net, loss_weight=1.0, boundary_ignore=40)
     workspace = os.path.join(settings.env.workspace_dir, "dbsr",
                              "default_synthetic")
@@ -207,13 +219,15 @@ def make_trainer(settings, device="cuda"):
 
 def run(settings, device="cuda"):
     """Train ``settings.epochs`` epochs (100 by default), resuming from the
-    workspace's latest checkpoint; a fresh workspace starts from an epoch-0
-    checkpoint of a fresh network with the pretrained aligner grafted."""
+    workspace's latest checkpoint; with a pretrained aligner, a fresh
+    workspace starts from an epoch-0 checkpoint of a fresh network with the
+    aligner grafted."""
     from dbsr_tpu_torch.training.checkpoint import (resolve_checkpoint,
                                                     save_checkpoint)
 
     trainer, flow_ckpt = make_trainer(settings, device)
-    if resolve_checkpoint(trainer.workspace_dir, trainer.net_name) is None:
+    if flow_ckpt is not None and resolve_checkpoint(
+            trainer.workspace_dir, trainer.net_name) is None:
         state = trainer.init_state()
         graft_alignment_params(trainer.net, flow_ckpt)
         save_checkpoint(trainer.workspace_dir, trainer.net_name, 0, state,

@@ -7,9 +7,9 @@ training):
 
 against a val set made by ``python -m
 dbsr_tpu_torch.generate_synthetic_burst_val --procedural 150 --num_bursts
-300 --seed 20260817``. The port rebuilds each network in float32 and
-refuses the one with ``flow_net='pwc'`` (``dbsr_campaign_r3d``), which it
-cannot build yet.
+300 --seed 20260817``. The port rebuilds each network in float32 (the
+banked checkpoints record bf16), ``dbsr_campaign_r3d`` with its PWC-Net
+aligner and s2d decoder, the two others with AlignLite.
 """
 
 import glob

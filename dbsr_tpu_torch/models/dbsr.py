@@ -1,11 +1,12 @@
 """DBSR network: encoder + alignment, attention fusion, pixel-shuffle
-decoder (port of ``dbsr_tpu/models/dbsr.py``, the ``flow_net='lite'``
-serving forward).
+decoder (port of ``dbsr_tpu/models/dbsr.py`` with its two aligners,
+``flow_net='pwc'``, PWC-Net, and ``flow_net='lite'``, AlignLite).
 
 ``burst`` is ``[B, N, h, w, 4]`` packed RGGB; frames are flattened into the
 batch for the per-frame convs. Three CUDA kernels run on the forward for
-CUDA tensors: the 512-channel feature warp (``ops/warp.py``), AlignLite's
-cost volumes (``ops/correlation.py``) and the frame-softmax merge
+CUDA tensors: the 512-channel feature warp and the aligner's backwarps
+(``ops/warp.py``), the aligner's cost volumes (``ops/correlation.py``:
+PWC-Net's five levels, AlignLite's three) and the frame-softmax merge
 (``ops/merge.py``); in training, the warp's d_feat and the merge's backward
 kernels run on the backward. By default the aligner is frozen: its flow is
 computed without gradient and its parameters do not require one. With
@@ -28,6 +29,7 @@ from torch import nn
 from dbsr_tpu_torch.models.align_lite import AlignLiteNet
 from dbsr_tpu_torch.models.layers import (ConvBlock, PixShuffleUpsampler,
                                           ResBlock, depth_to_space_phase_major)
+from dbsr_tpu_torch.models.pwcnet import PWCNet
 from dbsr_tpu_torch.ops.camera import demosaic_naive, uniform
 from dbsr_tpu_torch.ops.merge import fused_softmax_merge
 from dbsr_tpu_torch.ops.warp import warp_feat
@@ -60,17 +62,18 @@ class ResEncoder(nn.Module):
 
 class AlignedEncoder(nn.Module):
     """Encode the burst frames and warp the non-reference embeddings to the
-    reference frame by AlignLite's flow, computed without gradient unless
+    reference frame by the aligner's flow (``flow_net``: ``'pwc'``, PWC-Net,
+    or ``'lite'``, AlignLite), computed without gradient unless
     ``train_alignment``. Returns ``ref_feat`` ``[B, 1, h, w, C]``,
     ``oth_feat`` ``[B, N-1, h, w, C]`` (warped) and ``offsets``
     ``[B, N-1, h, w, 2]``."""
 
     def __init__(self, init_dim: int = 64, num_res_blocks: int = 9,
                  out_dim: int = 512, activation: str = "relu",
-                 train_alignment: bool = False):
+                 train_alignment: bool = False, flow_net: str = "pwc"):
         super().__init__()
         self.train_alignment = train_alignment
-        self.alignment_net = AlignLiteNet()
+        self.alignment_net = {"pwc": PWCNet, "lite": AlignLiteNet}[flow_net]()
         self.embed = ResEncoder(4, init_dim, num_res_blocks, out_dim,
                                 activation)
 
@@ -240,8 +243,9 @@ class DBSRNet(nn.Module):
     ``noise_generator`` (a training caller's choice; none passes zeros).
     ``fused_s2d_decoder=True`` runs the decoder's post-shuffle stage on the
     s2d layout (:class:`PixShuffleDecoder`), as the JAX package does.
-    What this port does not run yet raises: another aligner than
-    ``'lite'``, non-softmax fusion, and a compute dtype other than float32.
+    What this port does not run yet raises: another aligner than ``'pwc'``
+    or ``'lite'`` (the JAX package's test stub ``'conv'``), non-softmax
+    fusion, and a compute dtype other than float32.
     """
 
     # the JAX package's module of the same parameters (a checkpoint's
@@ -269,7 +273,7 @@ class DBSRNet(nn.Module):
         self.spec_kwargs = {k: v for k, v in spec_kwargs.items()
                             if k not in ("self", "__class__")}
         unsupported = {  # name: (value, unsupported?)
-            "flow_net": (flow_net, flow_net != "lite"),
+            "flow_net": (flow_net, flow_net not in ("pwc", "lite")),
             "softmax": (softmax, not softmax),
             "dtype": (dtype, dtype not in (None, "float32", torch.float32)),
         }
@@ -280,7 +284,7 @@ class DBSRNet(nn.Module):
         self.ref_offset_noise = float(ref_offset_noise)
         self.encoder = AlignedEncoder(enc_init_dim, enc_num_res_blocks,
                                       enc_out_dim, activation,
-                                      train_alignment)
+                                      train_alignment, flow_net)
         self.merging = WeightedSumMerge(
             enc_out_dim, weight_pred_proj_dim, offset_feat_dim,
             num_offset_feat_extractor_res, num_weight_predictor_res,

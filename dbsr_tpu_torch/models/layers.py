@@ -10,7 +10,9 @@ flax parameter path maps to a ``state_dict`` key by joining with dots (see
 A fresh network gets the JAX package's initial distributions from an
 explicit generator (:func:`init_params`): every conv weight and bias
 U[-1/sqrt(fan_in), 1/sqrt(fan_in)] (torch's ``nn.Conv2d`` default, which the
-JAX package copies), and ICNR for the pre-shuffle conv.
+JAX package copies), ICNR for the pre-shuffle conv, and for a
+:class:`TorchConvTranspose` U[-1/sqrt(out*k*k), 1/sqrt(out*k*k)] for the
+weight and the bias, as the JAX package's module draws them.
 
 Padding follows the JAX code: ``SAME`` for stride 1 (a dilated 3x3 pads by
 its dilation) and an explicit ``(1, 1)`` for the stride-2 convs, which is
@@ -172,6 +174,21 @@ class PixShuffleUpsampler(nn.Module):
         return x
 
 
+class TorchConvTranspose(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d(in_features, features, k, s, p)`` on a
+    channels-last tensor (the JAX package's ``TorchConvTranspose``, PWC-Net's
+    4x4 stride-2 up-convs). The weight keeps torch's ``[in, out, k, k]``
+    layout; its flax kernel is ``[k, k, in, out]`` (``utils/convert.py``)."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 4,
+                 stride: int = 2, padding: int = 1):
+        super().__init__(in_features, features, kernel_size, stride=stride,
+                         padding=padding)
+
+    def forward(self, x):
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
 def icnr_(weight: torch.Tensor, r: int, generator: torch.Generator) -> None:
     """ICNR init of a pre-shuffle conv weight ``[out, in, kh, kw]``: a
     kaiming-normal sub-kernel with ``out / r^2`` channels (flax's
@@ -196,6 +213,11 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     icnr = {id(m.Conv_0): m.r for m in module.modules()
             if isinstance(m, PixShuffleUpsampler) and m.icnrinit}
     for m in module.modules():
+        if isinstance(m, TorchConvTranspose):  # the JAX module's fan: out*k*k
+            bound = 1.0 / math.sqrt(m.weight[0].numel())
+            nn.init.uniform_(m.weight, -bound, bound, generator=generator)
+            nn.init.uniform_(m.bias, -bound, bound, generator=generator)
+            continue
         if not isinstance(m, nn.Conv2d):
             continue
         fan_in = m.in_channels // m.groups * m.kernel_size[0] \

@@ -1,5 +1,5 @@
 """Actors: loss and stats of a network on a batch (port of
-``dbsr_tpu/training/actors.py:19-47,113-156``)."""
+``dbsr_tpu/training/actors.py:19-156``)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from dbsr_tpu_torch.ops import metrics
+from dbsr_tpu_torch.ops.interp import resize_bilinear
 
 
 def make_synthetic_actor(net: torch.nn.Module, loss_weight: float = 1.0,
@@ -44,6 +45,9 @@ def pack_flow_to(flow: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     return flow.reshape(B, N, hw[0], r, hw[1], r, 2).mean(dim=(3, 5)) / r
 
 
+# PWC-Net's multi-scale weights by decoder level, the coarse decoders first
+# (PWC-Net's training loss, arXiv:1709.02371 sec. 4)
+PWC_LEVEL_WEIGHTS = {6: 0.32, 5: 0.08, 4: 0.02, 3: 0.01, 2: 0.005}
 # AlignLite's multi-scale weights by pyramid level: every level has its own
 # correlation, so the fine level leads
 LITE_LEVEL_WEIGHTS = {0: 1.0, 1: 0.5, 2: 0.25}
@@ -80,6 +84,42 @@ def make_lite_flow_actor(net: torch.nn.Module) -> Callable:
             tgt = pack_flow_to(gt, (lh, lw)).reshape(-1, lh, lw, 2)
             l_epe = end_point_error(f.float().reshape(-1, lh, lw, 2) - tgt).mean()
             loss = loss + LITE_LEVEL_WEIGHTS[lvl] * l_epe
+
+        with torch.no_grad():
+            epe = end_point_error(pred.float() - gt)
+            stats = {"Loss/total": loss.detach(), "Stat/epe": epe.mean(),
+                     "Stat/acc_0.5px": (epe < 0.5).float().mean()}
+        return loss, stats
+
+    return actor
+
+
+def make_flow_actor(net: torch.nn.Module) -> Callable:
+    """Multi-scale end-point-error supervision of
+    ``models.pwcnet.BurstFlowNet`` on the synthesis' exact dense flow
+    labels: the target is the negated synthesis flow of frames 1..N-1 pooled
+    to the packed grid (as :func:`make_lite_flow_actor`). Every decoder
+    level's raw flow is in 1/20 of a preprocessed-grid pixel, so the target
+    goes into that unit (``[Wp/w, Hp/h] / 20``, x then y) and is resized
+    bilinearly to each level's grid; the loss is the levels' mean EPE
+    weighted by ``PWC_LEVEL_WEIGHTS``. Stats: ``Loss/total``, ``Stat/epe``
+    and ``Stat/acc_0.5px`` of the final flow."""
+
+    def actor(batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        pred, aux = net(batch["burst"], return_pyramid=True)
+        h, w = pred.shape[2:4]  # pred [B, N-1, h, w, 2]
+        gt = pack_flow_to(-batch["flow"][:, 1:], (h, w))
+
+        Hp, Wp = aux["preprocessed_hw"]
+        unit = torch.tensor([Wp / w, Hp / h], dtype=torch.float32,
+                            device=gt.device) / 20.0
+        gt_raw = (gt * unit).reshape(-1, h, w, 2)
+        loss = 0.0
+        for lvl, f in aux["pyramid"].items():
+            lh, lw = f.shape[-3], f.shape[-2]
+            tgt = resize_bilinear(gt_raw, (lh, lw))
+            l_epe = end_point_error(f.float().reshape(-1, lh, lw, 2) - tgt).mean()
+            loss = loss + PWC_LEVEL_WEIGHTS[lvl] * l_epe
 
         with torch.no_grad():
             epe = end_point_error(pred.float() - gt)

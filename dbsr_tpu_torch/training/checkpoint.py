@@ -33,6 +33,7 @@ import torch
 from dbsr_tpu_torch import resolve_device
 from dbsr_tpu_torch.models.align_lite import BurstAlignLite
 from dbsr_tpu_torch.models.dbsr import DBSRNet
+from dbsr_tpu_torch.models.pwcnet import BurstFlowNet
 from dbsr_tpu_torch.utils.convert import params_from_flax, params_to_flax
 
 _MAGIC = b"DBSRTPU1"
@@ -339,7 +340,8 @@ def load_train_state(path: str, state) -> dict:
 
 
 # net_spec (module, cls) of the JAX package -> the port's class
-_NETWORKS = {cls.jax_spec: cls for cls in (DBSRNet, BurstAlignLite)}
+_NETWORKS = {cls.jax_spec: cls
+             for cls in (DBSRNet, BurstAlignLite, BurstFlowNet)}
 
 
 def load_network(path: str, device="cuda", **kwarg_overrides):

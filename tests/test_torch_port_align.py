@@ -464,12 +464,20 @@ def test_default_synthetic_finds_the_ports_own_checkpoint(workspace, capsys,
         config.make_trainer(_settings(train_alignment=train_alignment), "cpu")
 
 
-def test_default_synthetic_without_any_aligner_checkpoint_says_so(workspace):
-    with pytest.raises(RuntimeError, match="align_lite pretrain_synthetic"):
-        run_training("dbsr", "default_synthetic", device="cpu")
-    with pytest.raises(RuntimeError, match="PWC-Net, which is not ported"):
-        run_training("dbsr", "default_synthetic", device="cpu",
-                     train_alignment=True)
+def test_default_synthetic_without_any_aligner_checkpoint_says_so(workspace,
+                                                                  capsys):
+    """No aligner checkpoint: the JAX package's WARNING, naming AlignLite's
+    pretraining, and the fallback: a fresh PWC-Net trained end to end."""
+    trainer, flow_ckpt = config.make_trainer(_settings(), "cpu")
+    assert flow_ckpt is None
+    out = capsys.readouterr().out
+    assert "WARNING: no pretrained flow checkpoint found" in out
+    assert "align_lite pretrain_synthetic" in out
+    net = trainer.net
+    assert net.spec_kwargs["flow_net"] == "pwc"
+    assert net.spec_kwargs["train_alignment"] is True
+    assert all(p.requires_grad
+               for p in net.encoder.alignment_net.parameters())
 
 
 # ---------------------------------------------------------------------------

@@ -656,20 +656,54 @@ def test_dbsr_zoo_resolves_the_three_artifacts():
     assert all(os.path.exists(n.checkpoint_path) for n in nets)
 
 
-def test_scoring_r3d_raises_the_pwc_refusal_before_any_read(val_root):
+R3D_CFG = JaxBurstConfig(burst_size=14, crop_sz=(64, 64), downsample_factor=4,
+                         border_crop=4, max_translation=3.0, max_rotation=0.5)
+
+
+@pytest.fixture(scope="module")
+def r3d_val_root(tmp_path_factory):
+    """A JAX-written val set of two bursts at r3d's x8 (8x8 packed frames,
+    64x64 ground truth)."""
+    out = []
+    for i in range(2):
+        img = jnp.asarray(np.random.RandomState(30 + i).rand(
+            *R3D_CFG.pre_crop_sz, 3).astype(np.float32))
+        s = jax_rgb2rawburst(jax.random.key(30 + i), img, R3D_CFG)
+        out.append({"burst": np.asarray(s["burst"]),
+                    "frame_gt": np.asarray(s["frame_gt"]),
+                    "meta": {"gains": 1.0, "index": i,
+                             "rgb2cam": np.asarray(s["meta"]["rgb2cam"])}})
+    root = str(tmp_path_factory.mktemp("r3dval"))
+    jax_write_synthetic_burst_val(root, out)
+    return root
+
+
+def test_scoring_r3d_raises_the_pwc_refusal_before_any_read(r3d_val_root,
+                                                            tmp_path):
+    """r3d, the zoo's PWC-Net model, which the port once refused before
+    reading a burst, is scored: the port (float32 whatever the checkpoint
+    records) against the JAX package on a float32 copy of the checkpoint,
+    within this file's limits."""
     from dbsr_tpu_torch.evaluation.experiments import dbsr_zoo
-
-    class Unread:
-        def __len__(self):
-            return 300
-
-        def __getitem__(self, i):
-            raise AssertionError("a burst was read")
+    from dbsr_tpu_torch.training.checkpoint import (read_checkpoint,
+                                                    write_checkpoint)
 
     r3d = dbsr_zoo.main()[0]
-    with pytest.raises(NotImplementedError, match="flow_net='pwc'"):
-        synburst.compute_score([r3d], val_root, with_lpips=False,
-                               dataset=Unread(), device="cpu")
+    assert r3d.get_display_name() == "dbsr_campaign_r3d"
+    header, tree = read_checkpoint(r3d.checkpoint_path)
+    assert header["net_spec"]["kwargs"]["dtype"] == {"__dtype__": "bfloat16"}
+    header["net_spec"]["kwargs"]["dtype"] = None
+    f32 = write_checkpoint(str(tmp_path / "r3d_f32.ckpt"), header, tree)
+    want = jax_synburst.compute_score(
+        [JaxNetworkParam(checkpoint_path=f32, display_name="r3d")],
+        r3d_val_root, boundary_ignore=BOUNDARY, with_lpips=False,
+        with_msssim=True)
+    got = _score(r3d_val_root, [NetworkParam(
+        checkpoint_path=r3d.checkpoint_path, display_name="r3d")],
+        with_msssim=True)
+    got = {m: v["r3d"] for m, v in got.items()}
+    assert all(np.isfinite(v) for v in got.values())
+    _close(got, {m: v["r3d"] for m, v in want.items()})
 
 
 @pytest.mark.parametrize("entry", ["compute_score", "save_results",

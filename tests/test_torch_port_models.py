@@ -153,7 +153,7 @@ def test_load_predictor_cuda_without_card_raises():
 
 
 @pytest.mark.parametrize("override", [{"dtype": "bfloat16"},
-                                      {"flow_net": "pwc"},
+                                      {"flow_net": "conv"},
                                       {"softmax": False}])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError, match=next(iter(override))):

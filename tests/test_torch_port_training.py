@@ -281,8 +281,9 @@ def workspace(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    ({}, RuntimeError, "pwc_checkpoint=dbsr_tpu/artifacts/align_lite"),
-    ({"pwc_checkpoint": PWC}, RuntimeError, "AlignLite"),
+    ({"flow_net": "conv"}, NotImplementedError, "flow_net='conv'"),
+    ({"pwc_checkpoint": PWC, "flow_net": "conv"}, NotImplementedError,
+     "flow_net='conv'"),
     ({"compute_dtype": "bfloat16"}, NotImplementedError, "float32"),
     ({"pwc_checkpoint": ALIGN_LITE, "mix": "mixed"}, NotImplementedError,
      "dead-leaves")])
