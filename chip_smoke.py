@@ -41,7 +41,13 @@ default.
    ``pwc_*``); then the s2d conv, forward and d_input, at C in {3, 5, 33}
    and O in {1, 7, 70} on an odd plane, the affine resample at an odd
    width with C in {1, 4} (bit-identical to its plain version), and the
-   cost volume on a ragged plane with C in {1, 3, 5, 33, 196};
+   cost volume on a ragged plane with C in {1, 3, 5, 33, 196}; then the
+   warp at C % 4 != 0 (its 4-byte path): C in {1, 2, 3, 5} beside 24 on a
+   ragged 13x22 plane, and C = 3 at SCA's shapes ([1, 640, 640, 3] and
+   [1, 80, 80, 3] in BurstSR scoring, [12, 448, 448, 3] and
+   [12, 56, 56, 3] in fine-tuning), each bit-identical to its plain
+   version, SCA's shapes timed and bounded (``sca_shapes`` of the warp's
+   entry, ``any_c`` the ragged rows);
 4. serving: ``load_predictor`` on the banked flagship checkpoint (full
    width, batch 8, 14 frames, 48x48 -> 384x384) answers three requests
    (8 bursts, 3 bursts, one burst) with the launch counters reset just
@@ -64,7 +70,10 @@ default.
    with a pile-up of every source onto one 3x3 patch (also against the
    plain version, its time recorded), and a flow with every tap out of
    range must give zeros; d_feat also at C=12 on a ragged plane and on a
-   96x96 plane (its CSR built outside shared memory); times
+   96x96 plane (its CSR built outside shared memory), at C in {1, 2, 3, 5}
+   beside 24 on the ragged plane and at C = 3 at the fine-tuning step's
+   [12, 448, 448, 3] (each twice, bit-identical required, against plain and
+   autograd; the latter timed: ``sca_shapes`` and ``any_c``); times
    as in phase 3 (the yardsticks ``F.grid_sample`` and its autograd: for
    d_feat with respect to the input alone, for d_flow with respect to
    both); the host's microseconds per call of the resample and of
@@ -153,15 +162,41 @@ default.
     checkpoint found, grafted and frozen, 5 steps, and in a fresh one with
     no checkpoint, the fallback (PWC-Net trained end to end), 5 steps,
     exact launches per step for each, and each one's B=16 step time and
-    peak memory; one unfrozen r3d step at B=1 against the CPU's.
+    peak memory; one unfrozen r3d step at B=1 against the CPU's;
+13. the real-world path: (a) ``python -m
+    dbsr_tpu_torch.data.make_synthetic_burstsr`` (its ``generate_dataset``,
+    on the card) writes BurstSR-format val and train trees, 3 bursts each,
+    14 frames of 96^2 packed RAW, ground truth 768^2, with the planted
+    translation, colour transform and exposure; (b) SCA with the banked
+    AlignLite, coarse to fine, on a perfect prediction of the first val
+    burst: it must recover the misregistration under the JAX package's
+    limits (aligned MSE < 0.3 x raw, valid > 0.5) and agree with the CPU
+    (exact launches: warp 7, correlation 6); (c) ``compute_score`` of the
+    flagship and r3d over the val tree (80-px crops, 640^2 ground truth,
+    boundary 40) with exact launches per burst (warp 10, correlation 9,
+    merge 1; r3d 11, 10, 1), ms per burst by part (forward, SCA, metrics,
+    reader) and peak memory, ``run_evaluation burstsr compute_score
+    dbsr_zoo --json`` (its ``main``) equal to the API within 1e-6, the
+    first 2 bursts' scores card vs CPU (5e-3 dB, 5e-5); (d)
+    ``save_results`` of the flagship, every PNG equal to the live
+    quantised prediction; (e) ``run_training("dbsr", "default_realworld")``
+    from the banked flagship placed as ``default_synthetic``'s checkpoint:
+    one epoch of 5 steps at B=12, N=8, 56-px crops, then a resumed second
+    (exact launches per step: warp 10, correlation 9, merge 1, d_feat 2,
+    merge backward 1), the epoch-0 checkpoint equal to the flagship; one
+    step at B=1 card vs CPU (loss, gradients; a batch whose offsets wrap
+    on one side only, or whose SCA masks differ, is left for the next
+    seed); the B=12 step's time, peak memory and profile.
 
 The second-to-last line is ``{"kernels": [...]}`` (all ten kernels;
 ``launches`` is the count on the entry's own ``path``, whose shapes its
 times are summed over, except the s2d conv's, whose times are one launch's
 and whose path launches it 8 times per forward; ``launches_by_path`` has
-the counts on all twelve paths (``eval``: phase 11's generation and
+the counts on all fifteen paths (``eval``: phase 11's generation and
 flagship scoring; ``eval_r3d``, ``serving_r3d_3_requests`` and the
-``pwc_*_step`` paths: PWC-Net's); ``device_ms``, ``kernel_device_ms`` and
+``pwc_*_step`` paths: PWC-Net's; ``burstsr_eval`` and
+``burstsr_eval_r3d``: phase 13c's scoring of 3 bursts; ``realworld_step``:
+per ``default_realworld`` step); ``device_ms``, ``kernel_device_ms`` and
 ``library_device_ms`` beside ``ms`` and ``library_ms``; the s2d conv's
 ``bound_ms`` is that of its own math, 3xTF32 on the tensor cores, also
 given as ``tc_bound_ms``, and ``ffma_bound_ms`` is the same work's bound
@@ -190,13 +225,17 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
 TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 tensor-core rate (dense)
 # the CUDA kernels each entry's wrapper launches, as the profiler names
-# them (warp_dfeat's call builds its CSR of the transposed taps, then
-# gathers; its kernel_device_ms is the two summed; d_first and d_second are
+# them (warp_dfeat's call builds its CSR of the transposed taps, in one
+# kernel or, for large planes, four, then gathers; its kernel_device_ms is
+# them all summed; d_first and d_second are
 # one template, correlation_bwd_kernel<kShifted, kVec>)
 KERNEL_NAMES = {"warp": ("warp_kernel",),
                 "correlation": ("correlation_kernel",),
                 "merge": ("merge_kernel",), "resample": ("resample_kernel",),
-                "warp_dfeat": ("dfeat_build_kernel", "dfeat_gather_kernel"),
+                "warp_dfeat": ("dfeat_build_kernel", "csr_count_kernel",
+                               "csr_scan_kernel", "csr_fill_kernel",
+                               "csr_sort_kernel", "dfeat_gather_kernel",
+                               "dfeat_gather_scalar_kernel"),
                 "warp_dflow": ("dflow_kernel",),
                 "merge_backward": ("merge_bwd_kernel",),
                 "correlation_dfirst": ("correlation_bwd_kernel<false",),
@@ -317,6 +356,32 @@ PWC_FLOW_TOL = 1e-3  # px: BurstFlowNet's flows, card vs CPU
 PWC_PRETRAIN_SETTINGS = dict(steps_per_epoch=50, pool_size=128,
                              print_interval=25)
 
+# phase 13, the real-world path: BurstSR-format trees written by the port's
+# generator (val and train, 3 bursts each, 14 frames of 96^2 packed RAW,
+# ground truth 768^2), scored at the val protocol's 80-px crop (ground truth
+# 640^2, boundary 40) and fine-tuned by default_realworld at its 56-px crops
+# (ground truth 448^2), B=12, N=8
+RW_BURSTS, RW_LR, RW_SEED = 3, 96, 20261017
+RW_B, RW_N = 12, 8
+RW_CPU_BURSTS = 2        # bursts of the card-vs-CPU scores (13c)
+RW_STEPS = 5             # steps per epoch of the fine-tuning entry (13e)
+# SCA with the banked AlignLite, coarse to fine: at 1/4 scale two backwarps
+# and three cost volumes, the source's 3-channel backwarp, at full scale two
+# and three again; then SCA's own two warps (the prediction, the base frame)
+LAUNCHES_PER_SCA_LITE = {"warp": 7, "correlation": 6}
+# with PWC-Net (r3d): its four backwarps and five cost volumes, SCA's two
+LAUNCHES_PER_SCA_PWC = {"warp": 6, "correlation": 5}
+# per scored BurstSR burst: the network's forward and SCA
+LAUNCHES_PER_RW_LITE_BURST = {k: v + LAUNCHES_PER_SCA_LITE.get(k, 0)
+                              for k, v in LAUNCHES_PER_FORWARD.items()}
+LAUNCHES_PER_RW_PWC_BURST = {k: v + LAUNCHES_PER_SCA_PWC.get(k, 0)
+                             for k, v in LAUNCHES_PER_PWC_FORWARD.items()}
+# per default_realworld step of the flagship: a scored burst's forward and
+# SCA, then d_feat of the encoder's warp and of SCA's warp of the
+# prediction, and the merge backward; no synthesis, no d_flow
+LAUNCHES_PER_RW_STEP = dict(LAUNCHES_PER_TRAIN_STEP, resample=0,
+                            **LAUNCHES_PER_RW_LITE_BURST, warp_dfeat=2)
+RW_MASK_TOL = 1e-3       # share of pixels whose SCA mask may differ (13b)
 
 def log(*a):
     print(*a, flush=True)
@@ -1164,6 +1229,110 @@ def dfeat_determinism(dev, g):
                 out_of_range_zeros=True, odd_shapes=odd)
 
 
+def _wide_flow(g, dev, shape, amp):
+    """Flows of ``shape[:3]`` up to +-``amp`` px, a seventh of the rows on
+    exact pixel centres."""
+    f = (torch.rand(*shape[:3], 2, generator=g, device=dev) * 2 - 1) * amp
+    f[:, ::7] = torch.round(f[:, ::7])
+    return f.contiguous()
+
+
+# SCA's 3-channel warps: (shape, path): the prediction and the
+# coarse-to-fine source at the eval's 640^2 and the fine-tuning's 448^2 x
+# 12, the base frame at 80^2 and 56^2 x 12
+SCA_WARP_SHAPES = (((1, 640, 640, 3), "burstsr_eval"),
+                   ((1, 80, 80, 3), "burstsr_eval"),
+                   ((RW_B, 448, 448, 3), "realworld_step"),
+                   ((RW_B, 56, 56, 3), "realworld_step"))
+ANY_C_SHAPES = tuple((3, 13, 22, c) for c in (1, 2, 3, 5, 24))
+
+
+def warp_any_c_rows(dev, g):
+    """Phase 3, the warp forward at C % 4 != 0 (4-byte accesses): C in {1,
+    2, 3, 5} on a ragged 13x22 plane, beside C = 24 there (16-byte), then C
+    = 3 at SCA's shapes (``SCA_WARP_SHAPES``, flows up to +-8 px), each
+    bit-identical to its plain version; SCA's shapes timed and bounded as
+    the rows above, ``F.grid_sample`` the yardstick. Returns ``(ragged
+    rows, SCA rows)``."""
+    from dbsr_tpu_torch.ops.warp import base_grid, warp_feat, warp_feat_plain
+
+    ragged = []
+    for s in ANY_C_SHAPES:
+        feat = torch.randn(*s, generator=g, device=dev)
+        fl = _wide_flow(g, dev, s, 5.0)
+        ragged.append(dict(shape=list(s), max_abs_err=check_exact(
+            f"warp {list(s)}", warp_feat(feat, fl), warp_feat_plain(feat, fl))))
+    rows = []
+    for s, path in SCA_WARP_SHAPES:
+        feat = torch.rand(*s, generator=g, device=dev)
+        fl = _wide_flow(g, dev, s, 8.0)
+        err = check_exact(f"warp {list(s)} (SCA)", warp_feat(feat, fl),
+                          warp_feat_plain(feat, fl))
+        grid = _grid_sample_grid(base_grid(s[1], s[2], dev) + fl, s[1], s[2])
+        nchw = feat.permute(0, 3, 1, 2)
+        bms, by = bound((2 * feat.numel() + fl.numel()) * 4, 7 * feat.numel())
+        rows.append(dict(
+            shape=list(s), path=path, max_abs_err=err, bound_ms=bms,
+            bound_by=by,
+            **timings("warp", lambda: warp_feat(feat, fl),
+                      lambda: warp_feat_plain(feat, fl),
+                      lambda: F.grid_sample(nchw, grid, align_corners=False,
+                                            padding_mode="zeros"))))
+        del feat, fl, grid, nchw
+    return ragged, rows
+
+
+def dfeat_any_c_rows(dev, g):
+    """Phase 6, ``warp_dfeat`` at C % 4 != 0 (4-byte accesses): C in {1, 2,
+    3, 5} on the ragged 13x22 plane, beside C = 24 there, and C = 3 at the
+    fine-tuning step's SCA warp of the prediction, [12, 448, 448, 3] (P =
+    200704: the CSR is built in the scratch, not in shared memory); each
+    called twice (bit-identical required) and held against the plain
+    version and autograd of the plain forward; the SCA shape timed and
+    bounded as phase 6's rows, autograd of ``F.grid_sample`` (the input's
+    gradient) the yardstick. Returns ``(ragged rows, SCA rows)``."""
+    from dbsr_tpu_torch.ops.warp import (_dfeat_scratch_words, base_grid,
+                                         warp_dfeat, warp_dfeat_plain,
+                                         warp_feat_plain)
+
+    def held(s, amp):
+        gout = torch.randn(*s, generator=g, device=dev)
+        fl = _wide_flow(g, dev, s, amp)
+        got = check_repeat(f"warp d_feat {list(s)}",
+                           lambda: warp_dfeat(fl, gout))
+        xs = torch.zeros(s, device=dev, requires_grad=True)
+        auto = torch.autograd.grad(warp_feat_plain(xs, fl), xs, gout)[0]
+        errs = (check_close(f"warp d_feat {list(s)}", got,
+                            warp_dfeat_plain(fl, gout)),
+                check_close(f"warp d_feat {list(s)} vs autograd", got, auto))
+        return gout, fl, errs
+
+    ragged = []
+    for s in ANY_C_SHAPES:
+        _, _, errs = held(s, 5.0)
+        ragged.append(dict(shape=list(s), max_abs_err=errs[0],
+                           err_vs_autograd=errs[1]))
+    s = (RW_B, 448, 448, 3)
+    words = _dfeat_scratch_words(s[0], s[1] * s[2])
+    log(f"  warp d_feat {list(s)}: CSR scratch {words} int32 words "
+        f"({words * 4 / 2 ** 20:.1f} MiB), below 2^31")
+    gout, fl, errs = held(s, 8.0)
+    nchw = torch.rand(s, generator=g, device=dev).permute(
+        0, 3, 1, 2).requires_grad_(True)
+    grid = _grid_sample_grid(base_grid(s[1], s[2], dev) + fl, s[1], s[2])
+    out = F.grid_sample(nchw, grid, align_corners=False, padding_mode="zeros")
+    g_nchw = gout.permute(0, 3, 1, 2)
+    n, nf = gout.numel(), fl.numel()
+    bms, by = bound((2 * n + nf) * 4, 8 * n)
+    rows = [dict(shape=list(s), path="realworld_step", max_abs_err=errs[0],
+                 err_vs_autograd=errs[1], scratch_words=words, bound_ms=bms,
+                 bound_by=by,
+                 **timings("warp_dfeat", lambda: warp_dfeat(fl, gout),
+                           lambda: warp_dfeat_plain(fl, gout),
+                           lambda: torch.autograd.grad(
+                               out, nchw, g_nchw, retain_graph=True)))]
+    return ragged, rows
+
 def correlation_backward_entries(dev, g):
     """Phase 6, the cost volume's d_first and d_second: against their plain
     versions and ``torch.autograd.grad`` of ``correlation_plain``, and two
@@ -1877,12 +2046,16 @@ def pretrain_trainer(dev, pwc=False):
     return trainer, trainer.init_state()
 
 
-def step_phase(dev, what, trainer, state, per_step_want, n_steps=20):
-    """Phases 7c-7d, 8c and 9: ``n_steps`` Adam steps of ``trainer`` on one
-    fixed batch (the generator is reseeded each step, so the crop draw and
-    synthesis repeat), timed by CUDA events, the loss must fall; then a
-    profile of three train steps, its device time by part of the step
-    (synthesis, forward, backward, optimizer) and by kernel group."""
+def step_phase(dev, what, trainer, state, per_step_want, n_steps=20,
+               batch_size=TRAIN_B, loss_must_fall=True):
+    """Phases 7c-7d, 8c, 9 and 13e: ``n_steps`` Adam steps of ``trainer`` on
+    one fixed batch of ``batch_size`` (the generator is reseeded each step,
+    so the crop draw and synthesis repeat), timed by CUDA events, the loss
+    must fall (unless ``loss_must_fall`` is False: fine-tuning at 1e-5 from
+    a trained network, where it is logged); then a profile of three train
+    steps, its device time by part of the step (synthesis, or the real
+    batch's copy to the device; forward, backward, optimizer) and by kernel
+    group."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1915,12 +2088,12 @@ def step_phase(dev, what, trainer, state, per_step_want, n_steps=20):
     log(f"{what}: fixed batch, {n_steps} Adam steps from a fresh network: "
         f"loss {losses[0]:.6f} -> {losses[-1]:.6f}; all: "
         + ", ".join(f"{v:.5f}" for v in losses))
-    if not losses[-1] < losses[0]:
+    if loss_must_fall and not losses[-1] < losses[0]:
         raise AssertionError(f"{what}: the loss did not fall over {n_steps} "
                              f"steps on one batch")
-    log(f"{what}: step at B={TRAIN_B}: median {step_ms:.2f} ms (CUDA events, "
-        f"steps 6-{n_steps}), {TRAIN_B / step_ms * 1e3:.2f} samples/s, peak "
-        f"memory {peak:.2f} GiB")
+    log(f"{what}: step at B={batch_size}: median {step_ms:.2f} ms (CUDA "
+        f"events, steps 6-{n_steps}), {batch_size / step_ms * 1e3:.2f} "
+        f"samples/s, peak memory {peak:.2f} GiB")
     gen = make_generator(dev, 8)
     synth_ms = cuda_ms(lambda: trainer.prepare_fn(gen, pool), 1, 5)
 
@@ -1977,7 +2150,7 @@ def step_phase(dev, what, trainer, state, per_step_want, n_steps=20):
         log(f"    {part}: {sum(g.values()):.3f} (" + ", ".join(
             f"{k} {v:.3f}" for k, v in sorted(g.items(),
                                                 key=lambda kv: -kv[1])) + ")")
-    return dict(step_ms=step_ms, samples_per_s=TRAIN_B / step_ms * 1e3,
+    return dict(step_ms=step_ms, samples_per_s=batch_size / step_ms * 1e3,
                 peak_mem_gib=peak, fixed_batch_losses=losses,
                 synthesis_ms=synth_ms,
                 profile_ms_per_step={k: v / steps / 1e3
@@ -2624,6 +2797,406 @@ def pwc_phase(dev, requests, workdir):
     return out, paths
 
 
+def _banked_aligner(path, device):
+    """The banked AlignLite's ``alignment_net`` on ``device``."""
+    from dbsr_tpu_torch.models.align_lite import AlignLiteNet
+    from dbsr_tpu_torch.training.checkpoint import read_checkpoint
+    from dbsr_tpu_torch.utils.convert import params_from_flax
+
+    _, tree = read_checkpoint(path)
+    net = AlignLiteNet().eval()
+    net.load_state_dict(params_from_flax(
+        tree["params"]["params"]["alignment_net"]), strict=True)
+    return net.to(device)
+
+
+def sca_recovery_phase(root):
+    """Phase 13b: SCA with the banked AlignLite (coarse to fine) on the
+    first val burst, a perfect prediction (the stored clean scene at the
+    val crop) against its misregistered ground truth, on the card and on
+    the CPU. JAX's limits (``tests/test_synthetic_burstsr.py``): within a
+    24-px margin, the aligned masked MSE below 0.3 x the raw MSE and more
+    than half the pixels valid; card vs CPU: the outputs within
+    CARD_VS_CPU_TOL where both are valid, the masks differing at no more
+    than RW_MASK_TOL of the pixels; SCA's launches exact."""
+    from dbsr_tpu_torch.data.burstsr import get_burstsr_val_set
+    from dbsr_tpu_torch.evaluation.burstsr import _alignment_apply_from
+    from dbsr_tpu_torch.models.sca import make_sca
+
+    sampler = get_burstsr_val_set(root)
+    sample = sampler[0]
+    scene = np.load(os.path.join(root, "val", sampler.dataset.burst_list[0],
+                                 "scene_linear.npy"))
+    r = (RW_LR - 80) // 2
+    pred = torch.from_numpy(np.ascontiguousarray(
+        scene[8 * r:8 * r + 640, 8 * r:8 * r + 640][None]))
+    gt = torch.from_numpy(sample["frame_gt"])[None]
+    burst = torch.from_numpy(sample["burst"])[None]
+    out = {}
+    for device in ("cuda", "cpu"):
+        sca = make_sca(_alignment_apply_from(
+            _banked_aligner(ALIGN_LITE, device)), sr_factor=4)
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            pw, valid = sca(pred.to(device), gt.to(device), burst.to(device))
+        if device == "cuda":
+            torch.cuda.synchronize()
+            launches = read_counts()
+        out[device] = (pw.cpu(), valid.cpu(), time.perf_counter() - t0)
+    want = {k: LAUNCHES_PER_SCA_LITE.get(k, 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"SCA: launches {launches}, expected {want}")
+    pw, valid, secs = out["cuda"]
+    m = 24
+    crop = (slice(None), slice(m, -m), slice(m, -m))
+
+    def masked_mse(a, b, v):
+        d = ((a - b) ** 2 * v)[crop]
+        return float(d.sum() / (v[crop].sum() * 3 + 1e-8))
+
+    v = valid.float()
+    err_aligned = masked_mse(pw, gt, v)
+    err_raw = masked_mse(pred, gt, torch.ones_like(v))
+    valid_share = float(v[crop].mean())
+    both = valid & out["cpu"][1]
+    diff = float(((pw - out["cpu"][0]).abs() * both).max())
+    mask_diff = float((valid != out["cpu"][1]).float().mean())
+    log(f"SCA (banked AlignLite, coarse to fine) on the planted "
+        f"misregistration, 640^2: aligned MSE {err_aligned:.3e} vs raw "
+        f"{err_raw:.3e} ({err_aligned / err_raw:.3f}, limit 0.3), valid "
+        f"{valid_share:.3f} (limit 0.5); card vs CPU: max|diff| {diff:.3e} "
+        f"where both valid (limit {CARD_VS_CPU_TOL}), masks differ at "
+        f"{mask_diff:.2e} of the pixels (limit {RW_MASK_TOL}); launches "
+        f"{launches}; {secs:.2f} s on the card (first call), "
+        f"{out['cpu'][2]:.2f} s on the CPU")
+    if not (err_aligned < 0.3 * err_raw and valid_share > 0.5):
+        raise AssertionError("SCA did not recover the planted "
+                             "misregistration")
+    if not (diff <= CARD_VS_CPU_TOL and mask_diff <= RW_MASK_TOL):
+        raise AssertionError("SCA: card and CPU disagree")
+    return dict(aligned_mse=err_aligned, raw_mse=err_raw,
+                ratio=err_aligned / err_raw, valid_share=valid_share,
+                card_vs_cpu_max_abs=diff, mask_diff_share=mask_diff,
+                launches=launches)
+
+
+def burstsr_score_phase(root, nets):
+    """Phase 13c: ``evaluation.burstsr.compute_score`` of each network of
+    ``nets`` ((NetworkParam, per-burst launches)) over the val tree, the
+    launch counters reset just before and read just after (exact), ms per
+    burst by part, peak memory; then ``run_evaluation burstsr
+    compute_score dbsr_zoo`` (its ``main``), equal to the API within
+    EVAL_SAVED_TOL. Each network scores one burst first, untimed."""
+    from dbsr_tpu_torch import run_evaluation
+    from dbsr_tpu_torch.evaluation import burstsr as ev
+
+    scores, out, paths = {}, {}, {}
+    for n, per_burst in nets:
+        name = n.get_display_name()
+        buf, timing = io.StringIO(), {}
+        # one burst first, untimed: cuDNN's first calls at these shapes
+        with contextlib.redirect_stdout(buf):
+            ev.compute_score([n], root, with_lpips=False, device="cuda",
+                             max_bursts=1)
+        buf = io.StringIO()
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with contextlib.redirect_stdout(buf):
+            s = ev.compute_score([n], root, with_lpips=False, device="cuda",
+                                 timing=timing)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        launches = read_counts()
+        for line in buf.getvalue().splitlines():
+            log(f"  | {line}")
+        t = timing[name]
+        nb = t["bursts"]
+        want = {k: per_burst.get(k, 0) * nb for k in launches}
+        if nb != RW_BURSTS or launches != want:
+            raise AssertionError(f"burstsr {name}: {nb} bursts, launches "
+                                 f"{launches}, expected {want}")
+        for m in s:
+            scores.setdefault(m, {})[name] = s[m][name]
+        out[name] = dict(
+            psnr=s["psnr"][name], ssim=s["ssim"][name], bursts=nb,
+            ms_per_burst=t["wall_s"] * 1e3 / nb,
+            forward_ms_per_burst=t["forward_ms"] / nb,
+            sca_ms_per_burst=t["sca_ms"] / nb,
+            metrics_ms_per_burst=t["metrics_ms"] / nb,
+            reader_ms_per_burst=t["reader_s"] * 1e3 / nb,
+            transfer_ms_per_burst=t["transfer_s"] * 1e3 / nb,
+            peak_mem_gib=peak, launches=launches)
+        paths[name] = launches
+        log(f"burstsr {name}: PSNR {s['psnr'][name]:.4f} dB, SSIM "
+            f"{s['ssim'][name]:.4f}; per burst {out[name]['ms_per_burst']:.2f}"
+            f" ms wall: forward {out[name]['forward_ms_per_burst']:.2f}, SCA "
+            f"{out[name]['sca_ms_per_burst']:.2f}, metrics "
+            f"{out[name]['metrics_ms_per_burst']:.2f} ms (CUDA events), "
+            f"reader {out[name]['reader_ms_per_burst']:.2f} ms; peak "
+            f"{peak:.2f} GiB; launches {launches}")
+    path = os.path.join(os.environ["DBSR_TPU_WORKSPACE_DIR"], "rw_cli.json")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run_evaluation.main(["burstsr", "compute_score", "dbsr_zoo",
+                             "--dataset_root", root, "--no_lpips", "--json",
+                             path])
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    with open(path) as f:
+        cli = json.load(f)
+    log(f"run_evaluation burstsr compute_score dbsr_zoo: "
+        f"{time.perf_counter() - t0:.1f} s; {cli}")
+    worst = _scores_close("burstsr CLI vs API", {m: {k: cli[m][k] for k in
+                                                     scores[m]}
+                                                 for m in scores},
+                          scores, EVAL_SAVED_TOL, EVAL_SAVED_TOL)
+    return dict(nets=out, cli=cli, cli_vs_api=worst), paths
+
+
+def burstsr_card_vs_cpu(root, nets):
+    """Phase 13c: the per-burst scores of the first RW_CPU_BURSTS val
+    bursts on the card (kernels) and on the CPU (plain versions), the same
+    forward-SCA-metrics function, within EVAL_PSNR_TOL dB and
+    EVAL_SSIM_TOL."""
+    from dbsr_tpu_torch.data.burstsr import get_burstsr_val_set
+    from dbsr_tpu_torch.evaluation import burstsr as ev
+    from dbsr_tpu_torch.models.sca import make_sca
+
+    sampler = get_burstsr_val_set(root)
+    samples = [sampler[i] for i in range(RW_CPU_BURSTS)]
+    res = {}
+    for n in nets:
+        name = n.get_display_name()
+        per = {}
+        for device in ("cuda", "cpu"):
+            net, _ = n.load_net("", device=device)
+            scored = ev._scored_fn(net, make_sca(ev._alignment_apply_from(
+                net.encoder.alignment_net), sr_factor=4), EVAL_BOUNDARY)
+            vals = [scored(torch.from_numpy(s["burst"]).to(device),
+                           torch.from_numpy(s["frame_gt"]).to(device))
+                    for s in samples]
+            per[device] = {m: {str(i): float(v[m]) for i, v in
+                               enumerate(vals)} for m in ("psnr", "ssim")}
+            del net
+        res[name] = dict(per_burst=per, max_abs=_scores_close(
+            f"burstsr {name} card vs CPU, per burst, first "
+            f"{RW_CPU_BURSTS} bursts", per["cuda"], per["cpu"],
+            EVAL_PSNR_TOL, EVAL_SSIM_TOL))
+    return res
+
+
+def burstsr_saved_phase(root, n, out_dir):
+    """Phase 13d: ``evaluation.burstsr.save_results`` of ``n``; every PNG
+    equals the live prediction quantised at 2^14, bit for bit."""
+    from dbsr_tpu_torch.data.burstsr import get_burstsr_val_set
+    from dbsr_tpu_torch.evaluation import burstsr as ev
+    from dbsr_tpu_torch.utils.png16 import read_png
+
+    ev.save_results([n], root, out_dir, device="cuda")
+    net, _ = n.load_net("", device="cuda")
+    forward = ev._forward_fn(net)
+    sampler = get_burstsr_val_set(root)  # save_results' draws, in order
+    for i in range(len(sampler)):
+        s = sampler[i]
+        want = (forward(torch.from_numpy(s["burst"]).cuda()).cpu().numpy()
+                * 2 ** 14).astype(np.uint16)
+        got = read_png(os.path.join(out_dir, n.get_unique_name(),
+                                    f"{s['burst_name']}.png"))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"save_results {s['burst_name']}: the PNG "
+                                 f"differs from the live prediction")
+    log(f"save_results {n.get_display_name()}: {len(sampler)} PNGs equal "
+        f"to the live quantised predictions")
+    return len(sampler)
+
+
+def realworld_grad_phase(root):
+    """Phase 13e: one default_realworld step of the banked flagship at B=1
+    (8 frames, 56-px crops of the train tree, 10 x masked L1 after SCA) on
+    the card and on the CPU from the same batch: loss within LOSS_RTOL,
+    every gradient together within GRAD_TOL of its norm. As in phase 7a,
+    a batch whose merge offsets fall on the two sides of a whole pixel on
+    the two devices (a jump of the model) is logged and left for the next
+    sampler seed of BATCH_SEEDS; so is one whose SCA masks differ (a
+    threshold of the protocol)."""
+    import copy
+
+    from dbsr_tpu_torch.data.burstsr import (BurstSRDataset,
+                                             BurstSRProcessing,
+                                             RandomBurstSampler)
+    from dbsr_tpu_torch.evaluation.burstsr import _alignment_apply_from
+    from dbsr_tpu_torch.models import sca as sca_mod
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, float32_math
+    from dbsr_tpu_torch.training.actors import make_realworld_actor
+    from dbsr_tpu_torch.training.checkpoint import load_network
+
+    what = "default_realworld step (flagship, B=1, N=8, 56-px crops)"
+    left = {}
+    for seed in BATCH_SEEDS:
+        sampler = RandomBurstSampler(
+            BurstSRDataset(root, split="train"), burst_size=RW_N,
+            samples_per_epoch=1, seed=seed,
+            processing=BurstSRProcessing(crop_sz=56,
+                                         substract_black_level=True,
+                                         random_flip=True))
+        sample = sampler[0]
+        out, offsets, masks = {}, {}, {}
+        for device in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            net, _ = load_network(FLAGSHIP_CHECKPOINT, device=device,
+                                  dtype=None)
+            aligner = copy.deepcopy(net.encoder.alignment_net)
+            sca = sca_mod.make_sca(_alignment_apply_from(aligner),
+                                   sr_factor=4)
+
+            def spied(pred, gt, burst, d=device, sca=sca):
+                pw, valid = sca(pred, gt, burst)
+                masks[d] = valid.cpu()
+                return pw, valid
+
+            hook = net.encoder.register_forward_hook(
+                lambda m, i, o, d=device: offsets.__setitem__(
+                    d, o["offsets"].detach().cpu()))
+            batch = {k: torch.from_numpy(sample[k])[None].to(device)
+                     for k in ("burst", "frame_gt")}
+            reset_counts()
+            with float32_math():
+                loss, _ = make_realworld_actor(net, spied)(batch)
+                loss.backward()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches = read_counts()
+            hook.remove()
+            out[device] = (loss.item(), _grads(net),
+                           time.perf_counter() - t0)
+            modulo = net.merging.offset_modulo
+            del net, aligner
+        o_card, o_cpu = offsets["cuda"], offsets["cpu"]
+        wrapped = int((torch.floor(o_card / modulo)
+                       != torch.floor(o_cpu / modulo)).sum())
+        mask_diff = int((masks["cuda"] != masks["cpu"]).sum())
+        log(f"{what}, sampler seed {seed}: offsets card vs CPU max|diff| "
+            f"{float((o_card - o_cpu).abs().max()):.3e} px, {wrapped} on "
+            f"the two sides of a whole pixel; SCA masks differ at "
+            f"{mask_diff} of {masks['cpu'].numel()} pixels")
+        if not wrapped and not mask_diff:
+            break
+        left[seed] = dict(wrapped_offsets=wrapped, mask_diff=mask_diff)
+        if wrapped and float((o_card - o_cpu).abs().max()) > WRAP_DIFF_TOL:
+            raise AssertionError(f"{what}: offsets differ by more than "
+                                 f"{WRAP_DIFF_TOL} px")
+    else:
+        raise AssertionError(f"{what}: every sampler seed left: {left}")
+    want = {k: LAUNCHES_PER_RW_STEP[k] for k in launches}
+    log(f"{what}: launches on the card {launches}")
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    res = card_vs_cpu(what, out)
+    res.update(launches=launches, sampler_seed=seed, left=left)
+    return res
+
+
+def realworld_phase(dev, workdir):
+    """Phase 13, the real-world path on the card: (a) the port's generator
+    writes val and train trees; (b) SCA recovers the planted
+    misregistration, card vs CPU; (c) ``compute_score`` of the flagship and
+    r3d, the CLI on the zoo, per-burst scores card vs CPU; (d)
+    ``save_results``; (e) ``default_realworld`` from the banked flagship:
+    ``run_training`` for one epoch of RW_STEPS steps at B=12, then a
+    resumed second, one step at B=1 card vs CPU, the B=12 step's time and
+    peak memory. Returns the numbers and the launches of its paths."""
+    import shutil
+
+    from dbsr_tpu_torch.configs.dbsr import default_realworld
+    from dbsr_tpu_torch.data import make_synthetic_burstsr as gen
+    from dbsr_tpu_torch.evaluation.experiments import dbsr_zoo
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT
+    from dbsr_tpu_torch.training.checkpoint import (read_checkpoint,
+                                                    resolve_checkpoint)
+    from dbsr_tpu_torch.utils.convert import params_from_flax
+
+    out, paths = {}, {}
+    root = os.path.join(workdir, "burstsr")
+    ws = os.path.join(workdir, "realworld")
+    os.makedirs(ws, exist_ok=True)
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = ws
+    os.environ["DBSR_TPU_BURSTSR_DIR"] = root
+    # (a) the trees
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        for i, split in enumerate(("val", "train")):
+            gen.generate_dataset(root, bursts=RW_BURSTS, lr=RW_LR,
+                                 n_frames=14, split=split, seed=RW_SEED + i,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    out["generate_s"] = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    log(f"13a: {2 * RW_BURSTS} bursts written in {out['generate_s']:.1f} s")
+
+    # (b) SCA on the planted misregistration
+    out["sca_recovery"] = sca_recovery_phase(root)
+    torch.cuda.empty_cache()
+
+    # (c) scoring: the flagship (AlignLite) and r3d (PWC-Net)
+    zoo = {n.get_display_name(): n for n in dbsr_zoo.main()}
+    nets = ((zoo["dbsr_campaign_r5"], LAUNCHES_PER_RW_LITE_BURST),
+            (zoo["dbsr_campaign_r3d"], LAUNCHES_PER_RW_PWC_BURST))
+    out["scores"], by_net = burstsr_score_phase(root, nets)
+    paths["burstsr_eval"] = by_net["dbsr_campaign_r5"]
+    paths["burstsr_eval_r3d"] = by_net["dbsr_campaign_r3d"]
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = burstsr_card_vs_cpu(root, [n for n, _ in nets])
+    torch.cuda.empty_cache()
+
+    # (d) save_results
+    out["saved_pngs"] = burstsr_saved_phase(
+        root, zoo["dbsr_campaign_r5"], os.path.join(workdir, "rw_saved"))
+    torch.cuda.empty_cache()
+
+    # (e) default_realworld from the banked flagship
+    syn = os.path.join(ws, "dbsr", "default_synthetic")
+    os.makedirs(syn, exist_ok=True)
+    shutil.copy(FLAGSHIP_CHECKPOINT,
+                os.path.join(syn, "dbsr_synthetic_ep0060.ckpt"))
+    log(f"default_realworld cuts: steps_per_epoch {RW_STEPS} of 300, epochs "
+        f"2 of 40, no val pass (every 4 epochs); full width, B={RW_B}, "
+        f"N={RW_N}, 56-px crops, the banked flagship restored")
+    per_step, logged, _, _ = entry_phase(
+        "dbsr", "default_realworld",
+        dict(steps_per_epoch=RW_STEPS, print_interval=RW_STEPS), (1, 2),
+        LAUNCHES_PER_RW_STEP, "dbsr_realworld")
+    paths["realworld_step"] = per_step
+    rw = os.path.join(ws, "dbsr", "default_realworld")
+    _, warm = read_checkpoint(resolve_checkpoint(rw, "dbsr_realworld", 0))
+    _, banked = read_checkpoint(FLAGSHIP_CHECKPOINT)
+    warm, banked = (params_from_flax(t["params"]) for t in (warm, banked))
+    if set(warm) != set(banked) or not all(
+            torch.equal(warm[k], banked[k].float()) for k in banked):
+        raise AssertionError("default_realworld's epoch-0 checkpoint is not "
+                             "the restored flagship")
+    log("default_realworld: the epoch-0 checkpoint holds the banked "
+        "flagship's parameters")
+    out["run_training_losses"] = logged["Loss/total"]
+    torch.cuda.empty_cache()
+    out["card_vs_cpu_step"] = realworld_grad_phase(root)
+    torch.cuda.empty_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer, restored = default_realworld.make_trainer(
+            _settings(steps_per_epoch=RW_STEPS, print_interval=RW_STEPS), dev)
+    state = trainer.init_state()
+    trainer.net.load_state_dict(restored)
+    out["step"] = step_phase(dev, "default_realworld", trainer, state,
+                             LAUNCHES_PER_RW_STEP, n_steps=10,
+                             batch_size=RW_B, loss_must_fall=False)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return out, paths
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing to measure")
@@ -2670,6 +3243,16 @@ def main():
     log("the s2d conv, the resample and the cost volume at odd shapes:")
     odd_shapes = odd_shape_phase(dev, g)
     torch.cuda.empty_cache()
+    # a generator of their own: the draws of g that later phases take stay
+    # as they were
+    g13 = torch.Generator(device=dev)
+    g13.manual_seed(13)
+    log("the warp at C % 4 != 0 and at SCA's 3-channel shapes:")
+    warp_e = next(e for e in results if e["name"] == "warp")
+    warp_e["any_c"], warp_e["sca_shapes"] = warp_any_c_rows(dev, g13)
+    for r in warp_e["sca_shapes"]:
+        log_row("warp (SCA)", r)
+    torch.cuda.empty_cache()
 
     # 4-5. serving through the fine decoder, then card against CPU
     rng = np.random.RandomState(0)
@@ -2695,6 +3278,12 @@ def main():
     for e in new:
         for r in e["per_shape"] + e["other_shapes"]:
             log_row(e["name"], r)
+    log("warp d_feat at C % 4 != 0 and at SCA's 3-channel shape:")
+    dfeat_e = next(e for e in new if e["name"] == "warp_dfeat")
+    dfeat_e["any_c"], dfeat_e["sca_shapes"] = dfeat_any_c_rows(dev, g13)
+    for r in dfeat_e["sca_shapes"]:
+        log_row("warp_dfeat (SCA)", r)
+    torch.cuda.empty_cache()
     log(f"PWC-Net's backward shapes (its pretraining, B={TRAIN_B}, "
         f"N={TRAIN_N}):")
     add_pwc_rows(new, pwc_backward_rows(dev, g), "pwc_pretrain_step")
@@ -2749,23 +3338,34 @@ def main():
         pwc, pwc_paths = pwc_phase(dev, requests, workdir)
         pwc["phase_s"] = time.perf_counter() - t0
         log(f"phase 12: {pwc['phase_s']:.1f} s")
+        torch.cuda.empty_cache()
+
+        # 13. the real-world path: SCA, BurstSR scoring, default_realworld
+        t0 = time.perf_counter()
+        realworld, rw_paths = realworld_phase(dev, workdir)
+        realworld["phase_s"] = time.perf_counter() - t0
+        log(f"phase 13: {realworld['phase_s']:.1f} s")
     paths = {"train_step": per_step, "pretrain_step": pre_per_step,
              "train_alignment_step":
                  closing["train_alignment"]["launches_per_step"],
              "s2d_train_step": s2d.pop("launches_per_step"),
-             **{k: v for k, v in pwc_paths.items() if k.endswith("_step")}}
+             **{k: v for k, v in pwc_paths.items() if k.endswith("_step")},
+             "realworld_step": rw_paths["realworld_step"]}
     serving_launches = {"serving_3_requests": launches,
                         "serving_s2d_3_requests": s2d.pop("launches"),
                         "serving_r3d_3_requests":
                             pwc_paths["serving_r3d_3_requests"],
                         "eval": evaluation.pop("launches"),
-                        "eval_r3d": evaluation.pop("launches_r3d")}
+                        "eval_r3d": evaluation.pop("launches_r3d"),
+                        "burstsr_eval": rw_paths["burstsr_eval"],
+                        "burstsr_eval_r3d": rw_paths["burstsr_eval_r3d"]}
     for e in results:
         # launches on each driven path: the three serving requests through
         # each decoder and of r3d, the eval protocol (the val set's
-        # generation and the flagship's scoring; r3d's scoring), then per
-        # step of the seven training paths; `launches` is the count on the
-        # entry's own path
+        # generation and the flagship's scoring; r3d's scoring), BurstSR's
+        # aligned scoring (the flagship's; r3d's), then per step of the
+        # eight training paths; `launches` is the count on the entry's own
+        # path
         by_path = {k: v[e["name"]]
                    for k, v in {**serving_launches, **paths}.items()}
         e["launches_by_path"] = by_path
@@ -2784,7 +3384,7 @@ def main():
                    pretrain=pretrain, pretrain_card_vs_cpu=pre_grads,
                    launches_per_pretrain_step=pre_per_step,
                    closing_the_loop=closing, s2d_decoder=s2d,
-                   eval=evaluation, pwc=pwc,
+                   eval=evaluation, pwc=pwc, realworld=realworld,
                    odd_shapes=odd_shapes, build_s=secs,
                    total_s=time.perf_counter() - t_start, card=smi)
     log("summary " + json.dumps(summary))

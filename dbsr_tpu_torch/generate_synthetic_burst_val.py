@@ -1,5 +1,5 @@
 """Generate a SyntheticBurstVal-format validation set on the card (port of
-``util_scripts/generate_synthetic_burst_val.py``):
+the repository's JAX-side script ``generate_synthetic_burst_val.py``):
 
     python -m dbsr_tpu_torch.generate_synthetic_burst_val \
         --procedural 150 --num_bursts 300 --seed 20260817 --out_dir <dir>

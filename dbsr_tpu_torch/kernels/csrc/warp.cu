@@ -16,29 +16,69 @@
 // kPix threads compute each pixel's four tap offsets and weights once, into
 // shared memory, with exactly the arithmetic of interp.sample_bilinear /
 // warp_pallas._tap_weights (floor taps, clamped index, weight 0 where the
-// tap is out of range). Then all threads walk (pixel, 4-channel group)
-// pairs with 16-byte loads and stores, channel-contiguous, so a warp reads
-// 512 contiguous bytes per tap. Products and sums use the _rn intrinsics,
-// which nvcc never contracts into FMAs: the result is bit-identical to the
-// plain PyTorch version (ops/warp.py:warp_feat_plain), which sums the four
-// terms in the same order.
+// tap is out of range). Then all threads walk (pixel, channel group) pairs,
+// channel-contiguous: for C % 4 == 0 with 16-byte loads and stores (groups
+// of 4 channels, 16 pixels a block, so a warp reads 512 contiguous bytes
+// per tap at C = 512), else with 4-byte ones (groups of one channel, 256
+// pixels a block: SCA's and the coarse-to-fine pass's 3-channel images,
+// where a block's 768 channels are its 3 KB of contiguous output). Products
+// and sums use the _rn intrinsics, which nvcc never contracts into FMAs:
+// the result is bit-identical to the plain PyTorch version
+// (ops/warp.py:warp_feat_plain), which sums the four terms in the same
+// order.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kPix = 16;
 
-__device__ __forceinline__ float4 axpy_rn(float w, float4 v, float4 acc) {
-  return make_float4(__fadd_rn(acc.x, __fmul_rn(v.x, w)),
-                     __fadd_rn(acc.y, __fmul_rn(v.y, w)),
-                     __fadd_rn(acc.z, __fmul_rn(v.z, w)),
-                     __fadd_rn(acc.w, __fmul_rn(v.w, w)));
-}
+template <int kVec>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+  static constexpr int kPix = 16;
+  static __device__ __forceinline__ float4 load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ void store(float* p, float4 v) {
+    *reinterpret_cast<float4*>(p) = v;
+  }
+  static __device__ __forceinline__ float4 mul(float4 v, float w) {
+    return make_float4(__fmul_rn(v.x, w), __fmul_rn(v.y, w),
+                       __fmul_rn(v.z, w), __fmul_rn(v.w, w));
+  }
+  static __device__ __forceinline__ float4 axpy(float w, float4 v,
+                                                float4 acc) {
+    return make_float4(__fadd_rn(acc.x, __fmul_rn(v.x, w)),
+                       __fadd_rn(acc.y, __fmul_rn(v.y, w)),
+                       __fadd_rn(acc.z, __fmul_rn(v.z, w)),
+                       __fadd_rn(acc.w, __fmul_rn(v.w, w)));
+  }
+};
+template <>
+struct Vec<1> {
+  using T = float;
+  static constexpr int kPix = kThreads;
+  static __device__ __forceinline__ float load(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+  static __device__ __forceinline__ float mul(float v, float w) {
+    return __fmul_rn(v, w);
+  }
+  static __device__ __forceinline__ float axpy(float w, float v, float acc) {
+    return __fadd_rn(acc, __fmul_rn(v, w));
+  }
+};
 
+// kVec channels a load: 4 (16-byte accesses, C % 4 == 0) or 1 (any C)
+template <int kVec>
 __global__ void __launch_bounds__(kThreads)
 warp_kernel(const float* __restrict__ feat, const float* __restrict__ flow,
             float* __restrict__ out, int H, int W, int C) {
+  using V = Vec<kVec>;
+  constexpr int kPix = V::kPix;
   __shared__ long long s_off[kPix][4];  // element offset of each tap in the frame
   __shared__ float s_w[kPix][4];
 
@@ -74,37 +114,41 @@ warp_kernel(const float* __restrict__ feat, const float* __restrict__ flow,
   }
   __syncthreads();
 
-  const int C4 = C / 4;
+  const int CV = C / kVec;
   const float* fb = feat + frame * P * C;
   float* ob = out + (frame * P + p0) * C;
-  for (int i = threadIdx.x; i < npix * C4; i += kThreads) {
-    const int q = i / C4;
-    const int c = (i - q * C4) * 4;
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int i = threadIdx.x; i < npix * CV; i += kThreads) {
+    const int q = i / CV;
+    const int c = (i - q * CV) * kVec;
+    typename V::T acc = V::mul(V::load(fb + s_off[q][0] + c), s_w[q][0]);
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const float4 v = __ldg(reinterpret_cast<const float4*>(fb + s_off[q][t] + c));
-      if (t == 0) {
-        acc = make_float4(__fmul_rn(v.x, s_w[q][0]), __fmul_rn(v.y, s_w[q][0]),
-                          __fmul_rn(v.z, s_w[q][0]), __fmul_rn(v.w, s_w[q][0]));
-      } else {
-        acc = axpy_rn(s_w[q][t], v, acc);
-      }
-    }
-    *reinterpret_cast<float4*>(ob + static_cast<long long>(q) * C + c) = acc;
+    for (int t = 1; t < 4; ++t)
+      acc = V::axpy(s_w[q][t], V::load(fb + s_off[q][t] + c), acc);
+    V::store(ob + static_cast<long long>(q) * C + c, acc);
   }
+}
+
+template <int kVec>
+void launch(const float* feat, const float* flow, float* out, int frames,
+            int H, int W, int C, cudaStream_t stream) {
+  constexpr int kPix = Vec<kVec>::kPix;
+  const dim3 grid((H * W + kPix - 1) / kPix, frames);
+  warp_kernel<kVec><<<grid, kThreads, 0, stream>>>(feat, flow, out, H, W, C);
 }
 
 }  // namespace
 
 // feat [frames, H, W, C], flow [frames, H, W, 2], out [frames, H, W, C];
-// all float32, contiguous, 16-byte aligned; C % 4 == 0.
+// all float32, contiguous, 16-byte aligned; any C (16-byte accesses where
+// C % 4 == 0, 4-byte ones otherwise).
 DBSR_EXPORT int dbsr_warp_f32(const float* feat, const float* flow, float* out,
                               int frames, int H, int W, int C, void* stream) {
-  if (C % 4 != 0 || frames > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (frames > 65535) return static_cast<int>(cudaErrorInvalidValue);
   if (frames == 0 || H == 0 || W == 0 || C == 0) return 0;
-  const dim3 grid((H * W + kPix - 1) / kPix, frames);
-  warp_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      feat, flow, out, H, W, C);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C % 4 == 0)
+    launch<4>(feat, flow, out, frames, H, W, C, st);
+  else
+    launch<1>(feat, flow, out, frames, H, W, C, st);
   return static_cast<int>(cudaGetLastError());
 }

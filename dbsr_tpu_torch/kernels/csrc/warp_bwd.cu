@@ -21,9 +21,12 @@
 // kernel's W^T tile @ g, with no atomics on the output and no zero fill.
 // Flows are unbounded, so the transposed taps are built per call as a CSR
 // per frame, in scratch the wrapper allocates (~10 words per pixel, ~1% of
-// the bound's traffic at the encoder's shape), by one 1024-thread block per
-// frame, in shared memory where a frame's CSR fits (up to ~5800 pixels;
-// then copied out), in four steps parted by __syncthreads:
+// the bound's traffic at the encoder's shape): by one 1024-thread block per
+// frame in shared memory where a frame's CSR fits (up to ~5800 pixels;
+// then copied out), the steps parted by __syncthreads; for larger planes
+// in the scratch, each step a grid over all frames' pixels (a zero fill of
+// the counts, then four kernels: one block a frame for the scan), since a
+// block a frame left all but 12 SMs idle at SCA's 12 x 448^2. The steps:
 //   1. count: each source pixel adds 1 (an integer atomic, so the counts do
 //      not depend on the order) to the count of each target its
 //      nonzero-weight taps land on;
@@ -43,7 +46,11 @@
 //      each once. Neighbouring targets of a tile share sources, which the
 //      L1 then serves; one frame of g (4.7 MB at the encoder's shape) stays
 //      in the 50 MB L2. The sums' order is fixed by the CSR, so the output
-//      is bit-identical from call to call.
+//      is bit-identical from call to call. For C % 4 != 0 (SCA's warp of
+//      the 3-channel prediction) the same gather walks single channels
+//      with 4-byte loads: a block is the 4x8 tile x G channels (G the
+//      least power of two >= C, at most 8; threads past C idle), in the
+//      same order, so also bit-identical from call to call.
 //
 // dbsr_warp_dflow_f32 -- d_flow[p] = sum_c g[p, c] * sum_tap dw_tap/d(x,y) *
 // feat[tap, c]. Bound: memory; one read of g and feat (+ flow), ~1.06 GB at
@@ -172,37 +179,35 @@ inline long long build_smem_bytes(long long P) {
   return (2 * P + 2) * 4 + 4 * P * 8;
 }
 
-// Steps 1-4, one block per frame, the steps parted by __syncthreads. With
-// kShared (a frame's CSR fits in shared memory: P up to ~5800) the counts,
-// starts and entries are built there and the starts and entries copied to
-// the scratch at the end; else they are built in the scratch.
-template <bool kShared>
-__global__ void __launch_bounds__(kBuildThreads)
-dfeat_build_kernel(const float* __restrict__ flow, int* __restrict__ count,
-                   int* __restrict__ start, int2* __restrict__ entries, int H,
-                   int W) {
-  __shared__ int s_warp[kBuildThreads / 32];
-  extern __shared__ int2 s_csr[];  // kShared: entries [4P], count [P],
-                                   // start [P + 1]
-  const int P = H * W;
-  const long long frame = blockIdx.x;
-  const float* fl = flow + frame * P * 2;
-  int* c = kShared ? reinterpret_cast<int*>(s_csr + 4 * P) : count + frame * P;
-  int* s = kShared ? c + P : start + frame * (P + 1);
-  int2* e = kShared ? s_csr : entries + frame * 4 * P;
-  const int tid = threadIdx.x;
-
-  for (int q = tid; q < P; q += kBuildThreads) c[q] = 0;
-  __syncthreads();
-  // 1. count
-  for (int p = tid; p < P; p += kBuildThreads) {
-    const Taps t = tap_geometry(fl + 2 * p, p, H, W);
+// Step 1 for source pixel p of a frame: +1 to the count of each target its
+// nonzero-weight taps land on.
+__device__ __forceinline__ void count_taps(const float* fl, int p, int H,
+                                           int W, int* c) {
+  const Taps t = tap_geometry(fl + 2 * p, p, H, W);
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (t.w[k] != 0.0f) atomicAdd(c + t.q[k], 1);
+  for (int k = 0; k < 4; ++k)
+    if (t.w[k] != 0.0f) atomicAdd(c + t.q[k], 1);
+}
+
+// Step 3 for source pixel p: (p, weight) into a slot of each of its
+// targets' buckets (starts s, cursors c).
+__device__ __forceinline__ void fill_taps(const float* fl, int p, int H,
+                                          int W, const int* s, int* c,
+                                          int2* e) {
+  const Taps t = tap_geometry(fl + 2 * p, p, H, W);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (t.w[k] == 0.0f) continue;
+    const int q = t.q[k];
+    e[s[q] + atomicAdd(c + q, 1)] = make_int2(p, __float_as_int(t.w[k]));
   }
-  __syncthreads();
-  // 2. scan: each thread a run of `per` counts, then the block's prefix
+}
+
+// Step 2 by one block of kBuildThreads: s[0..P) = the exclusive scan of
+// c[0..P), s[P] = the total, c zeroed (the fill's cursors). Each thread
+// scans a run of `per` counts, then the block's prefix over the runs.
+__device__ void block_scan(int* c, int* s, int P, int* s_warp) {
+  const int tid = threadIdx.x;
   const int per = (P + kBuildThreads - 1) / kBuildThreads;
   const int lo = min(P, tid * per);
   const int hi = min(P, lo + per);
@@ -232,31 +237,91 @@ dfeat_build_kernel(const float* __restrict__ flow, int* __restrict__ count,
   for (int i = lo; i < hi; ++i) {
     s[i] = run;
     run += c[i];
-    c[i] = 0;  // the fill's cursor
+    c[i] = 0;
   }
   if (tid == kBuildThreads - 1) s[P] = run;  // the frame's total
+}
+
+// Steps 1-4 where a frame's CSR fits in shared memory (P up to ~5800): one
+// block per frame builds the counts, starts and entries there, the steps
+// parted by __syncthreads, then copies the starts and entries out.
+__global__ void __launch_bounds__(kBuildThreads)
+dfeat_build_kernel(const float* __restrict__ flow, int* __restrict__ start,
+                   int2* __restrict__ entries, int H, int W) {
+  __shared__ int s_warp[kBuildThreads / 32];
+  extern __shared__ int2 s_csr[];  // entries [4P], count [P], start [P + 1]
+  const int P = H * W;
+  const long long frame = blockIdx.x;
+  const float* fl = flow + frame * P * 2;
+  int* c = reinterpret_cast<int*>(s_csr + 4 * P);
+  int* s = c + P;
+  int2* e = s_csr;
+  const int tid = threadIdx.x;
+
+  for (int q = tid; q < P; q += kBuildThreads) c[q] = 0;
   __syncthreads();
-  // 3. fill
-  for (int p = tid; p < P; p += kBuildThreads) {
-    const Taps t = tap_geometry(fl + 2 * p, p, H, W);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      if (t.w[k] == 0.0f) continue;
-      const int q = t.q[k];
-      e[s[q] + atomicAdd(c + q, 1)] = make_int2(p, __float_as_int(t.w[k]));
-    }
-  }
+  for (int p = tid; p < P; p += kBuildThreads) count_taps(fl, p, H, W, c);
   __syncthreads();
-  // 4. sort
+  block_scan(c, s, P, s_warp);
+  __syncthreads();
+  for (int p = tid; p < P; p += kBuildThreads)
+    fill_taps(fl, p, H, W, s, c, e);
+  __syncthreads();
   for (int q = tid; q < P; q += kBuildThreads)
     sort_bucket(e + s[q], s[q + 1] - s[q]);
-  if constexpr (kShared) {
-    __syncthreads();
-    int* gs = start + frame * (P + 1);
-    int2* ge = entries + frame * 4 * P;
-    for (int q = tid; q <= P; q += kBuildThreads) gs[q] = s[q];
-    for (int i = tid; i < s[P]; i += kBuildThreads) ge[i] = e[i];
-  }
+  __syncthreads();
+  int* gs = start + frame * (P + 1);
+  int2* ge = entries + frame * 4 * P;
+  for (int q = tid; q <= P; q += kBuildThreads) gs[q] = s[q];
+  for (int i = tid; i < s[P]; i += kBuildThreads) ge[i] = e[i];
+}
+
+// Steps 1-4 for larger planes (SCA's 448^2 x 12 in fine-tuning), in the
+// scratch, each step one grid over every frame's pixels (one thread a
+// pixel; the scan a block a frame), so that the whole card builds.
+__global__ void __launch_bounds__(kThreads)
+csr_count_kernel(const float* __restrict__ flow, int* __restrict__ count,
+                 int H, int W, long long total) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (i >= total) return;
+  const int P = H * W;
+  const long long frame = i / P;
+  count_taps(flow + frame * P * 2, static_cast<int>(i - frame * P), H, W,
+             count + frame * P);
+}
+
+__global__ void __launch_bounds__(kBuildThreads)
+csr_scan_kernel(int* __restrict__ count, int* __restrict__ start, int P) {
+  __shared__ int s_warp[kBuildThreads / 32];
+  const long long frame = blockIdx.x;
+  block_scan(count + frame * P, start + frame * (P + 1), P, s_warp);
+}
+
+__global__ void __launch_bounds__(kThreads)
+csr_fill_kernel(const float* __restrict__ flow, int* __restrict__ count,
+                const int* __restrict__ start, int2* __restrict__ entries,
+                int H, int W, long long total) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (i >= total) return;
+  const int P = H * W;
+  const long long frame = i / P;
+  fill_taps(flow + frame * P * 2, static_cast<int>(i - frame * P), H, W,
+            start + frame * (P + 1), count + frame * P,
+            entries + frame * 4 * P);
+}
+
+__global__ void __launch_bounds__(kThreads)
+csr_sort_kernel(const int* __restrict__ start, int2* __restrict__ entries,
+                int P, long long total) {
+  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (i >= total) return;
+  const long long frame = i / P;
+  const int q = static_cast<int>(i - frame * P);
+  const int* s = start + frame * (P + 1);
+  sort_bucket(entries + frame * 4 * P + s[q], s[q + 1] - s[q]);
 }
 
 // 5. d_feat[q, c:c+4] = sum over q's bucket, in ascending source order, of
@@ -304,6 +369,56 @@ dfeat_gather_kernel(const float* __restrict__ g, const int* __restrict__ start,
 #pragma unroll
   for (int v = 0; v < V; ++v)
     *reinterpret_cast<float4*>(out + v * G * 4) = acc[v];
+}
+
+// 5, for any C: d_feat[q, c] as above, one channel a thread; a block is a
+// 4x8 tile of targets x a slab of G channels, thread (target, j) channel
+// slab * G + j, idle past C
+template <int G>
+__global__ void __launch_bounds__(kTargets * G)
+dfeat_gather_scalar_kernel(const float* __restrict__ g,
+                           const int* __restrict__ start,
+                           const int2* __restrict__ entries,
+                           float* __restrict__ dfeat, int H, int W, int C,
+                           int tiles_x, int tiles, int slabs) {
+  const int P = H * W;
+  long long bid = blockIdx.x;
+  const int slab = static_cast<int>(bid % slabs);
+  bid /= slabs;
+  const int tile = static_cast<int>(bid % tiles);
+  const long long frame = bid / tiles;
+  const int lt = threadIdx.x / G;
+  const int y = (tile / tiles_x) * kTileY + lt / kTileX;
+  const int x = (tile % tiles_x) * kTileX + lt % kTileX;
+  const int c = slab * G + static_cast<int>(threadIdx.x) % G;
+  if (y >= H || x >= W || c >= C) return;
+  const int q = y * W + x;
+  const int* s = start + frame * (P + 1);
+  const int2* e = entries + frame * 4 * P;
+  const float* gb = g + frame * P * C + c;
+  float acc = 0.0f;
+  const int hi = s[q + 1];
+#pragma unroll 4
+  for (int k = s[q]; k < hi; ++k) {
+    const int2 ent = __ldg(e + k);
+    acc = fmaf(__int_as_float(ent.y),
+               __ldg(gb + static_cast<long long>(ent.x) * C), acc);
+  }
+  dfeat[(frame * P + q) * C + c] = acc;
+}
+
+template <int G>
+void launch_gather_scalar(const float* g, const Csr& csr, float* dfeat,
+                          int frames, int H, int W, int C,
+                          cudaStream_t stream) {
+  const int tiles_x = (W + kTileX - 1) / kTileX;
+  const int tiles = ((H + kTileY - 1) / kTileY) * tiles_x;
+  const int slabs = (C + G - 1) / G;
+  const long long blocks = static_cast<long long>(frames) * tiles * slabs;
+  dfeat_gather_scalar_kernel<G><<<static_cast<unsigned>(blocks), kTargets * G,
+                                  0, stream>>>(g, csr.start, csr.entries,
+                                               dfeat, H, W, C, tiles_x, tiles,
+                                               slabs);
 }
 
 template <int G, int V>
@@ -379,7 +494,8 @@ dflow_kernel(const float* __restrict__ feat, const float* __restrict__ flow,
 }  // namespace
 
 // flow [frames, H, W, 2], g and dfeat [frames, H, W, C]; all float32,
-// contiguous, 16-byte aligned; C % 4 == 0; scratch int32, 16-byte aligned,
+// contiguous, 16-byte aligned; any C (16-byte accesses where C % 4 == 0,
+// 4-byte ones otherwise); scratch int32, 16-byte aligned,
 // of at least scratch_words words (the CSR; csr_words). dfeat needs no
 // initial value: every element is written once.
 DBSR_EXPORT int dbsr_warp_dfeat_f32(const float* flow, const float* g,
@@ -387,7 +503,7 @@ DBSR_EXPORT int dbsr_warp_dfeat_f32(const float* flow, const float* g,
                                     int H, int W, int C, int scratch_words,
                                     void* stream) {
   const long long P = static_cast<long long>(H) * W;
-  if (C % 4 != 0 || P > INT_MAX / 4
+  if (P > INT_MAX / 4
       || csr_words(frames, P) > static_cast<long long>(scratch_words))
     return static_cast<int>(cudaErrorInvalidValue);
   if (frames == 0 || P == 0 || C == 0) return 0;
@@ -396,17 +512,38 @@ DBSR_EXPORT int dbsr_warp_dfeat_f32(const float* flow, const float* g,
   const long long smem = build_smem_bytes(P);
   if (smem <= kMaxSmem) {
     const cudaError_t err = cudaFuncSetAttribute(  // on the current device
-        dfeat_build_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        dfeat_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    dfeat_build_kernel<true><<<frames, kBuildThreads, smem, st>>>(
-        flow, csr.count, csr.start, csr.entries, H, W);
+    dfeat_build_kernel<<<frames, kBuildThreads, smem, st>>>(
+        flow, csr.start, csr.entries, H, W);
   } else {
-    dfeat_build_kernel<false><<<frames, kBuildThreads, 0, st>>>(
-        flow, csr.count, csr.start, csr.entries, H, W);
+    const long long total = static_cast<long long>(frames) * P;
+    const unsigned blocks =
+        static_cast<unsigned>((total + kThreads - 1) / kThreads);
+    const cudaError_t err = cudaMemsetAsync(
+        csr.count, 0, static_cast<size_t>(total) * sizeof(int), st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    csr_count_kernel<<<blocks, kThreads, 0, st>>>(flow, csr.count, H, W,
+                                                  total);
+    csr_scan_kernel<<<frames, kBuildThreads, 0, st>>>(
+        csr.count, csr.start, static_cast<int>(P));
+    csr_fill_kernel<<<blocks, kThreads, 0, st>>>(
+        flow, csr.count, csr.start, csr.entries, H, W, total);
+    csr_sort_kernel<<<blocks, kThreads, 0, st>>>(
+        csr.start, csr.entries, static_cast<int>(P), total);
   }
   const int c4 = C / 4;
-  if (c4 % 8 == 0)
+  if (C % 4 != 0) {
+    if (C == 1)
+      launch_gather_scalar<1>(g, csr, dfeat, frames, H, W, C, st);
+    else if (C == 2)
+      launch_gather_scalar<2>(g, csr, dfeat, frames, H, W, C, st);
+    else if (C == 3)
+      launch_gather_scalar<4>(g, csr, dfeat, frames, H, W, C, st);
+    else
+      launch_gather_scalar<8>(g, csr, dfeat, frames, H, W, C, st);
+  } else if (c4 % 8 == 0)
     launch_gather_v<8>(g, csr, dfeat, frames, H, W, C, st);
   else if (c4 % 4 == 0)
     launch_gather_v<4>(g, csr, dfeat, frames, H, W, C, st);

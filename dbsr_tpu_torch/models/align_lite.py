@@ -12,7 +12,8 @@ volume, whose backward kernels the card launches.
 
 ``BurstAlignLite(burst) -> flow [B, N-1, h, w, 2]`` is the standalone
 wrapper that pretraining trains; its checkpoint grafts into
-``DBSRNet.encoder.alignment_net``.
+``DBSRNet.encoder.alignment_net``. ``coarse_to_fine_flow`` applies the net
+across image scales, as SCA does on full-RGB images (``models/sca.py``).
 """
 
 from __future__ import annotations
@@ -205,3 +206,32 @@ class BurstAlignLite(nn.Module):
             return flow.reshape((B, N - 1) + flow.shape[-3:]), aux
         flow = self.alignment_net(oth, rgb[:, 0], target_repeat=N - 1)
         return flow.reshape((B, N - 1) + flow.shape[-3:])
+
+
+def coarse_to_fine_flow(apply_fn, source, target, scales=(4, 1)):
+    """Apply a short-range flow net coarse to fine across image scales.
+
+    AlignLite is trained at the burst's packed pitch (48x48 frames); on
+    SCA's full-RGB images (640^2 BurstSR predictions against their ground
+    truth) it underestimates large displacements. The first scale (1/4)
+    puts the displacement and the content's pitch near its training
+    regime; each finer pass estimates the residual against the source
+    backwarped by the flow so far (``ops/interp.backwarp``, the warp
+    kernel on the card), and the flows add.
+
+    ``apply_fn(source, target) -> flow`` at any size of multiples of 4;
+    ``scales`` are downscale factors, coarsest first, each dividing the
+    input's size. Returns the full-resolution flow in input pixels."""
+    H, W = source.shape[-3], source.shape[-2]
+    flow = None
+    for s in scales:
+        hw = (H // s, W // s)
+        src = source if s == 1 else resize_bilinear(source, hw)
+        tgt = target if s == 1 else resize_bilinear(target, hw)
+        if flow is None:
+            flow = resize_bilinear(apply_fn(src, tgt), (H, W)) * float(s)
+        else:
+            flow_s = resize_bilinear(flow, hw) / float(s)
+            residual = apply_fn(backwarp(src, flow_s), tgt)
+            flow = flow + resize_bilinear(residual, (H, W)) * float(s)
+    return flow

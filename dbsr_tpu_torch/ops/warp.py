@@ -137,17 +137,19 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _launch_checks(op: str, *tensors: torch.Tensor) -> Tuple[int, ...]:
+def _launch_checks(op: str, *tensors: torch.Tensor,
+                   any_c: bool = True) -> Tuple[int, ...]:
     kernels.require_cuda_f32(op, *tensors)
     B, H, W, C = tensors[0].shape
-    if C % 4:
+    if not any_c and C % 4:
         raise ValueError(f"{op}: kernel takes C % 4 == 0, got C={C}")
     return B, H, W, C
 
 
 def warp_forward(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """The forward alone, no autograd: the kernel for CUDA tensors
-    (float32, contiguous, C % 4 == 0), the plain version for CPU ones."""
+    (float32, contiguous, any C: 16-byte accesses where C % 4 == 0, 4-byte
+    ones otherwise), the plain version for CPU ones."""
     _check("warp_feat", feat, flow)
     if _on_cpu(feat, flow):
         return warp_feat_plain(feat, flow)
@@ -168,7 +170,8 @@ def _dfeat_scratch_words(frames: int, P: int) -> int:
 def warp_dfeat(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """d_feat of the warp for the output gradient ``g`` ``[B, H, W, C]``:
     the kernel (a gather over the transposed taps, bit-identical from call
-    to call) for CUDA tensors, the plain scatter-add for CPU ones."""
+    to call; any C, 4-byte accesses where C % 4 != 0) for CUDA tensors, the
+    plain scatter-add for CPU ones."""
     _check("warp_dfeat", g, flow)
     if _on_cpu(flow, g):
         return warp_dfeat_plain(flow, g)
@@ -185,14 +188,15 @@ def warp_dfeat(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def warp_dflow(feat: torch.Tensor, flow: torch.Tensor,
                g: torch.Tensor) -> torch.Tensor:
     """d_flow of the warp ``[B, H, W, 2]``: the kernel (one warp per output
-    pixel) for CUDA tensors, the plain version for CPU ones."""
+    pixel; C % 4 == 0 only, no path warps a flow-trained image of other
+    widths) for CUDA tensors, the plain version for CPU ones."""
     _check("warp_dflow", feat, flow)
     if g.shape != feat.shape:
         raise ValueError(f"warp_dflow: g {tuple(g.shape)} vs feat "
                          f"{tuple(feat.shape)}")
     if _on_cpu(feat, flow, g):
         return warp_dflow_plain(feat, flow, g)
-    B, H, W, C = _launch_checks("warp_dflow", feat, g, flow)
+    B, H, W, C = _launch_checks("warp_dflow", feat, g, flow, any_c=False)
     out = torch.empty_like(flow)
     kernels.launch("warp_bwd", "dbsr_warp_dflow_f32", (feat, flow, g, out),
                    (B, H, W, C))
@@ -220,7 +224,8 @@ class _Warp(torch.autograd.Function):
 def warp_feat(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Backward-warp ``feat`` ``[B, H, W, C]`` by ``flow`` ``[B, H, W, 2]``,
     differentiable in both: the CUDA kernels for CUDA tensors (float32,
-    contiguous, C % 4 == 0), the plain versions for CPU tensors."""
+    contiguous; any C, but d_flow only for C % 4 == 0), the plain versions
+    for CPU tensors."""
     return _Warp.apply(feat, flow)
 
 

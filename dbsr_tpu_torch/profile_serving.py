@@ -34,8 +34,11 @@ from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, load_predictor
 
 BATCH, FORWARDS = 8, 3
 OWN_KERNELS = ("warp_kernel", "correlation_kernel", "merge_kernel",
-               "resample_kernel", "dfeat_build_kernel", "dfeat_gather_kernel",
-               "dflow_kernel", "merge_bwd_kernel", "correlation_bwd_kernel",
+               "resample_kernel", "dfeat_build_kernel", "csr_count_kernel",
+               "csr_scan_kernel", "csr_fill_kernel", "csr_sort_kernel",
+               "dfeat_gather_kernel", "dfeat_gather_scalar_kernel",
+               "dflow_kernel",
+               "merge_bwd_kernel", "correlation_bwd_kernel",
                "conv_s2d_kernel")
 DECODERS = ("s2d_dense", "s2d_kernel", "fine")
 

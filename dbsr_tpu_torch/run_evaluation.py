@@ -3,13 +3,17 @@
 
     python -m dbsr_tpu_torch.run_evaluation synburst compute_score <experiment> [opts]
     python -m dbsr_tpu_torch.run_evaluation synburst save_results <experiment> [opts]
+    python -m dbsr_tpu_torch.run_evaluation burstsr compute_score <experiment> [opts]
+    python -m dbsr_tpu_torch.run_evaluation burstsr save_results <experiment> [opts]
 
 ``<experiment>`` names a module of ``dbsr_tpu_torch/evaluation/experiments``
 whose ``main()`` returns the ``NetworkParam`` list. The val set is
 ``--dataset_root`` or the environment's ``synburstval_dir``
-(``DBSR_TPU_SYNBURSTVAL_DIR``); the workspace is ``DBSR_TPU_WORKSPACE_DIR``.
-It runs on the card (``--device cuda``, the default; no card raises)
-unless asked for the CPU. Networks are scored in float32.
+(``DBSR_TPU_SYNBURSTVAL_DIR``) for ``synburst``, its ``burstsr_dir``
+(``DBSR_TPU_BURSTSR_DIR``, a BurstSR-format tree) for ``burstsr``; the
+workspace is ``DBSR_TPU_WORKSPACE_DIR``. It runs on the card (``--device
+cuda``, the default; no card raises) unless asked for the CPU. Networks
+are scored in float32.
 """
 
 from __future__ import annotations
@@ -80,17 +84,13 @@ def main(argv=None):
                     f"got {args.epochs!r}")
         if not epochs:
             p.error("--epochs must name at least one epoch")
-    if args.benchmark == "burstsr":
-        raise NotImplementedError(
-            "burstsr: the port has no BurstSR benchmark yet; it needs "
-            "PWC-Net and SCA (ROADMAP.md, Queue 1 item 10)")
     if args.action == "visualize":
         raise NotImplementedError(
             "visualize: not ported yet (ROADMAP.md, Queue 1 item 11)")
 
     from dbsr_tpu_torch import resolve_device
     from dbsr_tpu_torch.environment import env_settings
-    from dbsr_tpu_torch.evaluation import synburst as ev
+    from dbsr_tpu_torch.evaluation import burstsr, synburst
 
     dev = resolve_device(args.device)
     env = env_settings()
@@ -99,24 +99,37 @@ def main(argv=None):
     print(f"[timing] process init (imports + env) "
           f"{time.perf_counter() - _T0:.1f}s", flush=True)
 
-    root = args.dataset_root or env.synburstval_dir
     scores = None
-    if args.action == "compute_score" and args.all_epochs:
+    if args.benchmark == "burstsr":
+        root = args.dataset_root or env.burstsr_dir
+        if args.action == "compute_score":
+            scores = burstsr.compute_score(
+                network_params, root, workspace_dir=workspace,
+                with_lpips=not args.no_lpips, max_bursts=args.max_bursts,
+                device=dev)
+        else:
+            out = args.out_dir or os.path.join(workspace, "burstsr_results")
+            burstsr.save_results(network_params, root, out,
+                                 workspace_dir=workspace, device=dev)
+    elif args.action == "compute_score" and args.all_epochs:
+        root = args.dataset_root or env.synburstval_dir
         n0 = network_params[0]
-        scores = ev.compute_score_trajectory(
+        scores = synburst.compute_score_trajectory(
             n0.module, n0.parameter, root, workspace_dir=workspace,
             net_name=n0.net_name, burst_sz=n0.burst_sz,
             epochs=epochs, max_bursts=args.max_bursts, device=dev)
     elif args.action == "compute_score":
-        scores = ev.compute_score(
+        root = args.dataset_root or env.synburstval_dir
+        scores = synburst.compute_score(
             network_params, root, workspace_dir=workspace,
             saved_results_root=(args.out_dir if args.load_saved else None),
             with_lpips=not args.no_lpips, max_bursts=args.max_bursts,
             device=dev)
     else:
+        root = args.dataset_root or env.synburstval_dir
         out = args.out_dir or os.path.join(workspace, "synburst_results")
-        ev.save_results(network_params, root, out, workspace_dir=workspace,
-                        device=dev)
+        synburst.save_results(network_params, root, out,
+                              workspace_dir=workspace, device=dev)
 
     if args.json and scores is not None:
         with open(args.json, "w") as f:

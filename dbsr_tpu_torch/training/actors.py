@@ -1,9 +1,9 @@
 """Actors: loss and stats of a network on a batch (port of
-``dbsr_tpu/training/actors.py:19-156``)."""
+``dbsr_tpu/training/actors.py``)."""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -125,6 +125,35 @@ def make_flow_actor(net: torch.nn.Module) -> Callable:
             epe = end_point_error(pred.float() - gt)
             stats = {"Loss/total": loss.detach(), "Stat/epe": epe.mean(),
                      "Stat/acc_0.5px": (epe < 0.5).float().mean()}
+        return loss, stats
+
+    return actor
+
+
+def make_realworld_actor(net: torch.nn.Module, sca_apply: Callable,
+                         loss_weight: float = 10.0,
+                         boundary_ignore: Optional[int] = None,
+                         metric: str = "l1") -> Callable:
+    """``actor(batch) -> (loss, stats)`` on real bursts: the prediction is
+    aligned to the DSLR ground truth in space and colour first
+    (``sca_apply(pred, gt, burst) -> (pred_warped, valid)``,
+    ``models/sca.py``), then ``loss = loss_weight * pixel_error`` masked by
+    ``valid``; stats ``Loss/total``, ``Loss/rgb`` and the masked
+    ``Stat/psnr``."""
+
+    def actor(batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        pred, _ = net(batch["burst"])
+        gt = batch["frame_gt"]
+        pred_warped, valid = sca_apply(pred, gt, batch["burst"])
+        loss_rgb = metrics.pixel_error(pred_warped, gt, metric,
+                                       boundary_ignore=boundary_ignore,
+                                       valid=valid)
+        loss = loss_weight * loss_rgb
+        with torch.no_grad():
+            psnr = metrics.psnr(pred_warped, gt,
+                                boundary_ignore=boundary_ignore, valid=valid)
+        stats = {"Loss/total": loss.detach(), "Loss/rgb": loss_rgb.detach(),
+                 "Stat/psnr": psnr}
         return loss, stats
 
     return actor

@@ -207,3 +207,22 @@ def test_gather_model_matches_plain_and_pallas(kind):
     for order in (np.arange(P)[::-1], rng.permutation(P)):
         assert np.array_equal(model_dfeat(flow, g, order).view(np.uint32),
                               got.view(np.uint32))
+
+
+@pytest.mark.parametrize("channels", [1, 3, 5])
+def test_gather_model_at_c_not_a_multiple_of_4(channels):
+    """The kernel's path for C % 4 != 0 (SCA's 3-channel warp) gathers one
+    channel a thread in the same bucket order: the model at C in {1, 3, 5}
+    against the plain version, and the same bits from any fill order."""
+    rng = np.random.RandomState(31)
+    shape = SHAPE[:3] + (channels,)
+    f = (rng.rand(*shape[:3], 2) * 16 - 8).astype(np.float32)
+    f[:, ::3] = np.round(f[:, ::3])
+    g = rng.randn(*shape).astype(np.float32)
+    got = model_dfeat(f, g)
+    plain = warp_dfeat_plain(torch.from_numpy(f), torch.from_numpy(g)).numpy()
+    np.testing.assert_allclose(got, plain, rtol=RTOL, atol=ATOL)
+    P = shape[1] * shape[2]
+    assert np.array_equal(
+        model_dfeat(f, g, rng.permutation(P)).view(np.uint32),
+        got.view(np.uint32))

@@ -636,10 +636,13 @@ def test_cli_refuses_what_the_jax_cli_refuses(argv, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["burstsr", "compute_score", "dbsr_default"], "Queue 1 item 10"),
+    (["burstsr", "visualize", "dbsr_default"], "Queue 1 item 11"),
     (["synburst", "visualize", "dbsr_default"], "Queue 1 item 11"),
 ])
 def test_cli_refuses_what_is_not_ported(argv, match):
+    """``visualize`` is not ported; ``burstsr compute_score`` and
+    ``save_results`` are (``tests/test_torch_port_burstsr.py`` scores a
+    tree through the CLI)."""
     with pytest.raises(NotImplementedError, match=match):
         run_evaluation.main([*argv, "--device", "cpu"])
 
