@@ -8,6 +8,10 @@ result line):
 Phases 4-9 pin the decoder at fine resolution (``fused_s2d=False``,
 ``fused_s2d_decoder=False``), so that their numbers stay comparable with
 the earlier runs; phase 10 drives the s2d decoder, the entry points'
+default. Phases 1-13 run float32: where an entry point would take the
+banked checkpoints' recorded bf16 (``load_predictor``, the eval entries)
+they ask for float32 (``dtype=None``, or a float32 copy of the checkpoint
+for a ``NetworkParam``, ``float32_copy``); phase 14 drives the bf16
 default.
 
 1. environment: torch / CUDA versions, the card's name and power limit;
@@ -175,9 +179,8 @@ default.
     flagship and r3d over the val tree (80-px crops, 640^2 ground truth,
     boundary 40) with exact launches per burst (warp 10, correlation 9,
     merge 1; r3d 11, 10, 1), ms per burst by part (forward, SCA, metrics,
-    reader) and peak memory, ``run_evaluation burstsr compute_score
-    dbsr_zoo --json`` (its ``main``) equal to the API within 1e-6, the
-    first 2 bursts' scores card vs CPU (5e-3 dB, 5e-5); (d)
+    reader) and peak memory, the first 2 bursts' scores card vs CPU (5e-3
+    dB, 5e-5); (d)
     ``save_results`` of the flagship, every PNG equal to the live
     quantised prediction; (e) ``run_training("dbsr", "default_realworld")``
     from the banked flagship placed as ``default_synthetic``'s checkpoint:
@@ -188,23 +191,56 @@ default.
     on one side only, or whose SCA masks differ, is left for the next
     seed); the B=12 step's time, peak memory and profile.
 
+14. bf16, the JAX package's serving and scoring dtype (the banked
+    checkpoints record it): (a, run beside phase 3) the four kernels on
+    bf16's path (warp,
+    cost volume, merge, s2d conv) against their plain bf16 versions at the
+    serving forward's shapes (AlignLite's, PWC-Net's 1x1-16x16 planes, the
+    decoder's 8 x 192^2 x 128): at least 99.9% of the outputs bit-equal,
+    none more than one bf16 ulp away (at the output's magnitude, floored at
+    2^-8 of its terms': the same op on the inputs' absolute values), the
+    same bits on a second call; timed and bounded at bf16 bytes, beside
+    ``F.grid_sample`` and the structured-dense ``F.conv2d`` in bf16;
+    (b) ``load_predictor`` with its bf16 default at batch 8: the flagship in
+    its three decoder forms and r3d, three requests with exact launches
+    (warp 3, correlation 3, merge 1; r3d 5, 5, 1; the s2d conv 8 with the
+    switch), bursts/s, forward ms, peak memory, the card's forward against
+    the CPU's bf16 one (relative L2 within 2e-2) and no farther from the
+    card's float32 one than twice the CPU's bf16 forward is; every conv
+    layer of the card's bf16 forward against the same layer on the CPU
+    from the card's own input to it (bf16 out, at least 99% of the outputs
+    bit-equal), and each stage (aligner, encoder, merge, decoder) likewise,
+    beside the CPU's bf16-vs-float32 distance there (recorded); (c)
+    ``compute_score`` of the zoo's three models at their recorded bf16 on
+    phase 11's 300 bursts (exact launches, dB, SSIM, MS-SSIM, ms a burst)
+    beside phase 11's float32 scores and the JAX package's bf16 ones, the
+    first 2 bursts card vs CPU (0.05 dB, 5e-4), ``run_evaluation synburst
+    compute_score dbsr_zoo --max_bursts 16 --json`` equal to the API
+    within 1e-6; the flagship's BurstSR scoring at bf16 on phase 13's tree
+    and ``run_evaluation burstsr compute_score dbsr_zoo --json`` (its
+    ``main``, bf16) equal to the API within 1e-6.
+
 The second-to-last line is ``{"kernels": [...]}`` (all ten kernels;
 ``launches`` is the count on the entry's own ``path``, whose shapes its
 times are summed over, except the s2d conv's, whose times are one launch's
 and whose path launches it 8 times per forward; ``launches_by_path`` has
-the counts on all fifteen paths (``eval``: phase 11's generation and
+the counts on all nineteen paths (``eval``: phase 11's generation and
 flagship scoring; ``eval_r3d``, ``serving_r3d_3_requests`` and the
 ``pwc_*_step`` paths: PWC-Net's; ``burstsr_eval`` and
 ``burstsr_eval_r3d``: phase 13c's scoring of 3 bursts; ``realworld_step``:
-per ``default_realworld`` step); ``device_ms``, ``kernel_device_ms`` and
-``library_device_ms`` beside ``ms`` and ``library_ms``; the s2d conv's
-``bound_ms`` is that of its own math, 3xTF32 on the tensor cores, also
-given as ``tc_bound_ms``, and ``ffma_bound_ms`` is the same work's bound
-on the float32 FMA units); the last line is ``{"ok": true, "device":
+per ``default_realworld`` step; the ``*_bf16*`` paths: phase 14's);
+``device_ms``, ``kernel_device_ms`` and ``library_device_ms`` beside
+``ms`` and ``library_ms``; the s2d conv's ``bound_ms`` is that of its own
+math, 3xTF32 on the tensor cores, also given as ``tc_bound_ms``, and
+``ffma_bound_ms`` is the same work's bound on the float32 FMA units;
+``dtypes`` names the types the entry's checks covered, and the four with
+a bf16 path carry its rows and sums under ``bf16``, with its launches on
+``serving_bf16_3_requests``); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -224,14 +260,18 @@ import torch.nn.functional as F
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
 TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 tensor-core rate (dense)
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor-core rate (dense)
 # the CUDA kernels each entry's wrapper launches, as the profiler names
-# them (warp_dfeat's call builds its CSR of the transposed taps, in one
+# them (the bf16 merge and s2d conv are kernels of their own; the warp and
+# the cost volume templates; warp_dfeat's call builds its CSR of the
+# transposed taps, in one
 # kernel or, for large planes, four, then gathers; its kernel_device_ms is
 # them all summed; d_first and d_second are
 # one template, correlation_bwd_kernel<kShifted, kVec>)
 KERNEL_NAMES = {"warp": ("warp_kernel",),
                 "correlation": ("correlation_kernel",),
-                "merge": ("merge_kernel",), "resample": ("resample_kernel",),
+                "merge": ("merge_kernel", "merge_bf16_kernel"),
+                "resample": ("resample_kernel",),
                 "warp_dfeat": ("dfeat_build_kernel", "csr_count_kernel",
                                "csr_scan_kernel", "csr_fill_kernel",
                                "csr_sort_kernel", "dfeat_gather_kernel",
@@ -240,7 +280,7 @@ KERNEL_NAMES = {"warp": ("warp_kernel",),
                 "merge_backward": ("merge_bwd_kernel",),
                 "correlation_dfirst": ("correlation_bwd_kernel<false",),
                 "correlation_dsecond": ("correlation_bwd_kernel<true",),
-                "conv_s2d": ("conv_s2d_kernel",)}
+                "conv_s2d": ("conv_s2d_kernel", "conv_s2d_bf16_kernel")}
 CALL_GAP_S = 0.005  # idle time between the profiled calls of device_ms
 HOST_CALLS = 200    # calls of the host-cost loop
 B, N, HW = 8, 14, 48
@@ -309,7 +349,7 @@ FINE_PATCH_ENV = "DBSR_FINE_PATCH_S2D"  # the fine-patch s2d conv's switch
 EVAL_PROCEDURAL, EVAL_BURSTS, EVAL_SEED = 150, 300, 20260817
 EVAL_BATCH, EVAL_BOUNDARY = 8, 40
 EVAL_CPU_BURSTS = 2      # bursts of the card-vs-CPU comparison (11c)
-EVAL_CLI_BURSTS = 16     # bursts of each CLI run (11e)
+EVAL_CLI_BURSTS = 16     # bursts of each CLI run (11e, 14c)
 EVAL_PSNR_TOL, EVAL_SSIM_TOL = 5e-3, 5e-5   # dB; SSIM and MS-SSIM
 EVAL_SAVED_TOL = 1e-6    # saved vs live, CLI vs API: the same computation
 R4MIX_CHECKPOINT = os.path.join(
@@ -382,6 +422,24 @@ LAUNCHES_PER_RW_PWC_BURST = {k: v + LAUNCHES_PER_SCA_PWC.get(k, 0)
 LAUNCHES_PER_RW_STEP = dict(LAUNCHES_PER_TRAIN_STEP, resample=0,
                             **LAUNCHES_PER_RW_LITE_BURST, warp_dfeat=2)
 RW_MASK_TOL = 1e-3       # share of pixels whose SCA mask may differ (13b)
+# phase 14, bf16: a kernel against its plain bf16 version (the share of
+# outputs bit-equal, the most bf16 ulps any other may be off); the card's
+# bf16 forward against the CPU's (relative L2,
+# util_scripts/tpu_parity_check.py's bf16 limit); bf16 scores per burst,
+# card vs CPU (dB; SSIM and MS-SSIM: the limit of the port's bf16 against
+# JAX's, tests/test_torch_port_bf16_scores.py)
+BF16_BIT_EQUAL, BF16_MAX_ULPS = 0.999, 1.0
+BF16_REL_L2 = 2e-2
+# 14b, layer by layer: every conv layer of the bf16 forward run on the CPU
+# from the card's own input to it, the share of its outputs bit-equal to
+# the card's (the order of a float32 sum flips a rounding now and then:
+# 99.89% the least measured; a conv that rounds at other points, as a bias
+# added before the rounding does, under 90%: tests/test_torch_port_bf16.py);
+# the stages, recorded
+BF16_LAYER_BIT_EQUAL = 0.99
+BF16_STAGES = ("encoder.alignment_net", "encoder.embed", "merging",
+               "decoder")
+BF16_PSNR_TOL, BF16_SSIM_TOL = 0.05, 5e-4
 
 def log(*a):
     print(*a, flush=True)
@@ -1791,8 +1849,12 @@ def determinism_phase(dev, trainer):
     if out["b16"]["nearest_loss"] is not None:
         name = out["b16"]["nearest_loss"].rsplit(".", 1)[0]
         conv, shapes = trainer.net.get_submodule(name), []
-        hook = conv.register_forward_hook(
-            lambda m, i, o: shapes.append(tuple(i[0].shape)))
+        # the conv's owner (a ConvBlock or PixShuffleUpsampler) hands it
+        # its channels-last input as NCHW
+        owner = trainer.net.get_submodule(name.rsplit(".", 1)[0])
+        hook = owner.register_forward_hook(
+            lambda m, i, o: shapes.append(tuple(i[0].permute(0, 3, 1, 2)
+                                                .shape)))
         with torch.no_grad(), float32_math():
             trainer.actor_fn(b1)
         hook.remove()
@@ -2317,7 +2379,7 @@ def s2d_phase(dev, requests):
         with fine_patch(on):
             pred = load_predictor(FLAGSHIP_CHECKPOINT, batch_size=B,
                                   burst_size=N, burst_hw=(HW, HW),
-                                  device="cuda", **kwargs)
+                                  device="cuda", dtype=None, **kwargs)
             if pred.net.decoder.s2d != (form != "fine"):
                 raise AssertionError(f"{form}: decoder s2d "
                                      f"{pred.net.decoder.s2d}")
@@ -2446,13 +2508,32 @@ def _banked_score(ckpt):
     return epoch, found and (found["psnr"], found["ssim"])
 
 
-def card_vs_cpu_scores(root, ckpt, n_bursts):
-    """Phase 11c: the per-burst scores of the first ``n_bursts`` bursts on
-    the card (kernels) and on the CPU (plain versions), the same checkpoint
-    and the same fused forward-quantize-score function."""
+def float32_copy(ckpt, workdir):
+    """A copy of ``ckpt`` under ``workdir`` whose header records no compute
+    dtype: the float32 net, which the eval entries build from it (they
+    build the dtype a checkpoint records, bf16 for the banked ones)."""
+    from dbsr_tpu_torch.training.checkpoint import (read_checkpoint,
+                                                    write_checkpoint)
+
+    path = os.path.join(workdir, "float32", os.path.basename(ckpt))
+    if not os.path.exists(path):
+        header, tree = read_checkpoint(ckpt)
+        header["net_spec"]["kwargs"]["dtype"] = None
+        write_checkpoint(path, header, tree)
+    return path
+
+
+def card_vs_cpu_scores(root, ckpt, n_bursts,
+                       tols=(EVAL_PSNR_TOL, EVAL_SSIM_TOL)):
+    """Phases 11c and 14c: the per-burst scores of the first ``n_bursts``
+    bursts on the card (kernels) and on the CPU (plain versions), the same
+    checkpoint (at the dtype it records) and the same fused
+    forward-quantize-score function, within ``tols`` (dB; SSIM and
+    MS-SSIM)."""
     from dbsr_tpu_torch.data.datasets import SyntheticBurstVal
     from dbsr_tpu_torch.evaluation import synburst
     from dbsr_tpu_torch.evaluation.network_param import NetworkParam
+    from dbsr_tpu_torch.models.layers import compute_dtype_of
 
     ds = SyntheticBurstVal(root)
     bursts = synburst._host_u16(np.stack([ds[i][0] for i in range(n_bursts)]))
@@ -2460,6 +2541,7 @@ def card_vs_cpu_scores(root, ckpt, n_bursts):
     per_burst = {}
     for device in ("cuda", "cpu"):
         net, _ = NetworkParam(checkpoint_path=ckpt).load_net("", device)
+        dtype = compute_dtype_of(net) or torch.float32
         fn = synburst._scored_forward_fn(
             net, synburst._make_score_batch(EVAL_BOUNDARY, True))
         s = fn(torch.from_numpy(bursts).to(device),
@@ -2467,9 +2549,9 @@ def card_vs_cpu_scores(root, ckpt, n_bursts):
         per_burst[device] = {m: {str(i): float(v[i]) for i in
                                  range(n_bursts)} for m, v in s.items()}
         del net
-    worst = _scores_close(f"card vs CPU, per burst, first {n_bursts} bursts",
-                          per_burst["cuda"], per_burst["cpu"],
-                          EVAL_PSNR_TOL, EVAL_SSIM_TOL)
+    worst = _scores_close(f"card vs CPU, per burst, first {n_bursts} bursts"
+                          f" ({str(dtype).replace('torch.', '')})",
+                          per_burst["cuda"], per_burst["cpu"], *tols)
     return dict(per_burst=per_burst, max_abs=worst)
 
 
@@ -2524,10 +2606,12 @@ def eval_phase(workdir, train_workspace):
     out["generate"] = dict(wall_s=gen_s, ms_per_burst=gen_s * 1e3 / n_bursts,
                            launches=gen_launches)
 
-    # (b) the zoo's three networks, through the API
-    nets = [NetworkParam(checkpoint_path=c, display_name=os.path.basename(
-        c).replace("_best_params.ckpt", ""))
-        for c in (FLAGSHIP_CHECKPOINT, R4MIX_CHECKPOINT, R3D_CHECKPOINT)]
+    # (b) the zoo's three networks, through the API, on float32 copies
+    banked = {os.path.basename(c).replace("_best_params.ckpt", ""): c
+              for c in (FLAGSHIP_CHECKPOINT, R4MIX_CHECKPOINT,
+                        R3D_CHECKPOINT)}
+    nets = [NetworkParam(checkpoint_path=float32_copy(c, workdir),
+                         display_name=name) for name, c in banked.items()]
     flagship = nets[:1]
     with contextlib.redirect_stdout(io.StringIO()):  # cuDNN's first calls
         synburst.compute_score(flagship, root, with_lpips=False,
@@ -2535,7 +2619,7 @@ def eval_phase(workdir, train_workspace):
     scores, runs = {}, {}
     for n in nets:
         name = n.get_display_name()
-        pwc = n.checkpoint_path == R3D_CHECKPOINT
+        pwc = banked[name] == R3D_CHECKPOINT
         s, runs[name] = _scored(f"compute_score {name}, {n_bursts} bursts, "
                                 f"batch {EVAL_BATCH}", [n], root,
                                 LAUNCHES_PER_PWC_FORWARD if pwc
@@ -2544,20 +2628,20 @@ def eval_phase(workdir, train_workspace):
             scores.setdefault(m, {}).update(v)
         if not all(math.isfinite(v[name]) for v in s.values()):
             raise AssertionError(f"{name}: scores not finite: {s}")
-        epoch, banked = _banked_score(n.checkpoint_path)
+        epoch, jax_score = _banked_score(banked[name])
         log(f"{name} (epoch {epoch}, float32): PSNR {s['psnr'][name]:.4f} "
             f"dB, SSIM {s['ssim'][name]:.4f}, MS-SSIM "
             f"{s['msssim'][name]:.4f}; the JAX package's bf16 score of this "
-            f"epoch on its own val set (context, not a limit): {banked}")
+            f"epoch on its own val set (context, not a limit): {jax_score}")
         torch.cuda.empty_cache()
     out["scores"] = scores
     out["runs"] = runs
 
     # (c) card against CPU, per burst
-    out["card_vs_cpu"] = card_vs_cpu_scores(root, FLAGSHIP_CHECKPOINT,
-                                            EVAL_CPU_BURSTS)
-    out["card_vs_cpu_r3d"] = card_vs_cpu_scores(root, R3D_CHECKPOINT,
-                                                EVAL_CPU_BURSTS)
+    out["card_vs_cpu"] = card_vs_cpu_scores(
+        root, float32_copy(FLAGSHIP_CHECKPOINT, workdir), EVAL_CPU_BURSTS)
+    out["card_vs_cpu_r3d"] = card_vs_cpu_scores(
+        root, float32_copy(R3D_CHECKPOINT, workdir), EVAL_CPU_BURSTS)
     torch.cuda.empty_cache()
 
     # (d) saved predictions rescored
@@ -2760,7 +2844,7 @@ def pwc_phase(dev, requests, workdir):
     out, paths = {}, {}
     t0 = time.perf_counter()
     pred = load_predictor(R3D_CHECKPOINT, batch_size=B, burst_size=N,
-                          burst_hw=(HW, HW), device="cuda")
+                          burst_hw=(HW, HW), device="cuda", dtype=None)
     if not (pred.net.decoder.s2d
             and isinstance(pred.net.encoder.alignment_net, PWCNet)):
         raise AssertionError("r3d was not rebuilt with PWC-Net and its s2d "
@@ -2882,13 +2966,12 @@ def sca_recovery_phase(root):
 
 
 def burstsr_score_phase(root, nets):
-    """Phase 13c: ``evaluation.burstsr.compute_score`` of each network of
-    ``nets`` ((NetworkParam, per-burst launches)) over the val tree, the
-    launch counters reset just before and read just after (exact), ms per
-    burst by part, peak memory; then ``run_evaluation burstsr
-    compute_score dbsr_zoo`` (its ``main``), equal to the API within
-    EVAL_SAVED_TOL. Each network scores one burst first, untimed."""
-    from dbsr_tpu_torch import run_evaluation
+    """Phases 13c and 14c: ``evaluation.burstsr.compute_score`` of each
+    network of ``nets`` ((NetworkParam, per-burst launches)) over the val
+    tree, the launch counters reset just before and read just after
+    (exact), ms per burst by part, peak memory. Each network scores one
+    burst first, untimed. Returns ``({name: numbers}, {name: launches},
+    {metric: {name: score}})``."""
     from dbsr_tpu_torch.evaluation import burstsr as ev
 
     scores, out, paths = {}, {}, {}
@@ -2936,6 +3019,16 @@ def burstsr_score_phase(root, nets):
             f"{out[name]['metrics_ms_per_burst']:.2f} ms (CUDA events), "
             f"reader {out[name]['reader_ms_per_burst']:.2f} ms; peak "
             f"{peak:.2f} GiB; launches {launches}")
+    return out, paths, scores
+
+
+def burstsr_cli_vs_api(root, scores):
+    """Phase 14c: ``run_evaluation burstsr compute_score dbsr_zoo`` (its
+    ``main``, the zoo at the dtype its checkpoints record), equal to the
+    API's ``scores`` of the same networks in the same call order within
+    EVAL_SAVED_TOL."""
+    from dbsr_tpu_torch import run_evaluation
+
     path = os.path.join(os.environ["DBSR_TPU_WORKSPACE_DIR"], "rw_cli.json")
     buf = io.StringIO()
     t0 = time.perf_counter()
@@ -2953,7 +3046,7 @@ def burstsr_score_phase(root, nets):
                                                      scores[m]}
                                                  for m in scores},
                           scores, EVAL_SAVED_TOL, EVAL_SAVED_TOL)
-    return dict(nets=out, cli=cli, cli_vs_api=worst), paths
+    return dict(cli=cli, cli_vs_api=worst)
 
 
 def burstsr_card_vs_cpu(root, nets):
@@ -3142,11 +3235,14 @@ def realworld_phase(dev, workdir):
     out["sca_recovery"] = sca_recovery_phase(root)
     torch.cuda.empty_cache()
 
-    # (c) scoring: the flagship (AlignLite) and r3d (PWC-Net)
-    zoo = {n.get_display_name(): n for n in dbsr_zoo.main()}
+    # (c) scoring: the flagship (AlignLite) and r3d (PWC-Net), in float32
+    zoo = {n.get_display_name(): dataclasses.replace(
+        n, checkpoint_path=float32_copy(n.checkpoint_path, workdir))
+        for n in dbsr_zoo.main()}
     nets = ((zoo["dbsr_campaign_r5"], LAUNCHES_PER_RW_LITE_BURST),
             (zoo["dbsr_campaign_r3d"], LAUNCHES_PER_RW_PWC_BURST))
-    out["scores"], by_net = burstsr_score_phase(root, nets)
+    scored, by_net, _ = burstsr_score_phase(root, nets)
+    out["scores"] = dict(nets=scored)
     paths["burstsr_eval"] = by_net["dbsr_campaign_r5"]
     paths["burstsr_eval_r3d"] = by_net["dbsr_campaign_r3d"]
     torch.cuda.empty_cache()
@@ -3196,6 +3292,486 @@ def realworld_phase(dev, workdir):
     del trainer, state
     torch.cuda.empty_cache()
     return out, paths
+
+# ---------------------------------------------------------------------------
+# phase 14: bf16
+
+
+def bf16_ulps(got, want, scale):
+    """|got - want| in bf16 ulps at max(|want|, 2^-8 |scale|): bf16's
+    spacing at the output's magnitude, floored where cancellation leaves
+    the last bits to the float32 sum's rounding (``scale``: the same op on
+    the inputs' absolute values, the magnitude of the output's terms)."""
+    mag = torch.maximum(want.float().abs(), scale.float().abs() * 2.0 ** -8)
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(2.0 ** -126))) - 7)
+    return (got.float() - want.float()).abs() / ulp
+
+
+def check_bf16(name, fn, plain, scale_fn):
+    """A bf16 kernel call ``fn()`` against its plain version ``plain()``:
+    at least BF16_BIT_EQUAL of the outputs bit-equal, none more than
+    BF16_MAX_ULPS off (``bf16_ulps``), the same bits from a second call."""
+    got, again, want = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    if got.dtype != torch.bfloat16 or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)} vs "
+                             f"{want.dtype} {tuple(want.shape)}")
+    equal = (got == want).float().mean().item()
+    ulps = bf16_ulps(got, want, scale_fn()).max().item()
+    repeat = torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"  {name}: bit-equal to plain {equal:.6f} (limit >= "
+        f"{BF16_BIT_EQUAL}), max {ulps:.3f} bf16 ulps (limit "
+        f"{BF16_MAX_ULPS}), max|diff| {err:.3e}; same bits on a second "
+        f"call: {repeat}")
+    if not (equal >= BF16_BIT_EQUAL and ulps <= BF16_MAX_ULPS and repeat):
+        raise AssertionError(f"{name}: bf16 kernel vs plain: bit-equal "
+                             f"{equal}, {ulps} ulps, repeat {repeat}")
+    return dict(bit_equal_share=equal, max_ulps=ulps, max_abs_err=err,
+                repeat_equal=repeat)
+
+
+def bf16_kernel_phase(dev, g):
+    """Phase 14a: the four kernels of the bf16 forward against their plain
+    bf16 versions at the shapes of the serving forward (B=8, N=14): the
+    warp at the encoder's 512 channels and AlignLite's two backwarps, the
+    cost volume at AlignLite's three levels, the merge, the s2d conv's
+    launch (``per_shape``: one forward's worth, except the s2d conv's one
+    launch of 8), and the warp and cost volume at PWC-Net's 1x1-16x16
+    planes (``pwc_shapes``). Times and bounds as phase 3's, the bytes at
+    bf16 (the flow float32), the operations at the float32 rate (the
+    math is float32), the s2d conv's at the bf16 tensor-core rate; the
+    yardsticks ``F.grid_sample`` and the structured-dense ``F.conv2d`` in
+    bf16 (the grid in bf16 too: its sampling positions rounded)."""
+    from dbsr_tpu_torch.models.layers import s2d_conv_kernel
+    from dbsr_tpu_torch.ops.conv_s2d import (conv3x3_s2d_forward,
+                                             conv3x3_s2d_plain)
+    from dbsr_tpu_torch.ops.correlation import (NUM_OFFSETS,
+                                                correlation_forward,
+                                                correlation_plain)
+    from dbsr_tpu_torch.ops.merge import (fused_softmax_merge_plain,
+                                          merge_forward)
+    from dbsr_tpu_torch.ops.warp import (base_grid, warp_feat_plain,
+                                         warp_forward)
+
+    bf = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
+
+    def flow(frames, h, w):  # as phase 3's
+        f = torch.rand(frames, h, w, 2, generator=g, device=dev) * 10 - 5
+        f[:, ::7] = torch.round(f[:, ::7])
+        return f.contiguous()
+
+    def warp_row(feat, fl, what):
+        row = check_bf16(f"warp bf16 {list(feat.shape)} ({what})",
+                         lambda: warp_forward(feat, fl),
+                         lambda: warp_feat_plain(feat, fl),
+                         lambda: warp_feat_plain(feat.float().abs(), fl))
+        H, W = feat.shape[1], feat.shape[2]
+        grid = _grid_sample_grid(base_grid(H, W, dev) + fl, H, W).to(bf)
+        nchw = feat.permute(0, 3, 1, 2)
+        bms, by = bound(2 * feat.numel() * 2 + fl.numel() * 4,
+                        7 * feat.numel())
+        row.update(shape=list(feat.shape), bound_ms=bms, bound_by=by,
+                   **timings("warp", lambda: warp_forward(feat, fl),
+                             lambda: warp_feat_plain(feat, fl),
+                             lambda: F.grid_sample(nchw, grid,
+                                                   align_corners=False,
+                                                   padding_mode="zeros")))
+        return row
+
+    def corr_row(a, b, what):
+        row = check_bf16(f"correlation bf16 {list(a.shape)} ({what})",
+                         lambda: correlation_forward(a, b),
+                         lambda: correlation_plain(a, b),
+                         lambda: correlation_plain(a.float().abs(),
+                                                   b.float().abs()))
+        npix = a.shape[0] * a.shape[1] * a.shape[2]
+        bms, by = bound((2 * a.numel() + npix * NUM_OFFSETS) * 2,
+                        2 * NUM_OFFSETS * a.numel())
+        row.update(shape=list(a.shape), bound_ms=bms, bound_by=by,
+                   **timings("correlation", lambda: correlation_forward(a, b),
+                             lambda: correlation_plain(a, b)))
+        return row
+
+    rows = {"warp": {"per_shape": [], "pwc_shapes": []},
+            "correlation": {"per_shape": [], "pwc_shapes": []}}
+    for sh in ((FRAMES, HW, HW, 512), (FRAMES, HW // 2, HW // 2, 48),
+               (FRAMES, HW, HW, 24)):
+        rows["warp"]["per_shape"].append(
+            warp_row(randn(*sh), flow(*sh[:3]), "serving"))
+    for sh in ((FRAMES, HW // 4, HW // 4, 96), (FRAMES, HW // 2, HW // 2, 48),
+               (FRAMES, HW, HW, 24)):
+        rows["correlation"]["per_shape"].append(
+            corr_row(randn(*sh), randn(*sh), "AlignLite"))
+    for s_, c in PWC_LEVELS:
+        rows["correlation"]["pwc_shapes"].append(corr_row(
+            randn(FRAMES, s_, s_, c), randn(FRAMES, s_, s_, c), "PWC-Net"))
+    for s_, c in PWC_LEVELS[1:]:
+        fl = (_pwc_flow(g, dev, FRAMES, s_) * (s_ / (s_ - 1.0))).contiguous()
+        rows["warp"]["pwc_shapes"].append(
+            warp_row(randn(FRAMES, s_, s_, c), fl, "PWC-Net backwarp"))
+    torch.cuda.empty_cache()
+
+    sh = (B, N, HW, HW, 512)
+    feat, logits = randn(*sh), randn(*sh, scale=3.0)
+    row = check_bf16(f"merge bf16 {list(sh)}",
+                     lambda: merge_forward(feat, logits),
+                     lambda: fused_softmax_merge_plain(feat, logits),
+                     lambda: fused_softmax_merge_plain(feat.float().abs(),
+                                                       logits))
+    bms, by = bound((2 * feat.numel() + feat.numel() // N) * 2,
+                    6 * feat.numel())
+    row.update(shape=list(sh), bound_ms=bms, bound_by=by,
+               **timings("merge", lambda: merge_forward(feat, logits),
+                         lambda: fused_softmax_merge_plain(feat, logits)))
+    rows["merge"] = {"per_shape": [row]}
+    del feat, logits
+    torch.cuda.empty_cache()
+
+    C = O = 32
+    x = randn(B, HW * 4, HW * 4, 4 * C)
+    w = torch.randn(O, C, 3, 3, generator=g, device=dev) / math.sqrt(9 * C)
+    row = check_bf16(f"conv_s2d bf16 {list(x.shape)}",
+                     lambda: conv3x3_s2d_forward(x, w),
+                     lambda: conv3x3_s2d_plain(x, w),
+                     lambda: conv3x3_s2d_plain(x.float().abs(),
+                                               w.to(bf).float().abs()))
+    x_nchw, dense_w = x.permute(0, 3, 1, 2), s2d_conv_kernel(w).to(bf)
+    bms, by = bound((x.numel() + x.numel() // C * O) * 2,
+                    2 * 9 * O * x.numel(), BF16_FLOPS_PER_S)
+    row.update(shape=[list(x.shape), list(x.shape[:3]) + [4 * O]],
+               bound_ms=bms, bound_by=by,
+               **timings("conv_s2d", lambda: conv3x3_s2d_forward(x, w),
+                         lambda: conv3x3_s2d_plain(x, w),
+                         lambda: F.conv2d(x_nchw, dense_w, padding=1)))
+    rows["conv_s2d"] = {"per_shape": [row]}
+    del x, x_nchw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def add_bf16_rows(entries, rows):
+    """Put each kernel's bf16 rows beside its float32 ones (``bf16``, with
+    the sums over one pass of the bf16 forward, and over PWC-Net's shapes
+    as ``pwc_*``)."""
+    for e in entries:
+        r = rows.get(e["name"])
+        if not r:
+            continue
+        b = dict(dtype="bfloat16", **r)
+        every = r["per_shape"] + r.get("pwc_shapes", [])
+        for key, part in (("", r["per_shape"]),
+                          ("pwc_", r.get("pwc_shapes", []))):
+            if not part:
+                continue
+            for k in ("ms", "device_ms", "kernel_device_ms", "plain_ms",
+                      "bound_ms"):
+                b[key + k] = sum(x[k] for x in part)
+            for k in ("library_ms", "library_device_ms"):
+                libs = [x[k] for x in part]
+                b[key + k] = sum(libs) if None not in libs else None
+        b["bound_by"] = ("bytes" if all(x["bound_by"] == "bytes"
+                                        for x in r["per_shape"])
+                         else "operations")
+        b["bit_equal_share"] = min(x["bit_equal_share"] for x in every)
+        b["max_ulps"] = max(x["max_ulps"] for x in every)
+        b["max_abs_err"] = max(x["max_abs_err"] for x in every)
+        b["repeat_equal"] = all(x["repeat_equal"] for x in every)
+        e["bf16"] = b
+        for x in every:
+            log_row(f"{e['name']} bf16", x)
+        log(f"  {e['name']} bf16, one pass of the forward: device "
+            f"{b['device_ms']:.4f} ms, bound {b['bound_ms']:.4f} "
+            f"({b['bound_by']}), float32 device {e['device_ms']:.4f}")
+
+
+def _rel_l2(a, b):
+    a, b = a.double(), b.double()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def _map_tensors(fn, x):
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, dict):
+        return {k: _map_tensors(fn, v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_map_tensors(fn, v) for v in x)
+    return x
+
+
+def bf16_forward_by_layer(pred, burst):
+    """The card's bf16 forward of ``burst`` (clipped, on the CPU), each
+    conv layer's input and output in it (``ConvBlock``,
+    ``PixShuffleUpsampler``, ``TorchConvTranspose``) and each of
+    BF16_STAGES' arguments and output, on the CPU."""
+    from dbsr_tpu_torch.models.layers import (ConvBlock, PixShuffleUpsampler,
+                                              TorchConvTranspose)
+
+    layers, stages = {}, {}
+
+    def keep(into, name):
+        def hook(_m, args, kwargs, out):
+            into[name] = _map_tensors(lambda t: t.detach().cpu(),
+                                      (args, kwargs, out))
+        return hook
+
+    hooks = [pred.net.get_submodule(s).register_forward_hook(
+        keep(stages, s), with_kwargs=True) for s in BF16_STAGES]
+    hooks += [m.register_forward_hook(keep(layers, n), with_kwargs=True)
+              for n, m in pred.net.named_modules()
+              if isinstance(m, (ConvBlock, PixShuffleUpsampler,
+                                TorchConvTranspose))]
+    try:
+        with torch.no_grad():
+            card = pred.forward(burst.cuda()).clamp(0, 1).cpu()
+    finally:
+        for h in hooks:
+            h.remove()
+    return card, layers, stages
+
+
+def bf16_layer_check(name, layers, cpu_bf16):
+    """Phase 14b: each conv layer of the card's bf16 forward against the
+    same layer on the CPU (plain versions, oneDNN's convs; the CPU tests
+    hold them bit-equal to the JAX package's) from the card's own input to
+    it: bf16 out on both, at least BF16_LAYER_BIT_EQUAL of the outputs
+    bit-equal."""
+    shares = {}
+    for layer, (args, kwargs, card) in layers.items():
+        with torch.inference_mode():
+            cpu = cpu_bf16.get_submodule(layer)(*args, **kwargs)
+        if card.dtype != torch.bfloat16 or cpu.dtype != torch.bfloat16:
+            raise AssertionError(f"bf16 {name} {layer}: card {card.dtype}, "
+                                 f"CPU {cpu.dtype}")
+        shares[layer] = (card == cpu).double().mean().item()
+    worst = min(shares, key=shares.get)
+    out = dict(layers=len(shares), min_bit_equal=shares[worst],
+               worst_layer=worst,
+               mean_bit_equal=sum(shares.values()) / len(shares))
+    log(f"bf16 {name}, {len(shares)} conv layers from the card's inputs: "
+        f"bit-equal to the CPU's bf16 layer, least {shares[worst]:.6f} "
+        f"({worst}; limit {BF16_LAYER_BIT_EQUAL}), mean "
+        f"{out['mean_bit_equal']:.6f}")
+    if not shares[worst] >= BF16_LAYER_BIT_EQUAL:
+        raise AssertionError(f"bf16 {name}: {out}")
+    return out
+
+
+def bf16_stage_gaps(name, stages, cpu_bf16, cpu_f32):
+    """Phase 14b, recorded: each stage of the card's bf16 forward against
+    the same stage on the CPU from the card's own inputs to it, in bf16
+    (``cpu_bf16``) and in float32 (``cpu_f32``, the inputs widened): how
+    far the roundings a float32 sum's order flips spread through a stage,
+    beside bf16's own distance to float32 there. The flow float32, the
+    rest bf16, as the JAX package gives them."""
+    widen = lambda t: t.float() if t.dtype == torch.bfloat16 else t  # noqa
+    pick = lambda o: o["fused_enc"] if isinstance(o, dict) else o  # noqa
+    out = {}
+    for stage in BF16_STAGES:
+        args, kwargs, card = stages[stage]
+        with torch.inference_mode():
+            b = pick(cpu_bf16.get_submodule(stage)(*args, **kwargs))
+            f = pick(cpu_f32.get_submodule(stage)(
+                *_map_tensors(widen, args), **_map_tensors(widen, kwargs)))
+        card = pick(card)
+        want = (torch.float32 if stage == "encoder.alignment_net"
+                else torch.bfloat16)
+        if card.dtype != want or b.dtype != want or f.dtype != torch.float32:
+            raise AssertionError(f"bf16 {name} {stage}: card {card.dtype}, "
+                                 f"CPU {b.dtype} / {f.dtype}, expected "
+                                 f"{want}")
+        r = dict(card_vs_cpu_rel_l2=_rel_l2(card, b),
+                 bf16_vs_f32_rel_l2=_rel_l2(f, b),
+                 bit_equal_share=(card == b).double().mean().item())
+        log(f"bf16 {name}, {stage} from the card's inputs: card vs CPU "
+            f"relative L2 {r['card_vs_cpu_rel_l2']:.3e} (the CPU's bf16 vs "
+            f"float32 {r['bf16_vs_f32_rel_l2']:.3e}), bit-equal "
+            f"{r['bit_equal_share']:.6f}")
+        out[stage] = r
+    return out
+
+
+def bf16_serving_phase(requests):
+    """Phase 14b: ``load_predictor`` with its bf16 default at batch 8, the
+    flagship in its three decoder forms and r3d: phase 4's three requests
+    with exact launches, the request and forward times, peak memory; the
+    card's forward of one burst against the CPU's bf16 forward (plain
+    versions; relative L2 within BF16_REL_L2) and no farther from the
+    card's float32 forward than twice the CPU's bf16 one is; layer by layer
+    against the CPU (``bf16_layer_check``); the stages, recorded
+    (``bf16_stage_gaps``). Returns the numbers and each form's launches
+    over its three requests."""
+    from dbsr_tpu_torch.models.layers import compute_dtype_of
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, load_predictor
+    from dbsr_tpu_torch.training.checkpoint import load_network
+
+    out, paths = {}, {}
+    burst = torch.from_numpy(requests[2][None])
+    kw = dict(batch_size=B, burst_size=N, burst_hw=(HW, HW), device="cuda")
+    for name, ckpt, on, fused, per_forward in (
+            ("flagship_s2d_kernel", FLAGSHIP_CHECKPOINT, True, True,
+             dict(LAUNCHES_PER_FORWARD, conv_s2d=LAUNCHES_S2D_PER_FORWARD)),
+            ("flagship_s2d_dense", FLAGSHIP_CHECKPOINT, False, True,
+             LAUNCHES_PER_FORWARD),
+            ("flagship_fine", FLAGSHIP_CHECKPOINT, False, False,
+             LAUNCHES_PER_FORWARD),
+            ("r3d", R3D_CHECKPOINT, False, True, LAUNCHES_PER_PWC_FORWARD)):
+        with fine_patch(on):
+            pred = load_predictor(ckpt, fused_s2d=fused, **kw)
+            if compute_dtype_of(pred.net) != torch.bfloat16:
+                raise AssertionError(f"{name}: load_predictor did not build "
+                                     "a bf16 net by default")
+            res = serve(f"bf16 serving, {name}", pred, requests, per_forward)
+            paths[name] = res.pop("launches")
+            card, layers, stages = bf16_forward_by_layer(pred, burst)
+            del pred
+            torch.cuda.empty_cache()
+            f32 = load_predictor(ckpt, fused_s2d=fused, dtype=None, **kw)
+            with torch.no_grad():
+                card32 = f32.forward(burst.cuda()).clamp(0, 1).cpu()
+            del f32
+            torch.cuda.empty_cache()
+            cpu_net, _ = load_network(ckpt, device="cpu",
+                                      fused_s2d_decoder=fused)
+            cpu_f32, _ = load_network(ckpt, device="cpu", dtype=None,
+                                      fused_s2d_decoder=fused)
+            with torch.inference_mode():
+                t0 = time.perf_counter()
+                cpu = cpu_net(burst)[0].clamp(0, 1)
+                cpu_s = time.perf_counter() - t0
+            res["layers"] = bf16_layer_check(name, layers, cpu_net)
+            res["stages"] = bf16_stage_gaps(name, stages, cpu_net, cpu_f32)
+            del cpu_net, cpu_f32, layers, stages
+        res.update(card_vs_cpu_rel_l2=_rel_l2(card, cpu),
+                   card_vs_cpu_max_abs=(card - cpu).abs().max().item(),
+                   vs_card_f32_rel_l2=_rel_l2(card, card32),
+                   vs_card_f32_max_abs=(card - card32).abs().max().item(),
+                   cpu_vs_card_f32_rel_l2=_rel_l2(cpu, card32),
+                   cpu_forward_s=cpu_s)
+        log(f"bf16 {name}: card vs the CPU's bf16 forward, 1 burst: "
+            f"relative L2 {res['card_vs_cpu_rel_l2']:.3e} (limit "
+            f"{BF16_REL_L2}), max|diff| {res['card_vs_cpu_max_abs']:.3e}; vs "
+            f"the card's float32 forward: relative L2 "
+            f"{res['vs_card_f32_rel_l2']:.3e} (limit 2 x "
+            f"{res['cpu_vs_card_f32_rel_l2']:.3e}, the CPU's bf16 forward's),"
+            f" max|diff| {res['vs_card_f32_max_abs']:.3e}; CPU forward "
+            f"{cpu_s:.1f} s")
+        if not (res["card_vs_cpu_rel_l2"] <= BF16_REL_L2
+                and res["vs_card_f32_rel_l2"]
+                <= 2 * res["cpu_vs_card_f32_rel_l2"]):
+            raise AssertionError(f"bf16 {name}: card vs CPU relative L2 "
+                                 f"{res['card_vs_cpu_rel_l2']}, vs float32 "
+                                 f"{res['vs_card_f32_rel_l2']} (the CPU's "
+                                 f"{res['cpu_vs_card_f32_rel_l2']})")
+        out[name] = res
+    return out, paths
+
+
+def bf16_eval_phase(workdir, f32_scores):
+    """Phase 14c: the zoo's three models scored at their recorded bf16 on
+    phase 11's val set (exact launches, scores, ms a burst), beside phase
+    11's float32 scores and the JAX package's bf16 ones; the flagship's
+    first bursts card vs CPU in bf16; ``run_evaluation synburst
+    compute_score dbsr_zoo`` on the first EVAL_CLI_BURSTS bursts equal to
+    the API's bf16 scores of the same bursts within EVAL_SAVED_TOL."""
+    from dbsr_tpu_torch import run_evaluation
+    from dbsr_tpu_torch.evaluation import synburst
+    from dbsr_tpu_torch.evaluation.experiments import dbsr_zoo
+    from dbsr_tpu_torch.evaluation.network_param import NetworkParam
+    from dbsr_tpu_torch.models.layers import compute_dtype_of
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT
+
+    root = os.path.join(workdir, "synburst_val")
+    n_forwards = -(-EVAL_BURSTS // EVAL_BATCH)
+    nets = [NetworkParam(checkpoint_path=c, display_name=os.path.basename(
+        c).replace("_best_params.ckpt", ""))
+        for c in (FLAGSHIP_CHECKPOINT, R4MIX_CHECKPOINT, R3D_CHECKPOINT)]
+    if compute_dtype_of(nets[0].load_net("", "cpu")[0]) != torch.bfloat16:
+        raise AssertionError("NetworkParam did not load the recorded bf16")
+    with contextlib.redirect_stdout(io.StringIO()):  # cuDNN's first calls
+        synburst.compute_score(nets[:1], root, with_lpips=False,
+                               max_bursts=EVAL_BATCH, device="cuda")
+    out = {"scores": {}, "runs": {}, "bf16_minus_f32_db": {}}
+    for n in nets:
+        name = n.get_display_name()
+        pwc = n.checkpoint_path == R3D_CHECKPOINT
+        s, out["runs"][name] = _scored(
+            f"compute_score {name} (bf16), {EVAL_BURSTS} bursts, batch "
+            f"{EVAL_BATCH}", [n], root,
+            LAUNCHES_PER_PWC_FORWARD if pwc else LAUNCHES_PER_FORWARD,
+            n_forwards)
+        if not all(math.isfinite(v[name]) for v in s.values()):
+            raise AssertionError(f"{name}: bf16 scores not finite: {s}")
+        for m, v in s.items():
+            out["scores"].setdefault(m, {}).update(v)
+        out["bf16_minus_f32_db"][name] = (s["psnr"][name]
+                                          - f32_scores["psnr"][name])
+        epoch, banked = _banked_score(n.checkpoint_path)
+        log(f"{name} (epoch {epoch}, bf16): PSNR {s['psnr'][name]:.4f} dB, "
+            f"SSIM {s['ssim'][name]:.4f}, MS-SSIM {s['msssim'][name]:.4f}; "
+            f"float32 (11b) PSNR {f32_scores['psnr'][name]:.4f} dB, SSIM "
+            f"{f32_scores['ssim'][name]:.4f}; the JAX package's bf16 score "
+            f"of this epoch on its own val set (context, not a limit): "
+            f"{banked}")
+        torch.cuda.empty_cache()
+    out["card_vs_cpu"] = card_vs_cpu_scores(
+        root, FLAGSHIP_CHECKPOINT, EVAL_CPU_BURSTS,
+        tols=(BF16_PSNR_TOL, BF16_SSIM_TOL))
+
+    # the CLI on the zoo, at the dtype its checkpoints record
+    path = os.path.join(workdir, "bf16_zoo_cli.json")
+    argv = ["synburst", "compute_score", "dbsr_zoo", "--dataset_root", root,
+            "--no_lpips", "--max_bursts", str(EVAL_CLI_BURSTS), "--json",
+            path]
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run_evaluation.main(argv)
+    log(f"run_evaluation {' '.join(argv[:-2])}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    with open(path) as f:
+        cli = json.load(f)
+    with contextlib.redirect_stdout(io.StringIO()):
+        api = synburst.compute_score(dbsr_zoo.main(), root, with_lpips=False,
+                                     max_bursts=EVAL_CLI_BURSTS,
+                                     device="cuda")
+    out["cli"] = dict(scores=cli, max_abs=_scores_close(
+        "synburst CLI (dbsr_zoo, bf16) vs API",
+        {m: {k: cli[m][k] for k in api[m]} for m in api}, api,
+        EVAL_SAVED_TOL, EVAL_SAVED_TOL))
+    return out
+
+
+def bf16_burstsr_phase():
+    """Phase 14c: the flagship's BurstSR scoring at its recorded bf16 on
+    phase 13's val tree (SCA's aligner float32, as the JAX package builds
+    it), exact launches per burst; then ``run_evaluation burstsr
+    compute_score dbsr_zoo`` against the API scoring the zoo in one call,
+    as the CLI does (the val sampler draws each burst's frame order from
+    one generator, so a network's frames depend on the bursts drawn before
+    it in the call: in bf16 that moves a score by ~1e-3 dB). Returns the
+    numbers and the flagship's launches."""
+    from dbsr_tpu_torch.evaluation import burstsr as ev
+    from dbsr_tpu_torch.evaluation.experiments import dbsr_zoo
+
+    root = os.environ["DBSR_TPU_BURSTSR_DIR"]
+    zoo = dbsr_zoo.main()
+    flagship = next(n for n in zoo
+                    if n.get_display_name() == "dbsr_campaign_r5")
+    nets, launches, _ = burstsr_score_phase(
+        root, [(flagship, LAUNCHES_PER_RW_LITE_BURST)])
+    with contextlib.redirect_stdout(io.StringIO()):
+        api = ev.compute_score(zoo, root, with_lpips=False, device="cuda")
+    return dict(nets=nets, zoo_in_one_call=api,
+                **burstsr_cli_vs_api(root, api)), \
+        launches["dbsr_campaign_r5"]
+
 
 def main():
     if not torch.cuda.is_available():
@@ -3253,6 +3829,13 @@ def main():
     for r in warp_e["sca_shapes"]:
         log_row("warp (SCA)", r)
     torch.cuda.empty_cache()
+    # 14a runs here, beside phase 3: after the later phases' step profiles,
+    # device_ms's scheduled profiler sessions recorded no device activity
+    g14 = torch.Generator(device=dev)
+    g14.manual_seed(14)
+    log("phase 14a, the bf16 kernels vs plain (serving shapes, B=8, N=14):")
+    add_bf16_rows(results, bf16_kernel_phase(dev, g14))
+    torch.cuda.empty_cache()
 
     # 4-5. serving through the fine decoder, then card against CPU
     rng = np.random.RandomState(0)
@@ -3261,7 +3844,8 @@ def main():
                 rng.rand(N, HW, HW, 4).astype(np.float32)]
     t0 = time.perf_counter()
     pred = load_predictor(FLAGSHIP_CHECKPOINT, batch_size=B, burst_size=N,
-                          burst_hw=(HW, HW), device="cuda", fused_s2d=False)
+                          burst_hw=(HW, HW), device="cuda", dtype=None,
+                          fused_s2d=False)
     log(f"predictor loaded in {time.perf_counter() - t0:.1f} s")
     serving = serve("serving, fine decoder", pred, requests,
                     LAUNCHES_PER_FORWARD)
@@ -3345,6 +3929,18 @@ def main():
         realworld, rw_paths = realworld_phase(dev, workdir)
         realworld["phase_s"] = time.perf_counter() - t0
         log(f"phase 13: {realworld['phase_s']:.1f} s")
+        torch.cuda.empty_cache()
+
+        # 14. bf16: serving and scoring (14a ran beside phase 3)
+        t0 = time.perf_counter()
+        bf16 = {}
+        bf16["serving_b8"], bf16_paths = bf16_serving_phase(requests)
+        torch.cuda.empty_cache()
+        bf16["eval"] = bf16_eval_phase(workdir, evaluation["scores"])
+        torch.cuda.empty_cache()
+        bf16["burstsr"], bf16_paths["burstsr_eval"] = bf16_burstsr_phase()
+        bf16["phase_s"] = time.perf_counter() - t0
+        log(f"phase 14: {bf16['phase_s']:.1f} s")
     paths = {"train_step": per_step, "pretrain_step": pre_per_step,
              "train_alignment_step":
                  closing["train_alignment"]["launches_per_step"],
@@ -3358,7 +3954,13 @@ def main():
                         "eval": evaluation.pop("launches"),
                         "eval_r3d": evaluation.pop("launches_r3d"),
                         "burstsr_eval": rw_paths["burstsr_eval"],
-                        "burstsr_eval_r3d": rw_paths["burstsr_eval_r3d"]}
+                        "burstsr_eval_r3d": rw_paths["burstsr_eval_r3d"],
+                        "serving_bf16_3_requests":
+                            bf16_paths["flagship_s2d_kernel"],
+                        "serving_bf16_r3d_3_requests": bf16_paths["r3d"],
+                        "eval_bf16": bf16["eval"]["runs"][
+                            "dbsr_campaign_r5"]["launches"],
+                        "burstsr_eval_bf16": bf16_paths["burstsr_eval"]}
     for e in results:
         # launches on each driven path: the three serving requests through
         # each decoder and of r3d, the eval protocol (the val set's
@@ -3376,6 +3978,17 @@ def main():
         if "pwc_path" in e and not by_path[e["pwc_path"]]:
             raise AssertionError(f"{e['name']} was not launched on PWC-Net's "
                                  f"path {e['pwc_path']}")
+        e["dtypes"] = ["float32", "bfloat16"] if "bf16" in e else ["float32"]
+        if "bf16" in e:
+            # the bf16 forward with the s2d conv's switch (all four); PWC-Net's
+            # in bf16 for the two it runs
+            e["bf16"]["path"] = "serving_bf16_3_requests"
+            e["bf16"]["launches"] = by_path["serving_bf16_3_requests"]
+            if not e["bf16"]["launches"] or ("pwc_shapes" in e["bf16"] and not
+                                             by_path["serving_bf16_r3d_3_"
+                                                     "requests"]):
+                raise AssertionError(f"{e['name']} was not launched on the "
+                                     "bf16 serving paths")
 
     summary = dict(serving_b8=serving, train=train,
                    train_card_vs_cpu=grads, run_training_losses=run_losses,
@@ -3384,7 +3997,7 @@ def main():
                    pretrain=pretrain, pretrain_card_vs_cpu=pre_grads,
                    launches_per_pretrain_step=pre_per_step,
                    closing_the_loop=closing, s2d_decoder=s2d,
-                   eval=evaluation, pwc=pwc, realworld=realworld,
+                   eval=evaluation, pwc=pwc, realworld=realworld, bf16=bf16,
                    odd_shapes=odd_shapes, build_s=secs,
                    total_s=time.perf_counter() - t_start, card=smi)
     log("summary " + json.dumps(summary))

@@ -6,13 +6,17 @@ Every prediction goes through spatial-and-colour alignment
 colour match and a validity mask) before the masked metrics. SCA's flow
 comes from the scored network's own aligner (``encoder.alignment_net``),
 so no other flow network is needed: AlignLite is applied coarse to fine,
-PWC-Net directly. Bursts are scored one at a time, in float32 with TF32
-off; the per-burst metrics stay on the device until one fetch after the
-loop. LPIPS is not ported (its weights are not in the repository).
+PWC-Net directly, in float32 whatever the network's compute dtype (the
+JAX package builds SCA's aligner without one). Bursts are scored one at a
+time, the network at the dtype its checkpoint records, everything else
+in float32 with TF32 off; the per-burst metrics stay on the device until
+one fetch after the loop. LPIPS is not ported (its weights are not in the
+repository).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Dict, List, Optional
@@ -25,6 +29,7 @@ from dbsr_tpu_torch.data.burstsr import get_burstsr_val_set
 from dbsr_tpu_torch.evaluation.display import generate_formatted_report
 from dbsr_tpu_torch.evaluation.network_param import NetworkParam
 from dbsr_tpu_torch.models.align_lite import AlignLiteNet, coarse_to_fine_flow
+from dbsr_tpu_torch.models.layers import compute_dtype_of, set_compute_dtype
 from dbsr_tpu_torch.models.pwcnet import PWCNet
 from dbsr_tpu_torch.models.sca import make_sca
 from dbsr_tpu_torch.ops import metrics as M
@@ -38,7 +43,11 @@ def _alignment_apply_from(aligner: torch.nn.Module):
     """SCA's ``(source, target) -> flow`` from a network's aligner
     (``net.encoder.alignment_net``): AlignLite coarse to fine (scales 4 ->
     1: SCA's full-RGB images are 8x the packed pitch it trains at; applied
-    directly it recovers ~20% of a 7 px shift), PWC-Net directly."""
+    directly it recovers ~20% of a 7 px shift), PWC-Net directly; in
+    float32 (a float32 copy of an aligner that computes in bf16)."""
+    if compute_dtype_of(aligner) is not None:
+        aligner = copy.deepcopy(aligner)
+        set_compute_dtype(aligner, None)
     if isinstance(aligner, AlignLiteNet):
         return lambda s, t: coarse_to_fine_flow(aligner, s, t)
     if isinstance(aligner, PWCNet):

@@ -7,9 +7,9 @@ training):
 
 against a val set made by ``python -m
 dbsr_tpu_torch.generate_synthetic_burst_val --procedural 150 --num_bursts
-300 --seed 20260817``. The port rebuilds each network in float32 (the
-banked checkpoints record bf16), ``dbsr_campaign_r3d`` with its PWC-Net
-aligner and s2d decoder, the two others with AlignLite.
+300 --seed 20260817``. The port rebuilds each network at the bf16 its
+checkpoint records, as the JAX package scores it, ``dbsr_campaign_r3d``
+with its PWC-Net aligner and s2d decoder, the two others with AlignLite.
 """
 
 import glob

@@ -1,7 +1,9 @@
 """Declarative spec of a network under evaluation (port of
 ``dbsr_tpu/evaluation/network_param.py``): a net named by (module, config,
 epoch) within the workspace, by a checkpoint path, or by a directory of
-saved predictions, with an optional ``burst_sz`` (fewer frames).
+saved predictions, with an optional ``burst_sz`` (fewer frames). A net is
+rebuilt at the compute dtype its checkpoint records, as the JAX package
+scores (bfloat16 for the banked models).
 """
 
 from __future__ import annotations
@@ -54,9 +56,9 @@ class NetworkParam:
 
     def load_net(self, workspace_dir: str, device="cuda"):
         """``(net, header)`` rebuilt from the resolved checkpoint on
-        ``device``, in float32 whatever dtype the checkpoint records (bf16
-        is not ported); a network the port cannot build raises."""
+        ``device``, at the dtype the checkpoint records; a network the
+        port cannot build raises."""
         from dbsr_tpu_torch.training.checkpoint import load_network
 
         return load_network(self.resolve_checkpoint(workspace_dir),
-                            device=device, dtype=None)
+                            device=device)

@@ -1,7 +1,8 @@
 """SyntheticBurstVal evaluation: save predictions and compute scores (port
 of ``dbsr_tpu/evaluation/synburst.py``).
 
-Per network: the forward on each batch of validation bursts, the
+Per network: the forward on each batch of validation bursts (at the
+compute dtype its checkpoint records, as the JAX package scores), the
 predictions quantized to uint16 at 2^14 (the protocol step that makes the
 scores of saved predictions equal the live ones), and PSNR / SSIM /
 (optional) MS-SSIM per burst with ``boundary_ignore=40``, averaged over
@@ -341,7 +342,7 @@ class TrajectoryScorer:
             m: {} for m in self.metric_names}
         names = []
         for e, path in all_ck:
-            net, _ = load_network(path, device=self.device, dtype=None)
+            net, _ = load_network(path, device=self.device)
             scored_forward = _scored_forward_fn(net, self._score_batch)
             vals = _fetch([(nb, scored_forward(b, g))
                            for nb, b, g in self.staged], self.metric_names)

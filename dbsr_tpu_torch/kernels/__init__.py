@@ -113,18 +113,38 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def require_cuda_f32(op: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous, 16-byte-aligned float32
-    CUDA tensor on one device (what the kernels take)."""
+# the C entry's suffix for each element type a kernel has an instantiation of
+DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def entry(op: str, fn: str, dtype: torch.dtype) -> str:
+    """The C entry of ``fn`` for ``dtype`` (``dbsr_warp`` and bfloat16 ->
+    ``dbsr_warp_bf16``); raise for a type that has none."""
+    suffix = DTYPE_SUFFIX.get(dtype)
+    if suffix is None:
+        raise TypeError(f"{op}: kernel takes "
+                        f"{' or '.join(map(str, DTYPE_SUFFIX))}, got {dtype}")
+    return f"{fn}_{suffix}"
+
+
+def require_cuda(op: str, *tensors: torch.Tensor,
+                 dtypes: Sequence[torch.dtype] = ()) -> None:
+    """Raise unless every tensor is a contiguous, 16-byte-aligned CUDA tensor
+    on one device, of its type in ``dtypes`` (one per tensor; float32 for
+    all when empty): what the kernels take."""
+    dtypes = tuple(dtypes) or (torch.float32,) * len(tensors)
+    if len(dtypes) != len(tensors):
+        raise ValueError(f"{op}: {len(dtypes)} dtypes for {len(tensors)} "
+                         "tensors")
     dev = tensors[0].device
-    for t in tensors:
+    for t, dtype in zip(tensors, dtypes):
         if t.device.type != "cuda":
             raise ValueError(f"{op}: expected a CUDA or CPU tensor, got "
                              f"{t.device}")
         if t.device != dev:
             raise ValueError(f"{op}: tensors on {dev} and {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{op}: kernel takes float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{op}: kernel takes {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{op}: kernel takes contiguous tensors")
         if t.data_ptr() % 16:

@@ -65,6 +65,23 @@
 // - Epilogue: each pixel's output channel pairs as 8-byte stores (4-byte
 //   for an odd O), masked at the ragged tile and the padded O.
 // Single pass, no atomics: deterministic.
+//
+// bfloat16 (x, weights and out bf16, the TPU kernel's DEFAULT-precision bf16
+// matmul with float32 accumulation, one rounding of the output): one
+// mma.sync.m16n8k16 (bf16 in, float32 accumulate) per 16 channels of one
+// tap and n8 tile, where float32 takes three m16n8k8 TF32 ones; the same
+// tile, warps and epilogue. Bound at the serving launch: 151 MB of bf16
+// input and output, 0.045 ms at 3.35 TB/s (the FLOPs take 0.022 at 989
+// TFLOP/s). 16 input channels a stage (39 KB for both input buffers); the
+// weights come in bf16 already in the fragments' order, [C/16][O/32][tap]
+// [n8][lane][4] (the wrapper builds it from the bf16-rounded weight): a
+// stage's weights are one contiguous 9 KB copy, and a lane's two B
+// registers of an n8 tile one 8-byte shared load. The MMA's k index t <->
+// channel 4(t/2) + t%2 for t < 8 and 4((t-8)/2) + 2 + t%2 above (A and B
+// alike), so that each A register pair (k 2t, 2t+1 and 2t+8, 2t+9) is
+// channels 4t..4t+3 of one pixel, one 8-byte load. Each (stage, tap) MMA
+// starts from zero and is added to the running sums by a rounded add, as
+// the float32 path does.
 #include "common.cuh"
 
 #include <climits>
@@ -333,6 +350,190 @@ conv_s2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16
+
+constexpr int kCC16 = 16;                       // input channels per stage
+constexpr int kInBf16 = kHaloPix * kCC16;       // one stage of input, bf16s
+constexpr int kWBf16 = 9 * kNT * 32 * 4;        // one stage of weights, bf16s
+constexpr int kSmemBf16 = (2 * kInBf16 + 2 * kWBf16) * 2;
+
+// d = a b from zero sums; a: 4 regs of 2 bf16, b: 2 regs of 2 bf16
+__device__ __forceinline__ void mma_bf16_from_zero(float (&d)[4],
+                                                   const uint32_t (&a)[4],
+                                                   uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f));
+}
+
+// Copy channels c0..c0+15 of the 18x34 halo'd tile at fine (y0-1, x0-1)
+// into s (pixel-major, 16 bf16 a pixel), zeros outside the plane and past
+// C: two 16-byte cp.async a pixel where C % 8 == 0, else 2-byte loads.
+__device__ __forceinline__ void stage_input_bf16(bf16* s, const bf16* xb,
+                                                 int y0, int x0, int H, int W,
+                                                 int W2, int C, int c0) {
+  if ((C & 7) == 0) {
+    for (int i = threadIdx.x; i < kHaloPix * 2; i += kThreads) {
+      const int p = i >> 1;
+      const int c = c0 + (i & 1) * 8;
+      const int hy = p / kHaloW;
+      const int y = y0 - 1 + hy;
+      const int xx = x0 - 1 + p - hy * kHaloW;
+      const bool in = y >= 0 && y < H && xx >= 0 && xx < W && c < C;
+      const bf16* src = in
+          ? xb + (static_cast<long long>(y >> 1) * W2 + (xx >> 1)) * 4 * C
+                + ((y & 1) * 2 + (xx & 1)) * C + c
+          : xb;
+      cp_async<16>(s + i * 8, src, in ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kInBf16; i += kThreads) {
+      const int p = i >> 4;
+      const int c = c0 + (i & 15);
+      const int hy = p / kHaloW;
+      const int y = y0 - 1 + hy;
+      const int xx = x0 - 1 + p - hy * kHaloW;
+      const bool in = y >= 0 && y < H && xx >= 0 && xx < W && c < C;
+      s[i] = in ? xb[(static_cast<long long>(y >> 1) * W2 + (xx >> 1)) * 4 * C
+                     + ((y & 1) * 2 + (xx & 1)) * C + c]
+                : to_bf16(0.0f);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+conv_s2d_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                     bf16* __restrict__ out, int H2, int W2, int C, int O,
+                     int n_oc_blocks) {
+  extern __shared__ __align__(16) bf16 smem_h[];
+  bf16* s_in = smem_h;                        // [2][612][16]
+  bf16* s_w = smem_h + 2 * kInBf16;           // [2][9][4][32][4]
+
+  const int H = 2 * H2;
+  const int W = 2 * W2;
+  const int tiles_x = (W + kTileW - 1) / kTileW;
+  const int tile_y = blockIdx.x / tiles_x;
+  const int y0 = tile_y * kTileH;
+  const int x0 = (blockIdx.x - tile_y * tiles_x) * kTileW;
+  const int oc0 = blockIdx.y * kOC;
+  const long long b = blockIdx.z;
+  const bf16* xb = x + b * H2 * W2 * 4 * C;
+  bf16* ob = out + b * H2 * W2 * 4 * O;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int stages = (C + kCC16 - 1) / kCC16;
+  // stage st's weights of this block's output channels
+  auto stage_weights = [&](bf16* dst, int st) {
+    const bf16* src =
+        w + (static_cast<long long>(st) * n_oc_blocks + blockIdx.y) * kWBf16;
+    for (int i = threadIdx.x; i < kWBf16 / 8; i += kThreads)
+      cp_async<16>(dst + i * 8, src + i * 8, 16);
+  };
+
+  float acc[kMT][kNT][4];
+#pragma unroll
+  for (int m = 0; m < kMT; ++m)
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[m][n][k] = 0.0f;
+
+  stage_input_bf16(s_in, xb, y0, x0, H, W, W2, C, 0);
+  stage_weights(s_w, 0);
+  cp_async_commit();
+  cp_async_wait();
+
+  for (int st = 0; st < stages; ++st) {
+    const int cur = st & 1;
+    const bool more = st + 1 < stages;
+    // this stage's input and weights are in; the other buffers are free
+    __syncthreads();
+    if (more) {
+      stage_input_bf16(s_in + (cur ^ 1) * kInBf16, xb, y0, x0, H, W, W2, C,
+                       (st + 1) * kCC16);
+      stage_weights(s_w + (cur ^ 1) * kWBf16, st + 1);
+      cp_async_commit();
+    }
+
+    const bf16* in = s_in + cur * kInBf16;
+    const uint2* ws = reinterpret_cast<const uint2*>(s_w + cur * kWBf16);
+#pragma unroll 3
+    for (int tap = 0; tap < 9; ++tap) {
+      const int ky = tap / 3;
+      const int kx = tap - ky * 3;
+      uint2 bw[kNT];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) bw[n] = ws[(tap * kNT + n) * 32 + lane];
+#pragma unroll
+      for (int m = 0; m < kMT; ++m) {
+        // m16 tile m: output row warp*kWarpRows + m/2, columns (m%2)*16 +
+        // 0..15; lane rows g and g+8, channels 4t..4t+3
+        const bf16* r = in + ((warp * kWarpRows + (m >> 1) + ky) * kHaloW
+                              + (m & 1) * 16 + g + kx) * kCC16 + 4 * t;
+        const uint2 lo = *reinterpret_cast<const uint2*>(r);
+        const uint2 hi = *reinterpret_cast<const uint2*>(r + 8 * kCC16);
+        const uint32_t a[4] = {lo.x, hi.x, lo.y, hi.y};
+#pragma unroll
+        for (int n = 0; n < kNT; ++n) {
+          float step[4];
+          mma_bf16_from_zero(step, a, bw[n].x, bw[n].y);
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            acc[m][n][k] = __fadd_rn(acc[m][n][k], step[k]);
+        }
+      }
+    }
+    if (more) cp_async_wait();
+  }
+
+  const bool pairs = (O & 1) == 0;
+#pragma unroll
+  for (int m = 0; m < kMT; ++m) {
+    const int y = y0 + warp * kWarpRows + (m >> 1);
+    if (y >= H) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // lane rows g, g+8
+      const int xx = x0 + (m & 1) * 16 + g + 8 * h;
+      if (xx >= W) continue;
+      bf16* o = ob + (static_cast<long long>(y >> 1) * W2 + (xx >> 1)) * 4 * O
+                + ((y & 1) * 2 + (xx & 1)) * O;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const int oc = oc0 + n * 8 + 2 * t;
+        const float v0 = acc[m][n][2 * h];
+        const float v1 = acc[m][n][2 * h + 1];
+        if (pairs && oc + 1 < O) {
+          *reinterpret_cast<uint32_t*>(o + oc) = pack_bf16x2(v0, v1);
+        } else {
+          if (oc < O) o[oc] = to_bf16(v0);
+          if (oc + 1 < O) o[oc + 1] = to_bf16(v1);
+        }
+      }
+    }
+  }
+}
+
+// the grid of a launch (tiles, O blocks, B), or an error
+int conv_grid(int B, int H2, int W2, int C, int O, dim3& grid) {
+  if (C <= 0 || O <= 0 || B > 65535 || H2 > INT_MAX / 2 || W2 > INT_MAX / 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long tiles = ((2LL * H2 + kTileH - 1) / kTileH)
+                          * ((2LL * W2 + kTileW - 1) / kTileW);
+  const int Op = (O + kOC - 1) / kOC * kOC;
+  if (tiles > INT_MAX || Op / kOC > 65535
+      || static_cast<long long>(C + kCC16) * 9 * Op > INT_MAX)
+    return static_cast<int>(cudaErrorInvalidValue);
+  grid = dim3(static_cast<unsigned>(tiles), Op / kOC, B);
+  return 0;
+}
+
 }  // namespace
 
 // x [B, H2, W2, 4C], w [C, 9, Op] with Op = O rounded up to 32, out
@@ -341,22 +542,34 @@ conv_s2d_kernel(const float* __restrict__ x, const float* __restrict__ w,
 DBSR_EXPORT int dbsr_conv_s2d_f32(const float* x, const float* w, float* out,
                                   int B, int H2, int W2, int C, int O,
                                   void* stream) {
-  if (C <= 0 || O <= 0 || B > 65535 || H2 > INT_MAX / 2 || W2 > INT_MAX / 2)
-    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid;
+  if (const int err = conv_grid(B, H2, W2, C, O, grid)) return err;
   if (B == 0 || H2 == 0 || W2 == 0) return 0;
-  const long long tiles = ((2LL * H2 + kTileH - 1) / kTileH)
-                          * ((2LL * W2 + kTileW - 1) / kTileW);
-  const int Op = (O + kOC - 1) / kOC * kOC;
-  if (tiles > INT_MAX || Op / kOC > 65535
-      || static_cast<long long>(C) * 9 * Op > INT_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = cudaFuncSetAttribute(
       conv_s2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(tiles), Op / kOC, B);
   conv_s2d_kernel<<<grid, kThreads, kSmemBytes,
                     static_cast<cudaStream_t>(stream)>>>(x, w, out, H2, W2, C,
-                                                         O, Op);
+                                                         O, grid.y * kOC);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x [B, H2, W2, 4C] and out [B, H2, W2, 4O] bfloat16; w the bf16 weights in
+// the fragments' order, [ceil(C/16)][ceil(O/32)][9][4][32][4] (zeros past C
+// and O); contiguous, 16-byte aligned. Any C, O >= 1.
+DBSR_EXPORT int dbsr_conv_s2d_bf16(const bf16* x, const bf16* w, bf16* out,
+                                   int B, int H2, int W2, int C, int O,
+                                   void* stream) {
+  dim3 grid;
+  if (const int err = conv_grid(B, H2, W2, C, O, grid)) return err;
+  if (B == 0 || H2 == 0 || W2 == 0) return 0;
+  const cudaError_t err = cudaFuncSetAttribute(
+      conv_s2d_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBf16);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  conv_s2d_bf16_kernel<<<grid, kThreads, kSmemBf16,
+                         static_cast<cudaStream_t>(stream)>>>(
+      x, w, out, H2, W2, C, O, grid.y);
   return static_cast<int>(cudaGetLastError());
 }

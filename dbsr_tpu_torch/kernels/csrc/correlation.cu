@@ -1,7 +1,9 @@
-// 81-channel +-4 local cost volume of channels-last float32 features:
+// 81-channel +-4 local cost volume of channels-last features:
 //   out[b, y, x, (dy+4)*9 + (dx+4)] =
 //       (1/C) * sum_c first[b, y, x, c] * second[b, y+dy, x+dx, c],
-// zero padding outside `second`.
+// zero padding outside `second`; float32, or bfloat16 in and out with the
+// sums, the 1/C and the division in float32 and one rounding of each
+// output (the TPU kernel's bf16 arithmetic).
 //
 // Replaces the TPU kernel dbsr_tpu/ops/correlation.py:
 // _correlation_pallas_fwd_impl (body _corr_kernel), which held a whole
@@ -37,9 +39,17 @@
 //   columns swizzled by row: a warp's stores fall on 32 banks); each tile
 //   row's pixels' 81 values, contiguous in `out`, go out as coalesced
 //   stores.
+// - bf16: the same stages hold float32, widened from bf16 on the way in:
+//   each thread's copies are 8-byte loads into registers (4 channels; 2-byte
+//   loads when C % 4 != 0), issued for the next chunk before the current
+//   one is summed and stored to shared memory after it. The products of
+//   two bf16 values are exact in float32, so every fmaf is one rounded add
+//   and each sum is the plain version's channel loop bit for bit
+//   (ops/correlation.py:correlation_plain); outputs round to bf16 once.
 // - At most 47 KB of static shared memory: no opt-in attribute.
 // Single pass, no atomics: deterministic.
 #include <climits>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -74,12 +84,13 @@ struct Tile {
   static_assert(kThreads % kG4 == 0, "a thread's copies share one c4");
 };
 
-template <int TY, int NG, bool kVec>
+template <int TY, int NG, bool kVec, typename E>
 __global__ void __launch_bounds__(Tile<TY, NG>::kThreads)
-correlation_kernel(const float* __restrict__ first,
-                   const float* __restrict__ second, float* __restrict__ out,
+correlation_kernel(const E* __restrict__ first,
+                   const E* __restrict__ second, E* __restrict__ out,
                    int H, int W, int C, int tiles_x, int tiles) {
   using T = Tile<TY, NG>;
+  constexpr bool kF32 = std::is_same<E, float>::value;
   // two stages of [kG4][TY][kRowF] (`first`) + [kG4][kHY][kRowS]
   // (`second`) float4s; once the sums are done, the outputs [81][kOutRow]
   __shared__ float4 smem[T::kSmem4];
@@ -90,8 +101,8 @@ correlation_kernel(const float* __restrict__ first,
   const int ty0 = (tile / tiles_x) * TY;
   const int tx0 = (tile % tiles_x) * T::kTX;
   const long long plane = static_cast<long long>(H) * W;
-  const float* fb = first + frame * plane * C;
-  const float* sb = second + frame * plane * C;
+  const E* fb = first + frame * plane * C;
+  const E* sb = second + frame * plane * C;
 
   // this thread's copies, the same in every stage but for the channels:
   // the float4 in a stage (-1: none), and the source pixel in the frame
@@ -112,15 +123,15 @@ correlation_kernel(const float* __restrict__ first,
                         : T::kFirst + (c4 * T::kHY + py) * T::kRowS + px;
     pix[n] = y >= 0 && y < H && x >= 0 && x < W ? y * W + x : -1;
   }
-  // copy channels c0.. of the tiles into stage buffer buf
+  // float32: copy channels c0.. of the tiles into stage buffer buf
   auto stage = [&](int buf, int c0) {
     float4* st = smem + buf * T::kStage;
     const int c = c0 + c4 * 4;
 #pragma unroll
     for (int n = 0; n < T::kSlots; ++n) {
       if (dst[n] < 0) continue;
-      const float* base = dst[n] < T::kFirst ? fb : sb;
-      const float* src = base + static_cast<long long>(pix[n]) * C + c;
+      const E* base = dst[n] < T::kFirst ? fb : sb;
+      const E* src = base + static_cast<long long>(pix[n]) * C + c;
       float* d = reinterpret_cast<float*>(st + dst[n]);
       if constexpr (kVec) {
         const bool ok = pix[n] >= 0 && c < C;  // C % 4 == 0: all or none
@@ -134,6 +145,36 @@ correlation_kernel(const float* __restrict__ first,
       }
     }
   };
+  // bf16: the copies of channels c0.. into registers (zeros outside the
+  // plane and past C), then widened into stage buffer buf
+  float4 pre[T::kSlots];
+  auto fetch = [&](int c0) {
+    const int c = c0 + c4 * 4;
+#pragma unroll
+    for (int n = 0; n < T::kSlots; ++n) {
+      pre[n] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (dst[n] < 0 || pix[n] < 0) continue;
+      const E* src = (dst[n] < T::kFirst ? fb : sb)
+                     + static_cast<long long>(pix[n]) * C + c;
+      if constexpr (!kF32) {
+        if constexpr (kVec) {
+          if (c < C) pre[n] = load_bf16x4(src);
+        } else {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = c + e < C ? load_bf16(src + e)
+                                                       : 0.0f;
+          pre[n] = make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+  };
+  auto put = [&](int buf) {
+    float4* st = smem + buf * T::kStage;
+#pragma unroll
+    for (int n = 0; n < T::kSlots; ++n)
+      if (dst[n] >= 0) st[dst[n]] = pre[n];
+  };
 
   const int r = threadIdx.x % TY;                  // output row in the tile
   const int gx = (threadIdx.x / TY) % NG * kK;     // first output column
@@ -146,16 +187,26 @@ correlation_kernel(const float* __restrict__ first,
     for (int d = 0; d < kD; ++d) acc[i][d] = 0.0f;
 
   const int chunks = (C + kCK - 1) / kCK;
-  stage(0, 0);
-  cp_async_commit();
+  if constexpr (kF32) {
+    stage(0, 0);
+    cp_async_commit();
+  } else {
+    fetch(0);
+    put(0);
+  }
   for (int k = 0; k < chunks; ++k) {
     const int buf = k & 1;
-    if (k + 1 < chunks) {
-      stage(buf ^ 1, (k + 1) * kCK);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    const bool more = k + 1 < chunks;
+    if constexpr (kF32) {
+      if (more) {
+        stage(buf ^ 1, (k + 1) * kCK);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else if (more) {
+      fetch((k + 1) * kCK);  // in flight while this chunk is summed
     }
     __syncthreads();
     const float4* st = smem + buf * T::kStage;
@@ -183,6 +234,9 @@ correlation_kernel(const float* __restrict__ first,
           }
         }
       }
+    }
+    if constexpr (!kF32) {
+      if (more) put(buf ^ 1);  // read last in the chunk before this one
     }
     __syncthreads();
   }
@@ -213,13 +267,17 @@ correlation_kernel(const float* __restrict__ first,
   const int ny = min(TY, H - ty0);
   const int n = min(T::kTX, W - tx0) * kOff;
   for (int row = 0; row < ny; ++row) {
-    float* dst_row = out + ((frame * H + ty0 + row) * W + tx0) * kOff;
+    E* dst_row = out + ((frame * H + ty0 + row) * W + tx0) * kOff;
     const float* src = s_out + row * T::kTX;
     const int swr = (row >> 1) & 3;
     int px = threadIdx.x / kOff;
     int o = threadIdx.x - px * kOff;
     for (int e = threadIdx.x; e < n; e += T::kThreads) {
-      dst_row[e] = src[o * T::kOutRow + (px ^ swr)];
+      const float v = src[o * T::kOutRow + (px ^ swr)];
+      if constexpr (kF32)
+        dst_row[e] = v;
+      else
+        dst_row[e] = to_bf16(v);
       px += kStepP;
       o += kStepO;
       if (o >= kOff) {
@@ -230,36 +288,49 @@ correlation_kernel(const float* __restrict__ first,
   }
 }
 
-template <int TY, int NG>
-int launch(const float* first, const float* second, float* out, int frames,
-           int H, int W, int C, cudaStream_t stream) {
+template <int TY, int NG, typename E>
+int launch(const E* first, const E* second, E* out, int frames, int H, int W,
+           int C, cudaStream_t stream) {
   using T = Tile<TY, NG>;
   const int tiles_x = (W + T::kTX - 1) / T::kTX;
   const long long tiles = static_cast<long long>((H + TY - 1) / TY) * tiles_x;
   const long long blocks = tiles * frames;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (C % 4 == 0)
-    correlation_kernel<TY, NG, true><<<static_cast<unsigned>(blocks),
-                                       T::kThreads, 0, stream>>>(
+    correlation_kernel<TY, NG, true, E><<<static_cast<unsigned>(blocks),
+                                          T::kThreads, 0, stream>>>(
         first, second, out, H, W, C, tiles_x, static_cast<int>(tiles));
   else
-    correlation_kernel<TY, NG, false><<<static_cast<unsigned>(blocks),
-                                        T::kThreads, 0, stream>>>(
+    correlation_kernel<TY, NG, false, E><<<static_cast<unsigned>(blocks),
+                                           T::kThreads, 0, stream>>>(
         first, second, out, H, W, C, tiles_x, static_cast<int>(tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// first, second [frames, H, W, C]; out [frames, H, W, 81]; float32,
-// contiguous, 16-byte aligned. Any C >= 1 and any plane.
-DBSR_EXPORT int dbsr_correlation_f32(const float* first, const float* second,
-                                     float* out, int frames, int H, int W,
-                                     int C, void* stream) {
+template <typename E>
+int correlation(const E* first, const E* second, E* out, int frames, int H,
+                int W, int C, void* stream) {
   if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (frames == 0 || H == 0 || W == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H <= 12 && W <= 12)  // the whole plane in one 12x12 tile
     return launch<12, 3>(first, second, out, frames, H, W, C, st);
   return launch<8, 3>(first, second, out, frames, H, W, C, st);
+}
+
+}  // namespace
+
+// first, second [frames, H, W, C]; out [frames, H, W, 81]; float32 or
+// bfloat16 (all three the same), contiguous, 16-byte aligned. Any C >= 1
+// and any plane.
+DBSR_EXPORT int dbsr_correlation_f32(const float* first, const float* second,
+                                     float* out, int frames, int H, int W,
+                                     int C, void* stream) {
+  return correlation(first, second, out, frames, H, W, C, stream);
+}
+
+DBSR_EXPORT int dbsr_correlation_bf16(const bf16* first, const bf16* second,
+                                      bf16* out, int frames, int H, int W,
+                                      int C, void* stream) {
+  return correlation(first, second, out, frames, H, W, C, stream);
 }

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dbsr_tpu_torch.models.layers import ConvBlock
+from dbsr_tpu_torch.models.layers import ConvBlock, set_compute_dtype
 from dbsr_tpu_torch.ops.camera import demosaic_naive
 from dbsr_tpu_torch.ops.correlation import NUM_OFFSETS, cost_volume
 from dbsr_tpu_torch.ops.interp import backwarp, resize_bilinear
@@ -119,14 +119,18 @@ class AlignLiteNet(nn.Module):
 
     With ``return_pyramid=True`` it returns ``(flow, {"pyramid": {2: ..,
     1: .., 0: ..}})``: each level's flow in its own grid's pixels, level 0
-    the refined full-resolution flow, for multi-scale supervision."""
+    the refined full-resolution flow, for multi-scale supervision.
 
-    def __init__(self):
+    ``dtype`` is the convs' compute dtype (``layers.set_compute_dtype``);
+    the flow and the pyramid return in float32 whatever it is."""
+
+    def __init__(self, dtype=None):
         super().__init__()
         self.extractor = LiteExtractor()
         for lvl in (2, 1, 0):
             self.add_module(f"dec{lvl}", LiteDecoder(lvl))
         self.refiner = LiteRefiner(DEC_CH[0][-1] + 2)
+        set_compute_dtype(self, dtype)
 
     def forward(self, source_img, target_img, target_repeat: int = 1,
                 return_pyramid: bool = False):
@@ -186,11 +190,8 @@ class BurstAlignLite(nn.Module):
 
     def __init__(self, dtype=None):
         super().__init__()
-        if dtype not in (None, "float32", torch.float32):
-            raise NotImplementedError(
-                f"BurstAlignLite port: dtype={dtype!r} is not supported yet")
         self.spec_kwargs = {"dtype": dtype}
-        self.alignment_net = AlignLiteNet()
+        self.alignment_net = AlignLiteNet(dtype)
 
     def forward(self, burst, return_pyramid: bool = False):
         if burst.ndim != 5 or burst.shape[-1] != 4:

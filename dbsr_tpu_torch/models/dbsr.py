@@ -17,6 +17,13 @@ stage after the pixel shuffle runs on the phase-major space-to-depth-2
 layout; with ``DBSR_FINE_PATCH_S2D=1`` its 3x3 convs launch the fine-patch
 conv kernel (``ops/conv_s2d.py``) in the forward and again as d_input in the
 backward.
+
+``dtype="bfloat16"`` (the JAX package's serving and scoring default, and
+what the banked checkpoints record) runs every conv, the aligner included,
+in bf16 with float32 parameters cast where they are used; the kernels take
+their bf16 instantiations. What the JAX package keeps in float32 stays so:
+the demosaiced burst and the aligner's flow, the offsets through their
+``% offset_modulo`` (cast at ``offset_conv``), the prediction.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from torch import nn
 
 from dbsr_tpu_torch.models.align_lite import AlignLiteNet
 from dbsr_tpu_torch.models.layers import (ConvBlock, PixShuffleUpsampler,
-                                          ResBlock, depth_to_space_phase_major)
+                                          ResBlock, depth_to_space_phase_major,
+                                          set_compute_dtype)
 from dbsr_tpu_torch.models.pwcnet import PWCNet
 from dbsr_tpu_torch.ops.camera import demosaic_naive, uniform
 from dbsr_tpu_torch.ops.merge import fused_softmax_merge
@@ -101,7 +109,8 @@ class WeightedSumMerge(nn.Module):
     against the base (reference-frame projection, or the frame mean),
     embed the sub-pixel offsets (mod ``offset_modulo``), predict per-pixel
     per-frame logits over ``input_dim`` channels, softmax over the frames
-    and sum (``ops/merge.py``).
+    and sum (``ops/merge.py``), or, with ``softmax=False``, ReLU weights
+    normalised by their sum over the frames (plain tensor ops).
 
     The reference frame's offsets are zeros, or ``ref_offsets``
     ``[B, 1, h, w, 2]`` when the caller passes a draw of
@@ -112,9 +121,10 @@ class WeightedSumMerge(nn.Module):
                  offset_feat_dim: int = 64,
                  num_offset_feat_extractor_res: int = 1,
                  num_weight_predictor_res: int = 3, use_offset: bool = True,
-                 offset_modulo: Optional[float] = 1.0,
+                 offset_modulo: Optional[float] = 1.0, softmax: bool = True,
                  use_base_frame: bool = True, activation: str = "relu"):
         super().__init__()
+        self.softmax = softmax
         self.use_offset = use_offset
         self.offset_modulo = offset_modulo
         self.use_base_frame = use_base_frame
@@ -176,6 +186,13 @@ class WeightedSumMerge(nn.Module):
         logits = self.weight_out(x)
         logits = logits.reshape((B, N) + logits.shape[-3:])
 
+        if not self.softmax:
+            w = torch.relu(logits)
+            weights = w / (w.sum(dim=1, keepdim=True) + 1e-12)
+            out = {"fused_enc": (all_feat * weights).sum(dim=1)}
+            if return_fusion_weights:
+                out["fusion_weights"] = weights
+            return out
         out = {"fused_enc": fused_softmax_merge(all_feat.contiguous(),
                                                 logits.contiguous())}
         if return_fusion_weights:
@@ -243,9 +260,10 @@ class DBSRNet(nn.Module):
     ``noise_generator`` (a training caller's choice; none passes zeros).
     ``fused_s2d_decoder=True`` runs the decoder's post-shuffle stage on the
     s2d layout (:class:`PixShuffleDecoder`), as the JAX package does.
-    What this port does not run yet raises: another aligner than ``'pwc'``
-    or ``'lite'`` (the JAX package's test stub ``'conv'``), non-softmax
-    fusion, and a compute dtype other than float32.
+    ``dtype`` is the compute dtype: None or float32, or bfloat16 (see the
+    module's docstring); ``softmax=False`` fuses with ReLU weights. What
+    this port does not run raises: another aligner than ``'pwc'`` or
+    ``'lite'`` (the JAX package's test stub ``'conv'``) and another dtype.
     """
 
     # the JAX package's module of the same parameters (a checkpoint's
@@ -272,15 +290,9 @@ class DBSRNet(nn.Module):
         super().__init__()
         self.spec_kwargs = {k: v for k, v in spec_kwargs.items()
                             if k not in ("self", "__class__")}
-        unsupported = {  # name: (value, unsupported?)
-            "flow_net": (flow_net, flow_net not in ("pwc", "lite")),
-            "softmax": (softmax, not softmax),
-            "dtype": (dtype, dtype not in (None, "float32", torch.float32)),
-        }
-        bad = [f"{k}={v!r}" for k, (v, no) in unsupported.items() if no]
-        if bad:
+        if flow_net not in ("pwc", "lite"):
             raise NotImplementedError(
-                "DBSRNet port: not supported yet: " + ", ".join(bad))
+                f"DBSRNet port: not supported: flow_net={flow_net!r}")
         self.ref_offset_noise = float(ref_offset_noise)
         self.encoder = AlignedEncoder(enc_init_dim, enc_num_res_blocks,
                                       enc_out_dim, activation,
@@ -288,12 +300,13 @@ class DBSRNet(nn.Module):
         self.merging = WeightedSumMerge(
             enc_out_dim, weight_pred_proj_dim, offset_feat_dim,
             num_offset_feat_extractor_res, num_weight_predictor_res,
-            use_offset, offset_modulo, use_base_frame, activation)
+            use_offset, offset_modulo, softmax, use_base_frame, activation)
         self.decoder = PixShuffleDecoder(
             enc_out_dim, dec_init_conv_dim, dec_num_pre_res_blocks,
             dec_post_conv_dim, dec_num_post_res_blocks, upsample_factor,
             icnrinit, gauss_blur_sd, gauss_ksz, activation, final_activation,
             fused_s2d_decoder)
+        set_compute_dtype(self, dtype)
         if not train_alignment:  # frozen: no gradient, no optimizer state
             self.encoder.alignment_net.requires_grad_(False)
 

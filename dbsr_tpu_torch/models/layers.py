@@ -26,6 +26,15 @@ phase-major space-to-depth-2 layout of the JAX package's fused s2d decoder
 a 1x1 through the block-diagonal ``[4O, 4C, 1, 1]`` conv of
 :func:`s2d_conv_kernel`, the bias tiled over the four phases. The parameters
 stay in the fine ``nn.Conv2d`` named ``Conv_0``; only the forward differs.
+
+A compute dtype (:func:`set_compute_dtype`; bfloat16 serving) follows
+flax's ``dtype=`` semantics: parameters stay float32 and are cast where
+they are used, the conv's input is cast to the compute dtype and the bias
+is added in it to the conv's rounded output (two roundings, as XLA's and
+cuDNN's; oneDNN would add a bias handed to the conv before rounding);
+:class:`TorchConvTranspose` computes in its input's dtype, as the JAX
+module does. Without one, every conv runs in the promotion of
+its input's and weight's types: float32.
 """
 
 from __future__ import annotations
@@ -51,14 +60,56 @@ def get_activation(name: str) -> Optional[Callable]:
     raise ValueError(f"unknown activation {name!r}")
 
 
-def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """Apply ``conv`` to a channels-last ``[B, H, W, C]`` tensor."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+def resolve_dtype(dtype) -> Optional[torch.dtype]:
+    """A compute dtype as a checkpoint or a caller names it: None, float32
+    (``"float32"``, ``torch.float32``) -> None, float32 throughout;
+    bfloat16 (``"bfloat16"``, ``torch.bfloat16``) -> ``torch.bfloat16``.
+    Anything else raises."""
+    if dtype in (None, "float32", torch.float32):
+        return None
+    if dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise NotImplementedError(f"compute dtype={dtype!r}: the port runs "
+                              "float32 or bfloat16")
+
+
+def set_compute_dtype(module: nn.Module, dtype) -> None:
+    """Run every conv of ``module`` in ``dtype`` (see
+    :func:`resolve_dtype`)."""
+    dt = resolve_dtype(dtype)
+    for m in module.modules():
+        if isinstance(m, (ConvBlock, PixShuffleUpsampler)):
+            m.compute_dtype = dt
+
+
+def compute_dtype_of(module: nn.Module) -> Optional[torch.dtype]:
+    """The compute dtype of ``module``'s convs (None: float32)."""
+    return next((m.compute_dtype for m in module.modules()
+                 if isinstance(m, (ConvBlock, PixShuffleUpsampler))), None)
+
+
+def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Apply ``conv``'s parameters to a channels-last ``[B, H, W, C]``
+    tensor in ``dtype`` (None: the promotion of the input's and the
+    weight's types): the input, the weight and the bias cast to it; in
+    another dtype than the parameters' the bias is added to the conv's
+    rounded output (see the module's docstring)."""
+    dt = dtype or torch.promote_types(x.dtype, conv.weight.dtype)
+    fused = dt == conv.weight.dtype
+    y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt),
+                 conv.bias if fused else None, conv.stride, conv.padding,
+                 conv.dilation, conv.groups).permute(0, 2, 3, 1)
+    if conv.bias is not None and not fused:
+        y = y + conv.bias.to(dt)
+    return y
 
 
 class ConvBlock(nn.Module):
     """conv (+ activation); with ``s2d`` the same conv on the s2d layout
     (``[B, H2, W2, 4 * in_features]`` -> ``[B, H2, W2, 4 * features]``)."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, dilation: int = 1, use_bias: bool = True,
@@ -77,15 +128,18 @@ class ConvBlock(nn.Module):
     def forward(self, x):
         if self.s2d:
             w, bias = self.Conv_0.weight, self.Conv_0.bias
+            x = x.to(self.compute_dtype or torch.promote_types(x.dtype,
+                                                               w.dtype))
             if w.shape[-1] == 3:
                 x = conv3x3_s2d_auto(x, w)
             else:
                 x = F.conv2d(x.permute(0, 3, 1, 2),
-                             s2d_conv_kernel(w)).permute(0, 2, 3, 1)
+                             s2d_conv_kernel(w).to(x.dtype)
+                             ).permute(0, 2, 3, 1)
             if bias is not None:  # phase-major: the bias tiled over phases
-                x = x + bias.repeat(4)
+                x = x + bias.repeat(4).to(x.dtype)
         else:
-            x = conv_nhwc(self.Conv_0, x)
+            x = conv_nhwc(self.Conv_0, x, self.compute_dtype)
         return self.act(x) if self.act is not None else x
 
 
@@ -126,6 +180,8 @@ class PixShuffleUpsampler(nn.Module):
     dense block-diagonal conv on that layout, runs depthwise at fine
     resolution in between an unfold and a fold."""
 
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, in_features: int, features: int,
                  upsample_factor: int = 2, activation: str = "relu",
                  icnrinit: bool = False, gauss_blur_sd: Optional[float] = None,
@@ -161,7 +217,7 @@ class PixShuffleUpsampler(nn.Module):
                         groups=C).permute(0, 2, 3, 1)
 
     def forward(self, x):
-        x = conv_nhwc(self.Conv_0, x)
+        x = conv_nhwc(self.Conv_0, x, self.compute_dtype)
         if self.act is not None:
             x = self.act(x)
         if not self.s2d_output:
@@ -178,7 +234,8 @@ class TorchConvTranspose(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d(in_features, features, k, s, p)`` on a
     channels-last tensor (the JAX package's ``TorchConvTranspose``, PWC-Net's
     4x4 stride-2 up-convs). The weight keeps torch's ``[in, out, k, k]``
-    layout; its flax kernel is ``[k, k, in, out]`` (``utils/convert.py``)."""
+    layout; its flax kernel is ``[k, k, in, out]`` (``utils/convert.py``).
+    It computes in its input's dtype, the parameters cast to it."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 4,
                  stride: int = 2, padding: int = 1):
@@ -186,7 +243,13 @@ class TorchConvTranspose(nn.ConvTranspose2d):
                          padding=padding)
 
     def forward(self, x):
-        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        fused = x.dtype == self.weight.dtype  # else as conv_nhwc adds it
+        y = F.conv_transpose2d(
+            x.permute(0, 3, 1, 2), self.weight.to(x.dtype),
+            self.bias if fused else None, self.stride, self.padding,
+            self.output_padding, self.groups, self.dilation
+        ).permute(0, 2, 3, 1)
+        return y if fused else y + self.bias.to(x.dtype)
 
 
 def icnr_(weight: torch.Tensor, r: int, generator: torch.Generator) -> None:

@@ -1,4 +1,4 @@
-"""PWC-Net optical flow (port of ``dbsr_tpu/models/pwcnet.py``, float32).
+"""PWC-Net optical flow (port of ``dbsr_tpu/models/pwcnet.py``).
 
 A 6-level feature pyramid, coarse-to-fine decoders at levels 6..2 with an
 81-channel cost volume each (``ops/correlation.py``, the CUDA kernel on the
@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dbsr_tpu_torch.models.layers import ConvBlock, TorchConvTranspose
+from dbsr_tpu_torch.models.layers import (ConvBlock, TorchConvTranspose,
+                                          set_compute_dtype)
 from dbsr_tpu_torch.ops.camera import demosaic_naive
 from dbsr_tpu_torch.ops.correlation import NUM_OFFSETS, cost_volume
 from dbsr_tpu_torch.ops.interp import backwarp, resize_bilinear
@@ -190,11 +191,17 @@ class PWCNet(nn.Module):
     one target (its leading size is then ``sources / target_repeat``). With
     ``return_pyramid`` it returns ``(flow, {"pyramid": {level: raw flow},
     "preprocessed_hw": (Hp, Wp)})``: every raw flow is in 1/20 of a
-    preprocessed-grid pixel."""
+    preprocessed-grid pixel.
 
-    def __init__(self):
+    ``dtype`` is the convs' compute dtype (``layers.set_compute_dtype``);
+    the up-convs follow their input's and the backwarp keeps its float32
+    coordinates and mask. The flow returns in float32 (the resize to
+    (H, W) widens it); the raw pyramid in the compute dtype."""
+
+    def __init__(self, dtype=None):
         super().__init__()
         self.net = PWCFlowNet()
+        set_compute_dtype(self, dtype)
 
     def forward(self, source_img, target_img, return_pyramid: bool = False,
                 target_repeat: int = 1):
@@ -245,11 +252,8 @@ class BurstFlowNet(nn.Module):
 
     def __init__(self, dtype=None):
         super().__init__()
-        if dtype not in (None, "float32", torch.float32):
-            raise NotImplementedError(
-                f"BurstFlowNet port: dtype={dtype!r} is not supported yet")
         self.spec_kwargs = {"dtype": dtype}
-        self.alignment_net = PWCNet()
+        self.alignment_net = PWCNet(dtype)
 
     def forward(self, burst, return_pyramid: bool = False):
         if burst.ndim != 5 or burst.shape[-1] != 4:

@@ -12,7 +12,9 @@ compute-only.
   ``[16C]`` patch row (pieces in ``_SLOT`` order) times :func:`block_weight`
   ``[16C, 4O]``.
 * :func:`conv3x3_s2d` is differentiable (``Conv3x3S2D``). For CUDA tensors
-  (float32) its forward launches ``kernels/csrc/conv_s2d.cu``, which skips
+  (float32; bfloat16 forward only, the TPU kernel's bf16 matmul: the
+  weight rounded to bf16, float32 accumulation, one rounding of the
+  output) its forward launches ``kernels/csrc/conv_s2d.cu``, which skips
   the block weight's zero slots, and its d_input launches the same kernel
   with ``weight.flip(2, 3).transpose(0, 1)``; d_kernel is PyTorch's conv
   weight gradient of the fine-resolution conv on the unfolded ``x`` and
@@ -97,8 +99,14 @@ def conv3x3_s2d_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     with ``weight`` ``[O, C, 3, 3]`` -> ``[B, H2, W2, 4O]``, as
     ``_conv3x3_block_impl``: pad one coarse pixel, the 16 fine-aligned
     ``[.., C]`` pieces as ``[16C]`` patch rows in ``_SLOT`` order, times
-    :func:`block_weight`. Plain tensor ops, differentiable."""
+    :func:`block_weight`. Plain tensor ops, differentiable. For a bfloat16
+    ``x``: the same in float32 on ``x`` and the weight rounded to bf16,
+    rounded once to bf16 (float32 matmuls on the card run without TF32
+    unless asked)."""
     B, H2, W2, C, O = _check("conv3x3_s2d_plain", x, weight)
+    if x.dtype == torch.bfloat16:
+        return conv3x3_s2d_plain(x.float(),
+                                 weight.to(x.dtype).float()).to(x.dtype)
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     pieces = [None] * 16
     for ty in range(4):
@@ -115,20 +123,36 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def bf16_fragments(weight: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's weights: ``weight`` ``[O, C, 3, 3]`` rounded to
+    bf16, zero-padded to C % 16 == 0 and O % 32 == 0, in the MMA fragments'
+    order ``[C/16, O/32, tap, n8, g, t, j]``: output channel ``ob*32 + n8*8
+    + g``, input channel ``s*16 + 4t + j`` (``conv_s2d.cu``)."""
+    O, C = weight.shape[:2]
+    cp, op = -(-C // 16) * 16, -(-O // _OC_BLOCK) * _OC_BLOCK
+    w = F.pad(weight.to(torch.bfloat16), (0, 0, 0, 0, 0, cp - C, 0, op - O))
+    w = w.reshape(op // _OC_BLOCK, 4, 8, cp // 16, 4, 4, 9)
+    return w.permute(3, 0, 6, 1, 2, 4, 5).contiguous()
+
+
 def conv3x3_s2d_forward(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """The conv alone, no autograd: the kernel for CUDA tensors (float32,
-    ``x`` contiguous), :func:`conv3x3_s2d_plain` for CPU ones."""
+    """The conv alone, no autograd: the kernel for CUDA tensors (float32 or
+    bfloat16 ``x``, contiguous; the weight float32, rounded to bf16 for a
+    bf16 ``x``), :func:`conv3x3_s2d_plain` for CPU ones."""
     B, H2, W2, C, O = _check("conv3x3_s2d", x, weight)
     if _on_cpu(x, weight):
         return conv3x3_s2d_plain(x, weight)
-    # [C, 9, Op]: the kernel reads 8 consecutive output channels per load
-    op = -(-O // _OC_BLOCK) * _OC_BLOCK
-    wk = F.pad(weight.permute(1, 2, 3, 0).reshape(C, 9, O),
-               (0, op - O)).contiguous()
-    kernels.require_cuda_f32("conv3x3_s2d", x, wk)
+    fn = kernels.entry("conv3x3_s2d", "dbsr_conv_s2d", x.dtype)
+    if x.dtype == torch.bfloat16:
+        wk = bf16_fragments(weight)
+    else:
+        # [C, 9, Op]: the kernel reads 8 consecutive output channels per load
+        op = -(-O // _OC_BLOCK) * _OC_BLOCK
+        wk = F.pad(weight.permute(1, 2, 3, 0).reshape(C, 9, O),
+                   (0, op - O)).contiguous()
+    kernels.require_cuda("conv3x3_s2d", x, wk, dtypes=(x.dtype,) * 2)
     out = x.new_empty((B, H2, W2, 4 * O))
-    kernels.launch("conv_s2d", "dbsr_conv_s2d_f32", (x, wk, out),
-                   (B, H2, W2, C, O))
+    kernels.launch("conv_s2d", fn, (x, wk, out), (B, H2, W2, C, O))
     conv3x3_s2d.launches += 1
     return out
 

@@ -16,6 +16,11 @@ tensors the same ``Function`` runs the plain versions (``correlation_plain``,
 the gradient shifted per pixel, ``shift_gradient``). The inputs are
 kept for the backward only when a gradient is needed, so nothing is saved
 under ``no_grad``. Each kernel wrapper counts its launches in ``.launches``.
+
+The forward takes float32 or bfloat16 (both inputs and the output of one
+type); in bfloat16 it follows the TPU kernel's arithmetic: the sums, the
+1/C and the division in float32, one rounding of the output. The backward
+kernels take float32.
 """
 
 from __future__ import annotations
@@ -42,10 +47,25 @@ def _pad_plane(x: torch.Tensor) -> torch.Tensor:
 
 def correlation_plain(first: torch.Tensor, second: torch.Tensor) -> torch.Tensor:
     """Shifted-window cost volume, 81 shifted products and a channel mean:
-    ``[B, H, W, C] x2 -> [B, H, W, 81]``."""
+    ``[B, H, W, C] x2 -> [B, H, W, 81]``. Below float32 (bfloat16, the TPU
+    kernel's arithmetic): the products, exact in float32, summed channel by
+    channel in order, divided by C and rounded once, which is what the CUDA
+    kernel's ``fmaf`` chain computes, bit for bit."""
     B, H, W, C = first.shape
     p = MAX_DISP
     second_p = _pad_plane(second)
+    if first.dtype not in (torch.float32, torch.float64):
+        f = first.float()
+        shifted = torch.stack(
+            [second_p[:, dy + p:dy + p + H, dx + p:dx + p + W, :]
+             for dy, dx in _offsets()], dim=-2)  # [B, H, W, 81, C]
+        acc = torch.zeros((B, H, W, NUM_OFFSETS), dtype=torch.float32,
+                          device=first.device)
+        for c in range(C):
+            acc = acc + f[..., c:c + 1] * shifted[..., c].float()
+        # a tensor divisor: PyTorch multiplies by the reciprocal of a
+        # scalar one on the card, which is not the division
+        return (acc / acc.new_full((1,), C)).to(first.dtype)
     outs = []
     for dy, dx in _offsets():
         shifted = second_p[:, dy + p:dy + p + H, dx + p:dx + p + W, :]
@@ -131,8 +151,8 @@ def _check_grad(op: str, operand: torch.Tensor, g: torch.Tensor) -> None:
                          f"{tuple(g.shape)} are not [B,H,W,C], [B,H,W,81]")
 
 
-def _launch_checks(op: str, *tensors: torch.Tensor):
-    kernels.require_cuda_f32(op, *tensors)
+def _launch_checks(op: str, *tensors: torch.Tensor, dtypes=()):
+    kernels.require_cuda(op, *tensors, dtypes=dtypes)
     B, H, W, C = tensors[0].shape
     if C < 1:
         raise ValueError(f"{op}: kernel takes C >= 1, got C={C}")
@@ -141,15 +161,16 @@ def _launch_checks(op: str, *tensors: torch.Tensor):
 
 def correlation_forward(first: torch.Tensor,
                         second: torch.Tensor) -> torch.Tensor:
-    """The forward alone, no autograd: the kernel for CUDA tensors (float32,
-    contiguous), :func:`correlation_plain` for CPU ones."""
+    """The forward alone, no autograd: the kernel for CUDA tensors (float32
+    or bfloat16, contiguous), :func:`correlation_plain` for CPU ones."""
     _check_pair("cost_volume", first, second)
     if _on_cpu(first, second):
         return correlation_plain(first, second)
-    B, H, W, C = _launch_checks("cost_volume", first, second)
+    fn = kernels.entry("cost_volume", "dbsr_correlation", first.dtype)
+    B, H, W, C = _launch_checks("cost_volume", first, second,
+                                dtypes=(first.dtype,) * 2)
     out = first.new_empty((B, H, W, NUM_OFFSETS))
-    kernels.launch("correlation", "dbsr_correlation_f32", (first, second, out),
-                   (B, H, W, C))
+    kernels.launch("correlation", fn, (first, second, out), (B, H, W, C))
     cost_volume.launches += 1
     return out
 
@@ -207,7 +228,8 @@ class _Correlation(torch.autograd.Function):
 def cost_volume(first: torch.Tensor, second: torch.Tensor) -> torch.Tensor:
     """81-channel local cost volume of ``[B, H, W, C]`` features,
     differentiable in both: the CUDA kernels for CUDA tensors (float32,
-    any C >= 1), the plain versions for CPU tensors. A non-contiguous input
+    any C >= 1; the forward also bfloat16), the plain versions for CPU
+    tensors. A non-contiguous input
     (a broadcast target pyramid, a masked backwarp) is copied first."""
     return _Correlation.apply(first.contiguous(), second.contiguous())
 

@@ -10,6 +10,11 @@ online softmax) and its backward ``kernels/csrc/merge_bwd.cu``
 tensors the same ``Function`` runs ``fused_softmax_merge_plain`` and
 ``fused_softmax_merge_backward_plain``. ``fused_softmax_merge.launches``
 and ``merge_backward.launches`` count kernel launches.
+
+The forward takes float32 or bfloat16 (feat and logits of one type, the
+output feat's); in bfloat16 the max, the exps and the sums are float32 and
+the output is rounded once, as in the TPU kernel. The backward kernel
+takes float32.
 """
 
 from __future__ import annotations
@@ -23,9 +28,25 @@ from dbsr_tpu_torch import kernels
 
 def fused_softmax_merge_plain(feat: torch.Tensor,
                               logits: torch.Tensor) -> torch.Tensor:
-    """Plain version: softmax over the frame axis, weighted sum of frames."""
-    w = torch.softmax(logits.float(), dim=1)
-    return (feat.float() * w).sum(dim=1).to(feat.dtype)
+    """Plain version: softmax over the frame axis, weighted sum of frames.
+    Below float32 (bfloat16), in the steps of the TPU kernel's body
+    (``merge_pallas._merge_kernel``), float32: the logits' max over the
+    frames, then frame by frame ``s += exp(l - m)`` and ``a += exp(l - m) *
+    f`` (each product and sum rounded on its own), and ``a / s`` rounded
+    once, the steps and order of the bf16 kernel."""
+    if feat.dtype in (torch.float32, torch.float64):
+        w = torch.softmax(logits.float(), dim=1)
+        return (feat.float() * w).sum(dim=1).to(feat.dtype)
+    l = logits.float()
+    f = feat.float()
+    m = l.amax(dim=1)
+    s = a = None
+    for n in range(l.shape[1]):
+        e = torch.exp(l[:, n] - m)
+        t = e * f[:, n]
+        s = e if s is None else s + e
+        a = t if a is None else a + t
+    return (a / s).to(feat.dtype)
 
 
 def fused_softmax_merge_backward_plain(feat: torch.Tensor,
@@ -49,8 +70,9 @@ def _check(op: str, feat: torch.Tensor, logits: torch.Tensor) -> None:
                          f"{tuple(logits.shape)} are not equal [B,N,h,w,C]")
 
 
-def _sizes(op: str, *tensors: torch.Tensor) -> Tuple[int, int, int, int]:
-    kernels.require_cuda_f32(op, *tensors)
+def _sizes(op: str, *tensors: torch.Tensor,
+           dtypes=()) -> Tuple[int, int, int, int]:
+    kernels.require_cuda(op, *tensors, dtypes=dtypes)
     B, N, H, W, C = tensors[0].shape
     if C % 4 or N == 0:
         raise ValueError(f"{op}: kernel takes C % 4 == 0 and N > 0, got "
@@ -60,14 +82,16 @@ def _sizes(op: str, *tensors: torch.Tensor) -> Tuple[int, int, int, int]:
 
 def merge_forward(feat: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """The forward alone, no autograd: the kernel for CUDA tensors
-    (float32, contiguous, C % 4 == 0), the plain version for CPU ones."""
+    (float32 or bfloat16, contiguous, C % 4 == 0), the plain version for CPU
+    ones."""
     _check("fused_softmax_merge", feat, logits)
     if feat.device.type == "cpu" and logits.device.type == "cpu":
         return fused_softmax_merge_plain(feat, logits)
-    B, N, P, C = _sizes("fused_softmax_merge", feat, logits)
+    fn = kernels.entry("fused_softmax_merge", "dbsr_merge", feat.dtype)
+    B, N, P, C = _sizes("fused_softmax_merge", feat, logits,
+                        dtypes=(feat.dtype,) * 2)
     out = feat.new_empty((B,) + feat.shape[2:])
-    kernels.launch("merge", "dbsr_merge_f32", (feat, logits, out),
-                   (B, N, P, C))
+    kernels.launch("merge", fn, (feat, logits, out), (B, N, P, C))
     fused_softmax_merge.launches += 1
     return out
 
@@ -107,8 +131,8 @@ class _Merge(torch.autograd.Function):
 
 def fused_softmax_merge(feat: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """One-pass frame-softmax weighted sum, differentiable in both inputs:
-    the CUDA kernels for CUDA tensors (float32, contiguous, C % 4 == 0),
-    the plain versions for CPU tensors."""
+    the CUDA kernels for CUDA tensors (float32, contiguous, C % 4 == 0; the
+    forward also bfloat16), the plain versions for CPU tensors."""
     return _Merge.apply(feat, logits)
 
 

@@ -59,7 +59,7 @@ def affine_resample(images: torch.Tensor, invs: torch.Tensor,
                          "[B,N,2,3]")
     if images.device.type == "cpu" and invs.device.type == "cpu":
         return affine_resample_plain(images, invs, out_hw, d, border)
-    kernels.require_cuda_f32("affine_resample", images, invs)
+    kernels.require_cuda("affine_resample", images, invs)
     B, H, W, C = images.shape
     if C > 4:
         raise ValueError(f"affine_resample: kernel takes C <= 4, got C={C}")

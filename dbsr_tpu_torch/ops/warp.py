@@ -12,6 +12,11 @@ features) only when the flow needs one. For CPU
 tensors the same ``Function`` runs the plain versions
 (``warp_feat_plain``, ``warp_feat_backward_plain``). Each kernel wrapper
 counts its launches in ``.launches``.
+
+The forward takes float32 or bfloat16 features (the flow float32); in
+bfloat16 it follows the TPU kernel's arithmetic (each tap weight rounded
+to bf16, products and sums in float32, one rounding of the output). The
+backward kernels take float32.
 """
 
 from __future__ import annotations
@@ -67,14 +72,18 @@ def sample_bilinear(im: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Bilinear sampling of ``[B, H, W, C]`` at pixel ``coords``
     ``[B, h, w, 2]`` ((x, y), pixel centres at integers); out-of-range
     corner taps contribute 0. The four terms are summed in tap order
-    (00, 01, 10, 11), the order the CUDA kernels use."""
+    (00, 01, 10, 11), the order the CUDA kernels use. Below float32 (a
+    bfloat16 ``im``) each weight is rounded to ``im``'s type, the products
+    and their sum are float32 and the output is rounded once, as the TPU
+    kernel's bf16 matmul does."""
     B, H, W, C = im.shape
+    acc = torch.promote_types(im.dtype, torch.float32)
     flat = im.reshape(B, H * W, C)
     out = None
     for idx, w, _, _ in _taps(coords, H, W):
-        term = _gather(flat, idx) * w[..., None].to(im.dtype)
+        term = _gather(flat, idx).to(acc) * w[..., None].to(im.dtype).to(acc)
         out = term if out is None else out + term
-    return out
+    return out.to(im.dtype)
 
 
 def warp_feat_plain(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -137,9 +146,9 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _launch_checks(op: str, *tensors: torch.Tensor,
-                   any_c: bool = True) -> Tuple[int, ...]:
-    kernels.require_cuda_f32(op, *tensors)
+def _launch_checks(op: str, *tensors: torch.Tensor, any_c: bool = True,
+                   dtypes=()) -> Tuple[int, ...]:
+    kernels.require_cuda(op, *tensors, dtypes=dtypes)
     B, H, W, C = tensors[0].shape
     if not any_c and C % 4:
         raise ValueError(f"{op}: kernel takes C % 4 == 0, got C={C}")
@@ -148,14 +157,17 @@ def _launch_checks(op: str, *tensors: torch.Tensor,
 
 def warp_forward(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """The forward alone, no autograd: the kernel for CUDA tensors
-    (float32, contiguous, any C: 16-byte accesses where C % 4 == 0, 4-byte
-    ones otherwise), the plain version for CPU ones."""
+    (float32 or bfloat16 features, float32 flow, contiguous, any C: 16-byte
+    accesses where the channels fill them, one channel an access
+    otherwise), the plain version for CPU ones."""
     _check("warp_feat", feat, flow)
     if _on_cpu(feat, flow):
         return warp_feat_plain(feat, flow)
-    B, H, W, C = _launch_checks("warp_feat", feat, flow)
+    fn = kernels.entry("warp_feat", "dbsr_warp", feat.dtype)
+    B, H, W, C = _launch_checks("warp_feat", feat, flow,
+                                dtypes=(feat.dtype, torch.float32))
     out = torch.empty_like(feat)
-    kernels.launch("warp", "dbsr_warp_f32", (feat, flow, out), (B, H, W, C))
+    kernels.launch("warp", fn, (feat, flow, out), (B, H, W, C))
     warp_feat.launches += 1
     return out
 
@@ -224,8 +236,8 @@ class _Warp(torch.autograd.Function):
 def warp_feat(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Backward-warp ``feat`` ``[B, H, W, C]`` by ``flow`` ``[B, H, W, 2]``,
     differentiable in both: the CUDA kernels for CUDA tensors (float32,
-    contiguous; any C, but d_flow only for C % 4 == 0), the plain versions
-    for CPU tensors."""
+    contiguous; any C, but d_flow only for C % 4 == 0; the forward also
+    bfloat16 features), the plain versions for CPU tensors."""
     return _Warp.apply(feat, flow)
 
 

@@ -1,10 +1,11 @@
 """Where the serving forward's device time goes, on one CUDA card.
 
     python -m dbsr_tpu_torch.profile_serving \
-        [--decoder {s2d_dense,s2d_kernel,fine}]
+        [--decoder {s2d_dense,s2d_kernel,fine}] [--dtype {float32,bfloat16}]
 
 Loads the banked flagship checkpoint at full width into the predictor
-(batch 8; float32, TF32 off) with the decoder in the given form
+(batch 8; float32 with TF32 off, or bf16, the serving default) with the
+decoder in the given form
 (``s2d_dense``, the default: the s2d layout that ``load_predictor``
 defaults to, with ``DBSR_FINE_PATCH_S2D`` unset, so its 3x3 convs run as
 the structured-dense conv; ``s2d_kernel``: the same with
@@ -39,7 +40,8 @@ OWN_KERNELS = ("warp_kernel", "correlation_kernel", "merge_kernel",
                "dfeat_gather_kernel", "dfeat_gather_scalar_kernel",
                "dflow_kernel",
                "merge_bwd_kernel", "correlation_bwd_kernel",
-               "conv_s2d_kernel")
+               "conv_s2d_kernel", "merge_bf16_kernel",
+               "conv_s2d_bf16_kernel")
 DECODERS = ("s2d_dense", "s2d_kernel", "fine")
 
 
@@ -72,12 +74,12 @@ def kernel_us(evt) -> float:
 
 
 def conv_flops(pred, x: torch.Tensor) -> int:
-    """Operations of every ``nn.Conv2d`` in one forward of the predictor
-    ``pred`` on ``x`` (2 per multiply-add), counted from the shapes by
-    forward hooks: the true work of each conv, whatever form computes it
-    (an s2d ``ConvBlock`` uses its ``Conv_0``'s parameters without calling
-    it, and its output holds as many values as the fine one)."""
-    from dbsr_tpu_torch.models.layers import ConvBlock
+    """Operations of every conv in one forward of the predictor ``pred`` on
+    ``x`` (2 per multiply-add), counted from the shapes by forward hooks on
+    the modules that own a ``Conv_0``: the true work of each conv, whatever
+    form computes it (their outputs hold as many values as the conv's,
+    the pixel shuffle's and the s2d layout's alike)."""
+    from dbsr_tpu_torch.models.layers import ConvBlock, PixShuffleUpsampler
 
     total = 0
 
@@ -86,11 +88,10 @@ def conv_flops(pred, x: torch.Tensor) -> int:
         kh, kw = conv.kernel_size
         total += 2 * out.numel() * (conv.in_channels // conv.groups) * kh * kw
 
-    hooks = [m.register_forward_hook(lambda mod, _i, out: count(mod, out))
-             for m in pred.net.modules() if isinstance(m, torch.nn.Conv2d)]
-    hooks += [m.register_forward_hook(
+    hooks = [m.register_forward_hook(
         lambda mod, _i, out: count(mod.Conv_0, out))
-        for m in pred.net.modules() if isinstance(m, ConvBlock) and m.s2d]
+        for m in pred.net.modules()
+        if isinstance(m, (ConvBlock, PixShuffleUpsampler))]
     try:
         pred.forward(x)
     finally:
@@ -103,7 +104,10 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="Device-time breakdown of the "
                                             "serving forward.")
     p.add_argument("--decoder", choices=DECODERS, default=DECODERS[0])
-    decoder = p.parse_args(argv).decoder
+    p.add_argument("--dtype", choices=("float32", "bfloat16"),
+                   default="float32")
+    args = p.parse_args(argv)
+    decoder = args.decoder
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: CUDA is not available")
     card = subprocess.run(
@@ -116,7 +120,9 @@ def main(argv=None):
     else:
         os.environ.pop("DBSR_FINE_PATCH_S2D", None)
     pred = load_predictor(FLAGSHIP_CHECKPOINT, batch_size=BATCH,
-                          device="cuda", fused_s2d=decoder != "fine")
+                          device="cuda", dtype=args.dtype,
+                          fused_s2d=decoder != "fine")
+    peak = 989e12 if args.dtype == "bfloat16" else 67e12
     x = torch.from_numpy(np.random.RandomState(0).rand(
         BATCH, 14, 48, 48, 4).astype(np.float32)).cuda()
     flops = conv_flops(pred, x)
@@ -141,7 +147,8 @@ def main(argv=None):
     if busy_us == 0:
         raise SystemExit("profile_serving: the trace holds no device time")
     print(card)
-    print(f"decoder {decoder}; batch {BATCH}, {per_fwd} forwards traced: wall "
+    print(f"decoder {decoder}, {args.dtype}; batch {BATCH}, {per_fwd} "
+          f"forwards traced: wall "
           f"{wall_us / per_fwd / 1e3:.2f} ms/forward, device busy "
           f"{busy_us / per_fwd / 1e3:.2f} ms/forward "
           f"({100 * busy_us / wall_us:.1f}% of wall)")
@@ -152,11 +159,13 @@ def main(argv=None):
     # ^ conv math only: the layout transposes are a group of their own
     print(f"conv operations per forward {flops / 1e9:.1f} GFLOP: "
           f"{flops / conv_ms / 1e9:.2f} TFLOP/s achieved in the conv kernels; "
-          f"{flops / 67e12 * 1e3:.2f} ms at the 67 TFLOP/s float32 peak")
+          f"{flops / peak * 1e3:.2f} ms at the {peak / 1e12:.0f} TFLOP/s "
+          f"{args.dtype} peak")
     print("top kernels (ms/forward, launches/forward):")
     for name, us, n in rows[:15]:
         print(f"  {us / per_fwd / 1e3:8.3f}  {n / per_fwd:6.1f}  {name[:100]}")
-    out = {"card": card, "decoder": decoder, "batch": BATCH,
+    out = {"card": card, "decoder": decoder, "dtype": args.dtype,
+           "batch": BATCH,
            "forwards": per_fwd,
            "wall_ms_per_forward": wall_us / per_fwd / 1e3,
            "device_busy_ms_per_forward": busy_us / per_fwd / 1e3,

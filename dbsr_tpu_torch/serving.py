@@ -7,13 +7,17 @@ Usage::
                           "dbsr_campaign_r5_best_params.ckpt", batch_size=8)
     rgb = pred(burst)   # [<=8, 14, 48, 48, 4] in [0, 1] -> [n, 384, 384, 3]
 
-The predictor runs in float32 (bf16 serving is not ported yet) on
+The predictor computes in bfloat16 by default, as the JAX package serves
+(``dtype="bfloat16"``: float32 parameters cast where they are used, the
+kernels' bf16 instantiations, the flow, the offsets and the prediction in
+float32); ``dtype=None`` (or ``"float32"``) serves in float32. It runs on
 ``device`` ("cuda" by default; "cuda" with no card raises), with the JAX
 package's fused s2d decoder by default (``fused_s2d=True``: the stage after
 the pixel shuffle on the space-to-depth-2 layout; ``DBSR_FINE_PATCH_S2D=1``
 runs its 3x3 convs through the fine-patch conv kernel). Its forward turns
 TF32 off for cuDNN convs and matmuls, which PyTorch otherwise lets cuDNN
-use, and restores the caller's settings afterwards.
+use, so that what runs in float32 is float32, and restores the caller's
+settings afterwards.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ class Predictor:
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The network's prediction for a burst tensor already on the
-        predictor's device, in float32 (TF32 off), not clipped."""
+        predictor's device, float32 (its float32 math with TF32 off), not
+        clipped."""
         with float32_math():
             return self.net(x)[0]
 
@@ -85,11 +90,13 @@ class Predictor:
 
 def load_predictor(checkpoint_path: str, batch_size: int = 8,
                    burst_size: int = 14, burst_hw=(48, 48), device="cuda",
-                   fused_s2d: bool = True, **net_overrides) -> Predictor:
-    """Rebuild the network from a checkpoint at float32, with the s2d
-    decoder unless ``fused_s2d=False``, and wrap it in a :class:`Predictor`
-    on ``device``."""
-    overrides = {"dtype": None, "fused_s2d_decoder": fused_s2d,
+                   dtype="bfloat16", fused_s2d: bool = True,
+                   **net_overrides) -> Predictor:
+    """Rebuild the network from a checkpoint in ``dtype`` (bfloat16, the
+    JAX package's serving default; None or ``"float32"`` for float32), with
+    the s2d decoder unless ``fused_s2d=False``, and wrap it in a
+    :class:`Predictor` on ``device``."""
+    overrides = {"dtype": dtype, "fused_s2d_decoder": fused_s2d,
                  **net_overrides}
     net, _ = load_network(checkpoint_path, device=device, **overrides)
     return Predictor(net, batch_size, burst_size, burst_hw,

@@ -268,8 +268,18 @@ def test_burst_align_lite_matches_jax():
         _close(aux["pyramid"][lvl], waux["pyramid"][lvl], rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="packed burst"):
         net(torch.zeros(2, 16, 16, 4))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        BurstAlignLite(dtype="bfloat16")
+    # bf16, which the port once refused: the same parameters against the
+    # JAX module at bf16, relative L2 within 2e-2, flows in float32
+    bf = BurstAlignLite(dtype="bfloat16").eval()
+    bf.load_state_dict(net.state_dict())
+    want_bf = jax.jit(lambda p, b: JaxBurstAlignLite(
+        dtype=jnp.bfloat16).apply(p, b))(params, _j(burst))
+    with torch.no_grad():
+        got_bf = bf(_t(burst))
+    assert got_bf.dtype == torch.float32
+    want_bf = np.asarray(want_bf, np.float64)
+    assert np.linalg.norm(got_bf.numpy() - want_bf) \
+        <= 2e-2 * np.linalg.norm(want_bf)
 
 
 # ---------------------------------------------------------------------------

@@ -684,9 +684,9 @@ def r3d_val_root(tmp_path_factory):
 def test_scoring_r3d_raises_the_pwc_refusal_before_any_read(r3d_val_root,
                                                             tmp_path):
     """r3d, the zoo's PWC-Net model, which the port once refused before
-    reading a burst, is scored: the port (float32 whatever the checkpoint
-    records) against the JAX package on a float32 copy of the checkpoint,
-    within this file's limits."""
+    reading a burst, is scored: the port and the JAX package on a float32
+    copy of the checkpoint (it records bf16, which both score at by
+    default), within this file's limits."""
     from dbsr_tpu_torch.evaluation.experiments import dbsr_zoo
     from dbsr_tpu_torch.training.checkpoint import (read_checkpoint,
                                                     write_checkpoint)
@@ -701,9 +701,9 @@ def test_scoring_r3d_raises_the_pwc_refusal_before_any_read(r3d_val_root,
         [JaxNetworkParam(checkpoint_path=f32, display_name="r3d")],
         r3d_val_root, boundary_ignore=BOUNDARY, with_lpips=False,
         with_msssim=True)
-    got = _score(r3d_val_root, [NetworkParam(
-        checkpoint_path=r3d.checkpoint_path, display_name="r3d")],
-        with_msssim=True)
+    got = _score(r3d_val_root, [NetworkParam(checkpoint_path=f32,
+                                             display_name="r3d")],
+                 with_msssim=True)
     got = {m: v["r3d"] for m, v in got.items()}
     assert all(np.isfinite(v) for v in got.values())
     _close(got, {m: v["r3d"] for m, v in want.items()})

@@ -152,9 +152,47 @@ def test_load_predictor_cuda_without_card_raises():
         load_predictor(FLAGSHIP, device="cuda")
 
 
-@pytest.mark.parametrize("override", [{"dtype": "bfloat16"},
-                                      {"flow_net": "conv"},
-                                      {"softmax": False}])
+@pytest.mark.parametrize("override", [{"flow_net": "conv"}])
 def test_unported_options_raise(override):
     with pytest.raises(NotImplementedError, match=next(iter(override))):
         load_network(FLAGSHIP, device="cpu", **{"dtype": None, **override})
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+@pytest.mark.parametrize("override", [{"dtype": "bfloat16"},
+                                      {"softmax": False},
+                                      {"softmax": False, "dtype": "bfloat16"}])
+def test_formerly_refused_options_build_and_match_jax(override):
+    """bf16 compute and ReLU-weight fusion (``softmax=False``), which the
+    port refused, build and match the JAX package's tiny network with the
+    same parameters: float32 within 1e-5 as the tiny network's test; bf16
+    against JAX bf16 and, against JAX float32, within twice JAX bf16's own
+    distance (``tests/test_torch_port_bf16.py``'s rules), and within
+    relative L2 2e-2 of JAX bf16. Without the softmax the logits' bias is
+    raised by 1, so that the ReLU weights' sums stay away from 0."""
+    x = _burst((2, 3, 16, 16, 4), 14)
+    bf16 = override.get("dtype") == "bfloat16"
+    shapes = jax.eval_shape(jax_dbsrnet_tiny(flow_net="lite").init,
+                            jax.random.key(0), jnp.asarray(x))
+    params = _random_params(shapes, 15)
+    if not override.get("softmax", True):
+        out = params["params"]["merging"]["weight_out"]["Conv_0"]
+        out["bias"] = out["bias"] + np.float32(1.0)
+    want = {dt: jax.jit(jax_dbsrnet_tiny(
+        flow_net="lite", softmax=override.get("softmax", True),
+        dtype=dt).apply)(params, jnp.asarray(x))[0]
+        for dt in ((jnp.bfloat16, None) if bf16 else (None,))}
+    net = _port(dbsrnet_tiny(**override), params)
+    with torch.no_grad():
+        got = net(torch.from_numpy(x))[0].numpy()
+    assert np.abs(np.asarray(want[None])).max() > 0.1  # not ReLU'd away
+    if not bf16:
+        np.testing.assert_allclose(got, np.asarray(want[None]), atol=1e-5)
+        return
+    ref = _rel_l2(want[jnp.bfloat16], want[None])
+    rel = _rel_l2(got, want[jnp.bfloat16])
+    assert rel <= 2e-2 and _rel_l2(got, want[None]) <= 2 * ref, (rel, ref)

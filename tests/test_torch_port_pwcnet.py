@@ -319,7 +319,8 @@ def test_r3d_full_width_matches_jax():
 
 def test_load_predictor_serves_r3d_on_the_cpu():
     """``load_predictor`` rebuilds r3d from its header (PWC-Net, the s2d
-    decoder) in float32 and serves a partial batch, padded and clipped."""
+    decoder), in bf16 by default, and serves a partial batch, padded and
+    clipped."""
     pred = load_predictor(R3D, batch_size=2, burst_size=3, burst_hw=(8, 8),
                           device="cpu")
     assert isinstance(pred.net, DBSRNet) and pred.net.decoder.s2d
