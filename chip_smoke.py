@@ -8,11 +8,14 @@ result line):
 Phases 4-9 pin the decoder at fine resolution (``fused_s2d=False``,
 ``fused_s2d_decoder=False``), so that their numbers stay comparable with
 the earlier runs; phase 10 drives the s2d decoder, the entry points'
-default. Phases 1-13 run float32: where an entry point would take the
-banked checkpoints' recorded bf16 (``load_predictor``, the eval entries)
-they ask for float32 (``dtype=None``, or a float32 copy of the checkpoint
-for a ``NetworkParam``, ``float32_copy``); phase 14 drives the bf16
-default.
+default, whose 3x3 convs launch the s2d conv on the card unless
+``DBSR_FINE_PATCH_S2D=0`` (phases 10-15 count its launches: 8 per forward
+of an s2d network, 16 per step). Phases 1-13 run float32: where an entry
+point would take the banked checkpoints' recorded bf16 (``load_predictor``,
+the eval entries, ``default_realworld``) or its bf16 default
+(``default_synthetic``) they ask for float32 (``dtype=None``,
+``compute_dtype="float32"``, or a float32 copy of the checkpoint,
+``float32_copy``); phases 14 and 15 drive the bf16 defaults.
 
 1. environment: torch / CUDA versions, the card's name and power limit;
    the predictor's forward runs its convs and matmuls with TF32 off
@@ -127,7 +130,8 @@ default.
     switch at B=1 on the card against the CPU; (d) ``run_training`` for
     one epoch of 5 steps with the switch (8 + 8 ``conv_s2d`` launches per
     step on top of phase 7's); (e) the B=16 step's time and peak memory with
-    the kernel and with the dense conv (the fine form's is 7c's);
+    the kernel and with the dense conv (the fine form's is 7c's); the
+    switch set to 1 or 0 in each part;
 11. the SyntheticBurstVal protocol: (a) ``python -m
     dbsr_tpu_torch.generate_synthetic_burst_val --procedural 150
     --num_bursts 300 --seed 20260817`` (its ``main``, in this process: the
@@ -135,7 +139,7 @@ default.
     wall time; (b) ``compute_score`` of the flagship and of r4mix over the
     300 bursts at batch 8, MS-SSIM on, no LPIPS, the launch counters reset
     just before each and read just after (38 forwards: warp and correlation
-    114, merge 38, nothing else), scores logged beside the JAX package's
+    114, merge 38, the s2d conv 304, nothing else), scores logged beside the JAX package's
     bf16 ones of the same epochs (another val set: context, not a limit),
     ms per burst by part (the forward and the scoring by CUDA events, the
     reader thread, the wait on it, the transfer, the fetch) and peak
@@ -145,9 +149,10 @@ default.
     ``run_evaluation synburst compute_score dbsr_default --no_lpips
     --max_bursts 16 --json`` (its ``main``) on phase 7b's workspace, the
     latest epoch and ``--all_epochs``, equal to the API's within 1e-6; (f)
-    (b)'s flagship run with ``DBSR_FINE_PATCH_S2D=1`` (8 ``conv_s2d``
-    launches per forward), scores within (c)'s limits. r3d, the zoo's
-    PWC-Net model, is scored in (b) too (warp and correlation 190, merge 38)
+    (b)'s flagship run with ``DBSR_FINE_PATCH_S2D=0`` (the structured-dense
+    conv, no ``conv_s2d`` launch), scores within (c)'s limits. r3d, the
+    zoo's PWC-Net model, is scored in (b) too (warp and correlation 190,
+    merge 38, the s2d conv 304)
     and held card against CPU in (c);
 12. PWC-Net: (b) ``load_predictor`` on r3d (PWC-Net, its own s2d decoder,
     full width) answers the three requests of phase 4 (warp 5, correlation
@@ -220,22 +225,49 @@ default.
     and ``run_evaluation burstsr compute_score dbsr_zoo --json`` (its
     ``main``, bf16) equal to the API within 1e-6.
 
+15. bf16 training, the JAX package's default compute dtype: (a, run
+    beside phase 3) the six bf16 backward kernels (d_feat, d_flow, the
+    merge's, d_first, d_second, the s2d conv's d_input) against their plain
+    bf16 versions at the train step's shapes (B=16, N=8: the encoder's
+    warp, AlignLite's backwarps and cost volumes, the merge, one of the
+    decoder's convs), at PWC-Net's and at an odd C: at least 99.9% of the
+    outputs bit-equal and none more than one bf16 ulp off (d_flow, float32
+    out: within 1e-5 of its terms' magnitude), the same bits twice; timed
+    and bounded at bf16 bytes beside autograd of the bf16
+    ``F.grid_sample``, autograd of the bf16 plain merge and
+    ``torch.nn.grad.conv2d_input`` on the structured-dense bf16 kernel;
+    (b) ``run_training("dbsr", "default_synthetic", ...)`` with its
+    defaults (bf16, the s2d decoder and its kernel) at B=16 for one epoch
+    of 5 steps with the banked AlignLite frozen, the banked PWC-Net
+    frozen, and the fallback (a fresh PWC-Net trained end to end), exact
+    launches per step, each one's step time, busy share and peak memory;
+    the AlignLite step timed again with ``cudnn.deterministic=True``; one
+    bf16 step of the flagship at B=1 card vs CPU (loss within 2e-2, the
+    card's bf16 gradients no farther from its float32 ones than twice the
+    CPU's), every module's output gradient card vs CPU in float32 and
+    bf16, the first to depart named; (c) ``default_realworld`` from (b)'s
+    bf16 checkpoint: restored in bf16 (exact launches, its checkpoint
+    records bf16), its B=12 step time, one step card vs CPU as in (b).
+
 The second-to-last line is ``{"kernels": [...]}`` (all ten kernels;
 ``launches`` is the count on the entry's own ``path``, whose shapes its
 times are summed over, except the s2d conv's, whose times are one launch's
 and whose path launches it 8 times per forward; ``launches_by_path`` has
-the counts on all nineteen paths (``eval``: phase 11's generation and
+the counts on all twenty-three paths (``eval``: phase 11's generation and
 flagship scoring; ``eval_r3d``, ``serving_r3d_3_requests`` and the
 ``pwc_*_step`` paths: PWC-Net's; ``burstsr_eval`` and
 ``burstsr_eval_r3d``: phase 13c's scoring of 3 bursts; ``realworld_step``:
-per ``default_realworld`` step; the ``*_bf16*`` paths: phase 14's);
+per ``default_realworld`` step; the ``*_bf16*`` paths: phase 14's
+serving and scoring and phase 15's training steps);
 ``device_ms``, ``kernel_device_ms`` and ``library_device_ms`` beside
 ``ms`` and ``library_ms``; the s2d conv's ``bound_ms`` is that of its own
 math, 3xTF32 on the tensor cores, also given as ``tc_bound_ms``, and
 ``ffma_bound_ms`` is the same work's bound on the float32 FMA units;
 ``dtypes`` names the types the entry's checks covered, and the four with
 a bf16 path carry its rows and sums under ``bf16``, with its launches on
-``serving_bf16_3_requests``); the last line is ``{"ok": true, "device":
+``serving_bf16_3_requests``; the six with a bf16 backward under
+``bf16_training``, with its launches on ``train_step_bf16`` or, where the
+aligner trains, ``pwc_fallback_step_bf16``); the last line is ``{"ok": true, "device":
 {...}}``.
 """
 
@@ -267,7 +299,8 @@ BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor-core rate (dense)
 # transposed taps, in one
 # kernel or, for large planes, four, then gathers; its kernel_device_ms is
 # them all summed; d_first and d_second are
-# one template, correlation_bwd_kernel<kShifted, kVec>)
+# one template, correlation_bwd_kernel<T, kShifted, kVec>, told apart by a
+# pattern on the profiler's name)
 KERNEL_NAMES = {"warp": ("warp_kernel",),
                 "correlation": ("correlation_kernel",),
                 "merge": ("merge_kernel", "merge_bf16_kernel"),
@@ -277,19 +310,23 @@ KERNEL_NAMES = {"warp": ("warp_kernel",),
                                "csr_sort_kernel", "dfeat_gather_kernel",
                                "dfeat_gather_scalar_kernel"),
                 "warp_dflow": ("dflow_kernel",),
-                "merge_backward": ("merge_bwd_kernel",),
-                "correlation_dfirst": ("correlation_bwd_kernel<false",),
-                "correlation_dsecond": ("correlation_bwd_kernel<true",),
+                "merge_backward": ("merge_bwd_kernel", "merge_bwd_bf16_kernel"),
+                "correlation_dfirst": ("correlation_bwd_kernel<[^,>]*, false",),
+                "correlation_dsecond": ("correlation_bwd_kernel<[^,>]*, true",),
                 "conv_s2d": ("conv_s2d_kernel", "conv_s2d_bf16_kernel")}
 CALL_GAP_S = 0.005  # idle time between the profiled calls of device_ms
 HOST_CALLS = 200    # calls of the host-cost loop
 B, N, HW = 8, 14, 48
-# launches per forward: warp serves the 512-channel feature warp and
-# AlignLite's two backwarps; correlation runs at AlignLite's three levels;
-# the s2d conv runs only in phase 10 (LAUNCHES_S2D_PER_FORWARD)
+# launches per forward of the fine decoder (or of the s2d decoder with
+# DBSR_FINE_PATCH_S2D=0): warp serves the 512-channel feature warp and
+# AlignLite's two backwarps; correlation runs at AlignLite's three levels
 LAUNCHES_PER_FORWARD = {"warp": 3, "correlation": 3, "merge": 1}
-# the decoder's 4 post-shuffle ResBlocks x 2 convs, with the switch
+# the s2d decoder's 4 post-shuffle ResBlocks x 2 convs: on the card they
+# launch the s2d conv unless DBSR_FINE_PATCH_S2D=0 (the banked models, the
+# entry points' default decoder)
 LAUNCHES_S2D_PER_FORWARD = 8
+LAUNCHES_PER_S2D_FORWARD = dict(LAUNCHES_PER_FORWARD,
+                                conv_s2d=LAUNCHES_S2D_PER_FORWARD)
 FRAMES = B * (N - 1)
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6   # vs plain on the card: sum order only
 CARD_VS_CPU_TOL = 1e-3                  # [0, 1] output, whole network
@@ -337,7 +374,7 @@ PRETRAIN_STEPS = 750  # per epoch of the smoke pretraining, two epochs
 # run_training's cuts against default_synthetic (1000 steps x 100 epochs,
 # a pool of 2048 sources; val every 5 epochs, so no val pass here)
 SMOKE_SETTINGS = dict(steps_per_epoch=10, pool_size=128, print_interval=5,
-                      fused_s2d_decoder=False)
+                      fused_s2d_decoder=False, compute_dtype="float32")
 # pretraining's cuts against align_lite/pretrain_synthetic (1000 steps x 15
 # epochs, a pool of 2048 sources; val every 5 epochs, so no val pass here)
 PRETRAIN_SETTINGS = dict(steps_per_epoch=PRETRAIN_STEPS, pool_size=128,
@@ -368,9 +405,11 @@ PWC_SYNTH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 # 2x2, 4x4, 8x8 and 16x16 planes of 196, 128, 96, 64 and 32 channels; the
 # cost volume runs at all five, the backwarp at levels 5..2
 PWC_LEVELS = ((1, 196), (2, 128), (4, 96), (8, 64), (16, 32))
-# launches per forward of a PWC-Net DBSRNet: the 512-channel warp and the
-# four backwarps; the five cost volumes; the merge
-LAUNCHES_PER_PWC_FORWARD = {"warp": 5, "correlation": 5, "merge": 1}
+# launches per forward of a PWC-Net DBSRNet (r3d, s2d decoder): the
+# 512-channel warp and the four backwarps; the five cost volumes; the merge;
+# the s2d conv
+LAUNCHES_PER_PWC_FORWARD = {"warp": 5, "correlation": 5, "merge": 1,
+                            "conv_s2d": LAUNCHES_S2D_PER_FORWARD}
 # per PWC-Net pretraining step: the synthesis' resample; the five cost
 # volumes with both gradients each; the four backwarps with d_feat (the
 # second image's features) and d_flow (the up-convolved flow); no merge
@@ -413,14 +452,16 @@ LAUNCHES_PER_SCA_LITE = {"warp": 7, "correlation": 6}
 LAUNCHES_PER_SCA_PWC = {"warp": 6, "correlation": 5}
 # per scored BurstSR burst: the network's forward and SCA
 LAUNCHES_PER_RW_LITE_BURST = {k: v + LAUNCHES_PER_SCA_LITE.get(k, 0)
-                              for k, v in LAUNCHES_PER_FORWARD.items()}
+                              for k, v in LAUNCHES_PER_S2D_FORWARD.items()}
 LAUNCHES_PER_RW_PWC_BURST = {k: v + LAUNCHES_PER_SCA_PWC.get(k, 0)
                              for k, v in LAUNCHES_PER_PWC_FORWARD.items()}
 # per default_realworld step of the flagship: a scored burst's forward and
 # SCA, then d_feat of the encoder's warp and of SCA's warp of the
-# prediction, and the merge backward; no synthesis, no d_flow
-LAUNCHES_PER_RW_STEP = dict(LAUNCHES_PER_TRAIN_STEP, resample=0,
-                            **LAUNCHES_PER_RW_LITE_BURST, warp_dfeat=2)
+# prediction, the merge backward and the s2d conv's d_input; no synthesis,
+# no d_flow
+LAUNCHES_PER_RW_STEP = {**LAUNCHES_PER_TRAIN_STEP, "resample": 0,
+                        **LAUNCHES_PER_RW_LITE_BURST, "warp_dfeat": 2,
+                        "conv_s2d": 2 * LAUNCHES_S2D_PER_FORWARD}
 RW_MASK_TOL = 1e-3       # share of pixels whose SCA mask may differ (13b)
 # phase 14, bf16: a kernel against its plain bf16 version (the share of
 # outputs bit-equal, the most bf16 ulps any other may be off); the card's
@@ -440,6 +481,23 @@ BF16_LAYER_BIT_EQUAL = 0.99
 BF16_STAGES = ("encoder.alignment_net", "encoder.embed", "merging",
                "decoder")
 BF16_PSNR_TOL, BF16_SSIM_TOL = 0.05, 5e-4
+# phase 15, bf16 training: d_flow's bf16 kernel (float32 out, a sum over
+# the channels) against its plain version, of the magnitude of its terms
+# (tests/test_torch_port_bf16_backward.py); a bf16 step's loss card vs CPU
+BF16_DFLOW_RTOL = 1e-5
+BF16_STEP_LOSS_RTOL = 2e-2
+BF16_STEPS = 5  # steps of each bf16 training entry run (15b)
+# 15b, a module's output gradient card vs CPU past which it is named the
+# first to depart (float32: the step's gradients sit 1e-4-2.4e-4 of their
+# norm apart, phases 7a and 9; bf16: a flipped rounding cascades, 14b)
+MODULE_DEPART = {"float32": 1e-4, "bfloat16": 1e-2}
+# per bf16 default_synthetic step with its defaults: the s2d decoder, whose
+# 8 3x3 convs launch the s2d conv on the card in the forward and as d_input
+LAUNCHES_PER_BF16_STEP = LAUNCHES_PER_S2D_STEP
+LAUNCHES_PER_BF16_PWC_FROZEN_STEP = dict(
+    LAUNCHES_PER_PWC_FROZEN_STEP, conv_s2d=2 * LAUNCHES_S2D_PER_FORWARD)
+LAUNCHES_PER_BF16_PWC_UNFROZEN_STEP = dict(
+    LAUNCHES_PER_PWC_UNFROZEN_STEP, conv_s2d=2 * LAUNCHES_S2D_PER_FORWARD)
 
 def log(*a):
     print(*a, flush=True)
@@ -2350,11 +2408,10 @@ def forward_vs_cpu(pred, burst, ckpt=None, **net_kwargs):
 
 @contextlib.contextmanager
 def fine_patch(on):
-    """``DBSR_FINE_PATCH_S2D`` set to 1 (``on``) or unset for the block,
-    then as it was before."""
+    """``DBSR_FINE_PATCH_S2D`` set to 1 (``on``: the s2d conv kernel) or 0
+    (the structured-dense conv) for the block, then as it was before."""
     saved = os.environ.pop(FINE_PATCH_ENV, None)
-    if on:
-        os.environ[FINE_PATCH_ENV] = "1"
+    os.environ[FINE_PATCH_ENV] = "1" if on else "0"
     try:
         yield
     finally:
@@ -2560,8 +2617,8 @@ def eval_phase(workdir, train_workspace):
     points: (a) the val set generated on the card; (b) ``compute_score`` of
     the flagship and r4mix over it; (c) per-burst scores, card vs CPU; (d)
     ``save_results`` rescored; (e) ``run_evaluation``'s CLI against the API
-    on phase 7b's workspace; (f) the flagship with the ``conv_s2d``
-    kernel. Returns the numbers and the phase's launches (``eval``: the
+    on phase 7b's workspace; (f) the flagship with the structured-dense
+    conv. Returns the numbers and the phase's launches (``eval``: the
     generation and the flagship's scoring)."""
     from dbsr_tpu_torch import generate_synthetic_burst_val as gen
     from dbsr_tpu_torch import run_evaluation
@@ -2623,7 +2680,7 @@ def eval_phase(workdir, train_workspace):
         s, runs[name] = _scored(f"compute_score {name}, {n_bursts} bursts, "
                                 f"batch {EVAL_BATCH}", [n], root,
                                 LAUNCHES_PER_PWC_FORWARD if pwc
-                                else LAUNCHES_PER_FORWARD, n_forwards)
+                                else LAUNCHES_PER_S2D_FORWARD, n_forwards)
         for m, v in s.items():
             scores.setdefault(m, {}).update(v)
         if not all(math.isfinite(v[name]) for v in s.values()):
@@ -2710,16 +2767,15 @@ def eval_phase(workdir, train_workspace):
             if v is not None:
                 os.environ[k] = v
 
-    # (f) the flagship with the conv_s2d kernel
-    with fine_patch(True):
-        s2d_scores, s2d_run = _scored(
+    # (f) the flagship with the structured-dense conv (the kernel is (b)'s)
+    with fine_patch(False):
+        dense_scores, dense_run = _scored(
             f"compute_score {flagship[0].get_display_name()} with "
-            f"{FINE_PATCH_ENV}=1", flagship, root,
-            dict(LAUNCHES_PER_FORWARD, conv_s2d=LAUNCHES_S2D_PER_FORWARD),
+            f"{FINE_PATCH_ENV}=0", flagship, root, LAUNCHES_PER_FORWARD,
             n_forwards)
-    out["s2d_kernel"] = dict(run=s2d_run, max_abs=_scores_close(
-        "conv_s2d kernel vs structured-dense conv", s2d_scores, flag_scores,
-        EVAL_PSNR_TOL, EVAL_SSIM_TOL))
+    out["s2d_dense"] = dict(run=dense_run, max_abs=_scores_close(
+        "structured-dense conv vs conv_s2d kernel", dense_scores,
+        flag_scores, EVAL_PSNR_TOL, EVAL_SSIM_TOL))
     name = flagship[0].get_display_name()
     out["launches"] = {k: gen_launches[k] + runs[name]["launches"][k]
                        for k in gen_launches}
@@ -2752,7 +2808,8 @@ def burst_flow_vs_cpu(dev):
             torch.cuda.synchronize()
             counts = read_counts()
             want = {k: LAUNCHES_PER_PWC_FORWARD.get(k, 0) for k in counts}
-            want.update(warp=4, merge=0)  # the backwarps alone, no merge
+            # the backwarps alone: no merge, no decoder
+            want.update(warp=4, merge=0, conv_s2d=0)
             if counts != want:
                 raise AssertionError(f"BurstFlowNet forward: launches "
                                      f"{counts}, expected {want}")
@@ -3257,7 +3314,8 @@ def realworld_phase(dev, workdir):
     # (e) default_realworld from the banked flagship
     syn = os.path.join(ws, "dbsr", "default_synthetic")
     os.makedirs(syn, exist_ok=True)
-    shutil.copy(FLAGSHIP_CHECKPOINT,
+    # a float32 copy: default_realworld restores the dtype it records
+    shutil.copy(float32_copy(FLAGSHIP_CHECKPOINT, workdir),
                 os.path.join(syn, "dbsr_synthetic_ep0060.ckpt"))
     log(f"default_realworld cuts: steps_per_epoch {RW_STEPS} of 300, epochs "
         f"2 of 40, no val pass (every 4 epochs); full width, B={RW_B}, "
@@ -3614,12 +3672,12 @@ def bf16_serving_phase(requests):
     kw = dict(batch_size=B, burst_size=N, burst_hw=(HW, HW), device="cuda")
     for name, ckpt, on, fused, per_forward in (
             ("flagship_s2d_kernel", FLAGSHIP_CHECKPOINT, True, True,
-             dict(LAUNCHES_PER_FORWARD, conv_s2d=LAUNCHES_S2D_PER_FORWARD)),
+             LAUNCHES_PER_S2D_FORWARD),
             ("flagship_s2d_dense", FLAGSHIP_CHECKPOINT, False, True,
              LAUNCHES_PER_FORWARD),
             ("flagship_fine", FLAGSHIP_CHECKPOINT, False, False,
              LAUNCHES_PER_FORWARD),
-            ("r3d", R3D_CHECKPOINT, False, True, LAUNCHES_PER_PWC_FORWARD)):
+            ("r3d", R3D_CHECKPOINT, True, True, LAUNCHES_PER_PWC_FORWARD)):
         with fine_patch(on):
             pred = load_predictor(ckpt, fused_s2d=fused, **kw)
             if compute_dtype_of(pred.net) != torch.bfloat16:
@@ -3702,7 +3760,7 @@ def bf16_eval_phase(workdir, f32_scores):
         s, out["runs"][name] = _scored(
             f"compute_score {name} (bf16), {EVAL_BURSTS} bursts, batch "
             f"{EVAL_BATCH}", [n], root,
-            LAUNCHES_PER_PWC_FORWARD if pwc else LAUNCHES_PER_FORWARD,
+            LAUNCHES_PER_PWC_FORWARD if pwc else LAUNCHES_PER_S2D_FORWARD,
             n_forwards)
         if not all(math.isfinite(v[name]) for v in s.values()):
             raise AssertionError(f"{name}: bf16 scores not finite: {s}")
@@ -3773,6 +3831,561 @@ def bf16_burstsr_phase():
         launches["dbsr_campaign_r5"]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: bf16 training
+
+
+def dflow_terms(feat, flow, g):
+    """The magnitude of d_flow's terms per output pixel ``[B, H, W, 1]``:
+    ``sum_c |g| sum_tap (|dw/dx| + |dw/dy|) |feat[tap]|`` (a derivative
+    weight is nonzero where the tap's weight is 0, at integer
+    coordinates)."""
+    from dbsr_tpu_torch.ops.warp import _gather, _taps, base_grid
+
+    B, H, W, C = feat.shape
+    coords = base_grid(H, W, feat.device) + flow
+    flat = feat.float().abs().reshape(B, H * W, C)
+    acc = None
+    for idx, _, dx, dy in _taps(coords, H, W):
+        v = _gather(flat, idx) * (dx.abs() + dy.abs())[..., None]
+        acc = v if acc is None else acc + v
+    return (acc * g.float().abs()).sum(-1, keepdim=True)
+
+
+def check_dflow_bf16(name, fn, plain, scale):
+    """d_flow's bf16 kernel ``fn()`` (float32 out, a sum over the channels)
+    against its plain version: every element within BF16_DFLOW_RTOL of
+    ``scale`` (the magnitude of its terms), the same bits twice."""
+    got, again, want = fn(), fn(), plain()
+    torch.cuda.synchronize()
+    if got.dtype != torch.float32 or got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.dtype} {tuple(got.shape)}")
+    diff = (got - want).abs()
+    rel = (diff / scale.clamp_min(1e-30)).max().item()
+    repeat = torch.equal(got, again)
+    err = diff.max().item()
+    log(f"  {name}: max |kernel - plain| / its terms' magnitude {rel:.3e} "
+        f"(limit {BF16_DFLOW_RTOL}), max|diff| {err:.3e}; same bits on a "
+        f"second call: {repeat}")
+    if not (rel <= BF16_DFLOW_RTOL and repeat):
+        raise AssertionError(f"{name}: bf16 d_flow vs plain: {rel}, repeat "
+                             f"{repeat}")
+    return dict(rel_to_terms=rel, max_abs_err=err, repeat_equal=repeat)
+
+
+def bf16_backward_kernel_phase(dev, g):
+    """Phase 15a: the six bf16 backward kernels against their plain bf16
+    versions (check_bf16; d_flow, float32 out, check_dflow_bf16) at the
+    train step's shapes (B=16, N=8: the encoder's warp and the merge; the
+    aligner's backwarps and cost volumes, which train with
+    ``train_alignment``; the decoder's d_input), at PWC-Net's
+    (``pwc_shapes``) and at an odd C (``other_shapes``); timed and bounded as
+    phase 6 (bf16 bytes, float32 operations; the s2d conv at the bf16
+    tensor-core rate), beside the yardsticks: autograd of the bf16
+    ``F.grid_sample`` (d_feat: the input's gradient; d_flow: both), autograd
+    of the bf16 plain merge, ``torch.nn.grad.conv2d_input`` on the
+    structured-dense bf16 kernel."""
+    from dbsr_tpu_torch.models.layers import s2d_conv_kernel
+    from dbsr_tpu_torch.ops.conv_s2d import (conv3x3_s2d_forward,
+                                             conv3x3_s2d_plain,
+                                             rotate_weight)
+    from dbsr_tpu_torch.ops.correlation import (NUM_OFFSETS,
+                                                correlation_dfirst,
+                                                correlation_dfirst_plain,
+                                                correlation_dsecond,
+                                                correlation_dsecond_plain)
+    from dbsr_tpu_torch.ops.merge import (fused_softmax_merge_backward_plain,
+                                          fused_softmax_merge_plain,
+                                          merge_backward)
+    from dbsr_tpu_torch.ops.warp import (base_grid, warp_dfeat,
+                                         warp_dfeat_plain, warp_dflow,
+                                         warp_dflow_plain)
+
+    bf = torch.bfloat16
+    rows = {k: {"per_shape": [], "pwc_shapes": [], "other_shapes": []}
+            for k in ("warp_dfeat", "warp_dflow", "merge_backward",
+                      "correlation_dfirst", "correlation_dsecond",
+                      "conv_s2d")}
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(bf)
+
+    def flow(frames, h, w, amp=5.0):  # as phase 6's: some on exact centres
+        f = (torch.rand(frames, h, w, 2, generator=g, device=dev) * 2 - 1) \
+            * amp
+        f[:, ::5] = torch.round(f[:, ::5])
+        return f.contiguous()
+
+    def warp_rows(s, fl, where, timed=True):
+        feat, gout = randn(*s), randn(*s)
+        row_df = check_bf16(f"warp d_feat bf16 {list(s)}",
+                            lambda: warp_dfeat(fl, gout),
+                            lambda: warp_dfeat_plain(fl, gout),
+                            lambda: warp_dfeat_plain(fl, gout.float().abs()))
+        row_dfl = check_dflow_bf16(f"warp d_flow bf16 {list(s)}",
+                                   lambda: warp_dflow(feat, fl, gout),
+                                   lambda: warp_dflow_plain(feat, fl, gout),
+                                   dflow_terms(feat, fl, gout))
+        n, nf = feat.numel(), fl.numel()
+        row_df.update(shape=list(s))
+        row_dfl.update(shape=list(s))
+        if timed:
+            H, W = s[1], s[2]
+            nchw = feat.permute(0, 3, 1, 2).detach().requires_grad_(True)
+            grid = _grid_sample_grid(base_grid(H, W, dev) + fl, H,
+                                     W).to(bf)
+            grid_req = grid.detach().requires_grad_(True)
+            out_feat = F.grid_sample(nchw, grid, align_corners=False,
+                                     padding_mode="zeros")
+            out_both = F.grid_sample(nchw, grid_req, align_corners=False,
+                                     padding_mode="zeros")
+            g_nchw = gout.permute(0, 3, 1, 2)
+            bms, by = bound(2 * n * 2 + nf * 4, 8 * n)
+            row_df.update(bound_ms=bms, bound_by=by, **timings(
+                "warp_dfeat", lambda: warp_dfeat(fl, gout),
+                lambda: warp_dfeat_plain(fl, gout),
+                lambda: torch.autograd.grad(out_feat, nchw, g_nchw,
+                                            retain_graph=True)))
+            bms, by = bound(2 * n * 2 + 2 * nf * 4, 20 * n)
+            row_dfl.update(bound_ms=bms, bound_by=by, **timings(
+                "warp_dflow", lambda: warp_dflow(feat, fl, gout),
+                lambda: warp_dflow_plain(feat, fl, gout),
+                lambda: torch.autograd.grad(out_both, (nchw, grid_req),
+                                            g_nchw, retain_graph=True)))
+        rows["warp_dfeat"][where[0]].append(row_df)
+        rows["warp_dflow"][where[1]].append(row_dfl)
+
+    # the encoder's warp (d_feat on the frozen step, d_flow when the
+    # aligner trains), AlignLite's two backwarps, PWC-Net's four, an odd C
+    warp_rows((TRAIN_FRAMES, 48, 48, 512), flow(TRAIN_FRAMES, 48, 48),
+              ("per_shape", "per_shape"))
+    for s in ((TRAIN_FRAMES, 24, 24, 48), (TRAIN_FRAMES, 48, 48, 24)):
+        warp_rows(s, flow(*s[:3]), ("other_shapes", "per_shape"))
+    for s_, c in PWC_LEVELS[1:]:
+        fl = (_pwc_flow(g, dev, TRAIN_FRAMES, s_) * (s_ / (s_ - 1.0))
+              ).contiguous()
+        warp_rows((TRAIN_FRAMES, s_, s_, c), fl, ("pwc_shapes", "pwc_shapes"))
+    warp_rows((3, 13, 22, 5), flow(3, 13, 22), ("other_shapes",
+                                                 "other_shapes"), False)
+    torch.cuda.empty_cache()
+
+    # the cost volume's backward: AlignLite's three levels, PWC-Net's five,
+    # an odd C on a ragged plane
+    def corr_rows(s, where, timed=True):
+        first, second = randn(*s), randn(*s)
+        gout = randn(*s[:3], NUM_OFFSETS)
+        for name, fn, plain, operand in (
+                ("correlation_dfirst", correlation_dfirst,
+                 correlation_dfirst_plain, second),
+                ("correlation_dsecond", correlation_dsecond,
+                 correlation_dsecond_plain, first)):
+            row = check_bf16(f"{name} bf16 {list(s)}",
+                             lambda: fn(operand, gout),
+                             lambda: plain(operand, gout),
+                             lambda: plain(operand.float().abs(),
+                                           gout.float().abs()))
+            row.update(shape=list(s))
+            if timed:
+                bms, by = bound((2 * first.numel() + gout.numel()) * 2,
+                                2 * NUM_OFFSETS * first.numel())
+                row.update(bound_ms=bms, bound_by=by, **timings(
+                    name, lambda: fn(operand, gout),
+                    lambda: plain(operand, gout)))
+            rows[name][where].append(row)
+
+    for s in ((TRAIN_FRAMES, 12, 12, 96), (TRAIN_FRAMES, 24, 24, 48),
+              (TRAIN_FRAMES, 48, 48, 24)):
+        corr_rows(s, "per_shape")
+    for s_, c in PWC_LEVELS:
+        corr_rows((TRAIN_FRAMES, s_, s_, c), "pwc_shapes")
+    corr_rows((2, 13, 22, 5), "other_shapes", False)
+    torch.cuda.empty_cache()
+
+    # the merge backward at the training merge's shape, and at C = 12 on a
+    # ragged plane
+    for s, where in (((TRAIN_B, TRAIN_N, 48, 48, 512), "per_shape"),
+                     ((2, 3, 13, 22, 12), "other_shapes")):
+        feat, logits = randn(*s), randn(*s, scale=3.0)
+        gout = randn(s[0], *s[2:])
+        lf, ff, gf = logits.float(), feat.float(), gout.float()
+        w = torch.softmax(lf, dim=1)
+        wg = (w * gf[:, None]).abs()
+        dl_scale = wg * (ff.abs() + (w * ff.abs()).sum(1, keepdim=True))
+        del lf, ff, gf, w
+        row = check_bf16(f"merge backward d_feat bf16 {list(s)}",
+                         lambda: merge_backward(feat, logits, gout)[0],
+                         lambda: fused_softmax_merge_backward_plain(
+                             feat, logits, gout)[0], lambda: wg)
+        row_dl = check_bf16(f"merge backward d_logits bf16 {list(s)}",
+                            lambda: merge_backward(feat, logits, gout)[1],
+                            lambda: fused_softmax_merge_backward_plain(
+                                feat, logits, gout)[1], lambda: dl_scale)
+        del wg, dl_scale
+        row.update(shape=list(s),
+                   bit_equal_share=min(row["bit_equal_share"],
+                                       row_dl["bit_equal_share"]),
+                   max_ulps=max(row["max_ulps"], row_dl["max_ulps"]),
+                   max_abs_err=max(row["max_abs_err"],
+                                   row_dl["max_abs_err"]))
+        if where == "per_shape":
+            xs = (feat.clone().requires_grad_(True),
+                  logits.clone().requires_grad_(True))
+            out = fused_softmax_merge_plain(*xs)
+            n = feat.numel()
+            bms, by = bound((4 * n + gout.numel()) * 2, 16 * n)
+            row.update(bound_ms=bms, bound_by=by, **timings(
+                "merge_backward", lambda: merge_backward(feat, logits, gout),
+                lambda: fused_softmax_merge_backward_plain(feat, logits,
+                                                           gout),
+                lambda: torch.autograd.grad(out, xs, gout,
+                                            retain_graph=True)))
+            del xs, out
+        rows["merge_backward"][where].append(row)
+        del feat, logits, gout
+    torch.cuda.empty_cache()
+
+    # the s2d conv's d_input: the output gradient of one of the decoder's
+    # 3x3 convs at B=16 (C = O = 32), and C = 5, O = 7 on a ragged plane
+    for (b_, h, w_, C, O), where in (((TRAIN_B, HW * 4, HW * 4, 32, 32),
+                                      "per_shape"),
+                                     ((2, 13, 22, 5, 7), "other_shapes")):
+        gout = randn(b_, h, w_, 4 * O)
+        wt = torch.randn(O, C, 3, 3, generator=g, device=dev) \
+            / math.sqrt(9 * C)
+        rot = rotate_weight(wt)
+        row = check_bf16(f"conv_s2d d_input bf16 {list(gout.shape)}",
+                         lambda: conv3x3_s2d_forward(gout, rot),
+                         lambda: conv3x3_s2d_plain(gout, rot),
+                         lambda: conv3x3_s2d_plain(
+                             gout.float().abs(), rot.to(bf).float().abs()))
+        row.update(shape=[list(gout.shape), [b_, h, w_, 4 * C]])
+        if where == "per_shape":
+            dense = s2d_conv_kernel(wt).to(bf)
+            g_nchw = gout.permute(0, 3, 1, 2)
+            in_size = (b_, 4 * C, h, w_)
+            bms, by = bound((gout.numel() + gout.numel() // O * C) * 2,
+                            2 * 9 * C * gout.numel(), BF16_FLOPS_PER_S)
+            row.update(bound_ms=bms, bound_by=by, **timings(
+                "conv_s2d", lambda: conv3x3_s2d_forward(gout, rot),
+                lambda: conv3x3_s2d_plain(gout, rot),
+                lambda: torch.nn.grad.conv2d_input(in_size, dense, g_nchw,
+                                                   padding=1)))
+        rows["conv_s2d"][where].append(row)
+        del gout
+    torch.cuda.empty_cache()
+    return rows
+
+
+def add_bf16_training_rows(entries, rows):
+    """Put each kernel's bf16 backward rows beside its other ones
+    (``bf16_training``; the s2d conv's d_input rows): sums over one pass of
+    its path, and over PWC-Net's shapes as ``pwc_*``."""
+    for e in entries:
+        r = rows.get(e["name"])
+        if not r:
+            continue
+        b = dict(dtype="bfloat16", **r)
+        every = r["per_shape"] + r["pwc_shapes"] + r["other_shapes"]
+        for key, part in (("", r["per_shape"]), ("pwc_", r["pwc_shapes"])):
+            if not part:
+                continue
+            for k in ("ms", "device_ms", "kernel_device_ms", "plain_ms",
+                      "bound_ms"):
+                b[key + k] = sum(x[k] for x in part)
+            for k in ("library_ms", "library_device_ms"):
+                libs = [x[k] for x in part]
+                b[key + k] = sum(libs) if None not in libs else None
+        b["bound_by"] = ("bytes" if all(x["bound_by"] == "bytes"
+                                        for x in r["per_shape"])
+                         else "operations")
+        b["max_abs_err"] = max(x["max_abs_err"] for x in every)
+        b["repeat_equal"] = all(x["repeat_equal"] for x in every)
+        if e["name"] == "warp_dflow":
+            b["max_rel_to_terms"] = max(x["rel_to_terms"] for x in every)
+        else:
+            b["bit_equal_share"] = min(x["bit_equal_share"] for x in every)
+            b["max_ulps"] = max(x["max_ulps"] for x in every)
+        e["bf16_training"] = b
+        for x in r["per_shape"] + r["pwc_shapes"]:
+            log_row(f"{e['name']} bf16 backward", x)
+        log(f"  {e['name']} bf16 backward, one pass of its path: device "
+            f"{b['device_ms']:.4f} ms, bound {b['bound_ms']:.4f} "
+            f"({b['bound_by']})")
+
+
+def bf16_step_vs_cpu(what, batch, run_step):
+    """One train step at B=1 in bf16 and in float32, on the card and on the
+    CPU, from one ``batch``: the card's bf16 loss within BF16_STEP_LOSS_RTOL
+    of the CPU's, and the card's bf16 gradients (all together) no farther
+    from the card's float32 ones than twice the CPU's bf16 from the CPU's
+    float32. ``run_step(batch, device, dtype) -> (loss, grads, offsets,
+    mask, module_grads)``; where ``module_grads`` (each module's output
+    gradient, in the order the backward reached them) is given, each
+    module's card-vs-CPU distance is recorded in float32 and in bf16 and
+    the first module past MODULE_DEPART (by dtype) is named. The offsets that fall on the two sides of a whole pixel on the
+    two devices (the merge's floor-mod, a jump of the model) are counted,
+    not avoided: in bf16 the aligner's flow differs between the devices by
+    ~1e-3 px, so that among the 32k offsets of a batch some always do (one
+    moved a float32 loss by 3-6e-6, phase 7a), far below the loss limit;
+    the gradient limit compares each device with itself. So are the
+    pixels where SCA's masks differ (``mask``, the real-world step)."""
+    runs = {}
+    for device in ("cuda", "cpu"):
+        for dtype in ("bfloat16", None):
+            t0 = time.perf_counter()
+            runs[device, dtype] = run_step(batch, device, dtype) + (
+                time.perf_counter() - t0,)
+    o_card, o_cpu = runs["cuda", "bfloat16"][2], runs["cpu", "bfloat16"][2]
+    wrapped = int((torch.floor(o_card) != torch.floor(o_cpu)).sum())
+    m_card, m_cpu = runs["cuda", "bfloat16"][3], runs["cpu", "bfloat16"][3]
+    mask_diff = None if m_card is None else int((m_card != m_cpu).sum())
+
+    def dist(a, b):
+        d2 = sum(float(((a[k] - b[k]).double() ** 2).sum()) for k in b)
+        n2 = sum(float((b[k].double() ** 2).sum()) for k in b)
+        return math.sqrt(d2 / n2)
+
+    l_card, g_card = runs["cuda", "bfloat16"][:2]
+    l_cpu, g_cpu = runs["cpu", "bfloat16"][:2]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    card = dist(g_card, runs["cuda", None][1])
+    cpu = dist(g_cpu, runs["cpu", None][1])
+    modules = {}
+    if runs["cpu", None][4] is not None:
+        for dtype in (None, "bfloat16"):
+            card_m, cpu_m = runs["cuda", dtype][4], runs["cpu", dtype][4]
+            key = dtype or "float32"
+            modules[key] = [(k, float((card_m[k] - cpu_m[k]).norm())
+                             / max(float(cpu_m[k].norm()), 1e-30))
+                            for k in cpu_m if k in card_m]
+            first = next(((k, r) for k, r in modules[key]
+                          if r > MODULE_DEPART[key]), None)
+            log(f"{what}, {key}: each module's output gradient, card vs "
+                f"CPU, in the order the backward reached them (the first "
+                f"past {MODULE_DEPART[key]}: {first}):")
+            for k, r in modules[key][:60]:
+                log(f"    {r:.3e}  {k}")
+            modules[key + "_first_past"] = first
+    res = dict(loss_card=l_card, loss_cpu=l_cpu, loss_rel=loss_rel,
+               loss_f32_card=runs["cuda", None][0],
+               loss_f32_cpu=runs["cpu", None][0], card_bf16_vs_f32=card,
+               cpu_bf16_vs_f32=cpu, card_vs_cpu_bf16=dist(g_card, g_cpu),
+               offsets_card_vs_cpu_max_px=float((o_card - o_cpu).abs().max()),
+               offsets_wrapped=wrapped, mask_pixels_differing=mask_diff,
+               cpu_step_s=runs["cpu", "bfloat16"][5], modules=modules)
+    log(f"{what}, card vs CPU in bf16: loss {l_card:.6f} vs {l_cpu:.6f} "
+        f"(rel {loss_rel:.2e}, limit {BF16_STEP_LOSS_RTOL}; float32 "
+        f"{res['loss_f32_card']:.6f} / {res['loss_f32_cpu']:.6f}); "
+        f"gradients: the card's bf16 vs its float32 {card:.3e} (limit 2 x "
+        f"{cpu:.3e}, the CPU's bf16 vs its float32); card vs CPU in bf16 "
+        f"{res['card_vs_cpu_bf16']:.3e}; bf16 offsets max|diff| "
+        f"{res['offsets_card_vs_cpu_max_px']:.3e} px, {wrapped} wrapped on "
+        f"one side only; SCA masks differ at {mask_diff} pixels; CPU bf16 "
+        f"step {res['cpu_step_s']:.1f} s")
+    if not (loss_rel <= BF16_STEP_LOSS_RTOL and card <= 2 * cpu):
+        raise AssertionError(f"{what}: bf16 card vs CPU: {res}")
+    return res
+
+
+def bf16_synthetic_grad_phase():
+    """Phase 15b: one ``default_synthetic`` step of the banked flagship
+    (AlignLite frozen, the s2d decoder, as the config builds it) at B=1,
+    N=8, card vs CPU, bf16 vs float32 (``bf16_step_vs_cpu``), on the first
+    batch seed of phase 7a."""
+    from dbsr_tpu_torch.data.procedural import (dead_leaves_image,
+                                                make_generator)
+    from dbsr_tpu_torch.data.synthetic import BurstConfig, synthesize_batch
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, float32_math
+    from dbsr_tpu_torch.training.actors import make_synthetic_actor
+    from dbsr_tpu_torch.training.checkpoint import load_network
+
+    cfg = BurstConfig(fused_resample=True)
+
+    gen = make_generator("cpu", BATCH_SEEDS[0])
+    batch = synthesize_batch(gen, dead_leaves_image(gen, 1, cfg.pre_crop_sz),
+                             cfg)
+
+    def run_step(batch, device, dtype):
+        net, _ = load_network(FLAGSHIP_CHECKPOINT, device=device,
+                              dtype=dtype)
+        seen, module_grads = {}, {}
+
+        def keep(name):
+            def fwd(m, i, o):
+                if isinstance(o, torch.Tensor) and o.requires_grad:
+                    o.register_hook(lambda gr: module_grads.__setitem__(
+                        name, gr.detach().float().cpu()))
+            return fwd
+
+        hooks = [net.encoder.register_forward_hook(
+            lambda m, i, o: seen.__setitem__("o", o["offsets"].detach()))]
+        hooks += [m.register_forward_hook(keep(n))
+                  for n, m in net.named_modules()
+                  if n.count(".") <= 2 and n and not n.startswith(
+                      "encoder.alignment_net")]
+        b = {k: batch[k].to(device) for k in ("burst", "frame_gt")}
+        with float32_math():
+            loss, _ = make_synthetic_actor(net, boundary_ignore=40)(b)
+            loss.backward()
+        for h in hooks:
+            h.remove()
+        return (loss.item(), _grads(net), seen["o"].cpu(), None,
+                module_grads)
+
+    return bf16_step_vs_cpu("default_synthetic bf16 step (flagship, B=1, "
+                            "N=8)", batch, run_step)
+
+
+def bf16_realworld_grad_phase(root, ckpt):
+    """Phase 15c: one ``default_realworld`` step of ``ckpt`` at B=1 (8
+    frames, 56-px crops of the train tree) card vs CPU, bf16 vs float32
+    (``bf16_step_vs_cpu``)."""
+    import copy
+
+    from dbsr_tpu_torch.data.burstsr import (BurstSRDataset,
+                                             BurstSRProcessing,
+                                             RandomBurstSampler)
+    from dbsr_tpu_torch.evaluation.burstsr import _alignment_apply_from
+    from dbsr_tpu_torch.models import sca as sca_mod
+    from dbsr_tpu_torch.serving import float32_math
+    from dbsr_tpu_torch.training.actors import make_realworld_actor
+    from dbsr_tpu_torch.training.checkpoint import load_network
+
+    sample = RandomBurstSampler(
+        BurstSRDataset(root, split="train"), burst_size=RW_N,
+        samples_per_epoch=1, seed=BATCH_SEEDS[0],
+        processing=BurstSRProcessing(crop_sz=56, substract_black_level=True,
+                                     random_flip=True))[0]
+
+    def run_step(sample, device, dtype):
+        net, _ = load_network(ckpt, device=device, dtype=dtype)
+        sca = sca_mod.make_sca(_alignment_apply_from(
+            copy.deepcopy(net.encoder.alignment_net)), sr_factor=4)
+        seen = {}
+
+        def spied(pred, gt, burst):
+            pw, valid = sca(pred, gt, burst)
+            seen["mask"] = valid.cpu()
+            return pw, valid
+
+        hook = net.encoder.register_forward_hook(
+            lambda m, i, o: seen.__setitem__("o", o["offsets"].detach()))
+        batch = {k: torch.from_numpy(sample[k])[None].to(device)
+                 for k in ("burst", "frame_gt")}
+        with float32_math():
+            loss, _ = make_realworld_actor(net, spied)(batch)
+            loss.backward()
+        hook.remove()
+        return (loss.item(), _grads(net), seen["o"].cpu(), seen["mask"],
+                None)
+
+    return bf16_step_vs_cpu(
+        "default_realworld bf16 step (B=1, N=8, 56-px crops)", sample,
+        run_step)
+
+
+def bf16_training_phase(dev, workdir):
+    """Phase 15b-c: ``run_training dbsr default_synthetic`` with its
+    defaults (bf16, the s2d decoder, the s2d conv on the card) at full
+    width, B=16: the banked AlignLite frozen, the banked PWC-Net frozen,
+    and the fallback (a fresh PWC-Net trained end to end), one epoch each,
+    exact launches per step, the step's ms, busy share and peak memory
+    (step_phase); the first one's step again with
+    ``torch.backends.cudnn.deterministic=True`` (timed, not kept on);
+    the flagship's bf16 step card vs CPU; then ``default_realworld`` from
+    the AlignLite run's bf16 checkpoint: restored in bf16, one epoch with
+    exact launches, its step's time, card vs CPU. Returns the numbers and
+    the launches per step of each path."""
+    from dbsr_tpu_torch.configs.dbsr import default_realworld
+    from dbsr_tpu_torch.data.procedural import make_generator
+    from dbsr_tpu_torch.models.layers import compute_dtype_of
+    from dbsr_tpu_torch.training.checkpoint import (read_header,
+                                                    resolve_checkpoint)
+
+    out, paths = {}, {}
+    kw = dict(steps_per_epoch=BF16_STEPS, pool_size=128,
+              print_interval=BF16_STEPS)
+    for name, path, extra, want in (
+            ("train_step_bf16", "lite", dict(pwc_checkpoint=ALIGN_LITE),
+             LAUNCHES_PER_BF16_STEP),
+            ("pwc_frozen_step_bf16", "pwc", dict(pwc_checkpoint=PWC_SYNTH),
+             LAUNCHES_PER_BF16_PWC_FROZEN_STEP),
+            ("pwc_fallback_step_bf16", "fallback", {},
+             LAUNCHES_PER_BF16_PWC_UNFROZEN_STEP)):
+        ws = os.path.join(workdir, "bf16", path)
+        os.environ["DBSR_TPU_WORKSPACE_DIR"] = ws
+        per_step, logged, _, headers = entry_phase(
+            "dbsr", "default_synthetic", dict(kw, **extra), (1,), want,
+            "dbsr_synthetic")
+        spec = headers[1]["net_spec"]["kwargs"]
+        if spec["dtype"] != {"__dtype__": "bfloat16"} \
+                or not spec["fused_s2d_decoder"]:
+            raise AssertionError(f"{name}: header {spec}")
+        paths[name] = per_step
+        trainer, state = default_synthetic_trainer(
+            dev, compute_dtype="bfloat16", fused_s2d_decoder=True, **extra)
+        if compute_dtype_of(trainer.net) != torch.bfloat16:
+            raise AssertionError(f"{name}: the trainer's net is not bf16")
+        res = dict(losses=logged["Loss/total"], step=step_phase(
+            dev, f"default_synthetic bf16 ({path})", trainer, state, want,
+            n_steps=8))
+        if path == "lite":
+            cudnn = torch.backends.cudnn
+            pool = trainer.loaders[0].batcher.next_batch()
+            timed = {}
+            for det in (True, False):
+                cudnn.deterministic = det
+                try:
+                    timed[det] = cuda_ms(lambda: trainer.train_step(
+                        state, make_generator(dev, 7), pool), 2, 5)
+                finally:
+                    cudnn.deterministic = False
+            res["cudnn_deterministic_ms"] = timed[True]
+            res["cudnn_default_ms"] = timed[False]
+            log(f"default_synthetic bf16 step at B={TRAIN_B}: "
+                f"{timed[False]:.2f} ms, {timed[True]:.2f} ms with "
+                f"cudnn.deterministic=True (CUDA events, median of 5)")
+        del trainer, state
+        torch.cuda.empty_cache()
+        out[path] = res
+    out["card_vs_cpu"] = bf16_synthetic_grad_phase()
+    torch.cuda.empty_cache()
+
+    # (c) default_realworld from (b)'s bf16 AlignLite checkpoint
+    ws = os.path.join(workdir, "bf16", "lite")
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = ws
+    syn = resolve_checkpoint(os.path.join(ws, "dbsr", "default_synthetic"),
+                             "dbsr_synthetic")
+    per_step, logged, texts, headers = entry_phase(
+        "dbsr", "default_realworld",
+        dict(steps_per_epoch=RW_STEPS, print_interval=RW_STEPS), (1,),
+        LAUNCHES_PER_RW_STEP, "dbsr_realworld")
+    if f"restored {syn}" not in texts[0] or headers[1]["net_spec"]["kwargs"][
+            "dtype"] != {"__dtype__": "bfloat16"}:
+        raise AssertionError(f"default_realworld did not restore {syn} in "
+                             f"bf16: {headers[1]['net_spec']}")
+    paths["realworld_step_bf16"] = per_step
+    rw = dict(restored=syn, losses=logged["Loss/total"],
+              restored_dtype=read_header(syn)["net_spec"]["kwargs"]["dtype"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer, restored = default_realworld.make_trainer(
+            _settings(steps_per_epoch=RW_STEPS, print_interval=RW_STEPS), dev)
+    if compute_dtype_of(trainer.net) != torch.bfloat16:
+        raise AssertionError("default_realworld: the restored net is not "
+                             "bf16")
+    state = trainer.init_state()
+    trainer.net.load_state_dict(restored)
+    rw["step"] = step_phase(dev, "default_realworld bf16", trainer, state,
+                            LAUNCHES_PER_RW_STEP, n_steps=8, batch_size=RW_B,
+                            loss_must_fall=False)
+    del trainer, state
+    torch.cuda.empty_cache()
+    rw["card_vs_cpu"] = bf16_realworld_grad_phase(
+        os.environ["DBSR_TPU_BURSTSR_DIR"], syn)
+    out["realworld"] = rw
+    return out, paths
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing to measure")
@@ -3836,6 +4449,13 @@ def main():
     log("phase 14a, the bf16 kernels vs plain (serving shapes, B=8, N=14):")
     add_bf16_rows(results, bf16_kernel_phase(dev, g14))
     torch.cuda.empty_cache()
+    # 15a likewise; its rows join the backward kernels' entries of phase 6
+    g15 = torch.Generator(device=dev)
+    g15.manual_seed(15)
+    log(f"phase 15a, the bf16 backward kernels vs plain (train-step shapes, "
+        f"B={TRAIN_B}, N={TRAIN_N}; PWC-Net's; an odd C):")
+    bf16_backward = bf16_backward_kernel_phase(dev, g15)
+    torch.cuda.empty_cache()
 
     # 4-5. serving through the fine decoder, then card against CPU
     rng = np.random.RandomState(0)
@@ -3872,6 +4492,7 @@ def main():
         f"N={TRAIN_N}):")
     add_pwc_rows(new, pwc_backward_rows(dev, g), "pwc_pretrain_step")
     results += new
+    add_bf16_training_rows(results, bf16_backward)
     torch.cuda.empty_cache()
 
     # 7. training with the banked aligner, frozen
@@ -3941,12 +4562,20 @@ def main():
         bf16["burstsr"], bf16_paths["burstsr_eval"] = bf16_burstsr_phase()
         bf16["phase_s"] = time.perf_counter() - t0
         log(f"phase 14: {bf16['phase_s']:.1f} s")
+        torch.cuda.empty_cache()
+
+        # 15. bf16 training (15a ran beside phase 3)
+        t0 = time.perf_counter()
+        bf16_training, bf16_train_paths = bf16_training_phase(dev, workdir)
+        bf16_training["phase_s"] = time.perf_counter() - t0
+        log(f"phase 15b-c: {bf16_training['phase_s']:.1f} s")
     paths = {"train_step": per_step, "pretrain_step": pre_per_step,
              "train_alignment_step":
                  closing["train_alignment"]["launches_per_step"],
              "s2d_train_step": s2d.pop("launches_per_step"),
              **{k: v for k, v in pwc_paths.items() if k.endswith("_step")},
-             "realworld_step": rw_paths["realworld_step"]}
+             "realworld_step": rw_paths["realworld_step"],
+             **bf16_train_paths}
     serving_launches = {"serving_3_requests": launches,
                         "serving_s2d_3_requests": s2d.pop("launches"),
                         "serving_r3d_3_requests":
@@ -3978,7 +4607,21 @@ def main():
         if "pwc_path" in e and not by_path[e["pwc_path"]]:
             raise AssertionError(f"{e['name']} was not launched on PWC-Net's "
                                  f"path {e['pwc_path']}")
-        e["dtypes"] = ["float32", "bfloat16"] if "bf16" in e else ["float32"]
+        e["dtypes"] = (["float32", "bfloat16"]
+                       if "bf16" in e or "bf16_training" in e
+                       else ["float32"])
+        if "bf16_training" in e:
+            # the encoder's warp, the merge and the decoder's d_input on the
+            # frozen bf16 step; d_flow and the cost volume's backward where
+            # the aligner trains, the fallback's PWC-Net
+            t = e["bf16_training"]
+            t["path"] = ("train_step_bf16" if e["name"] in (
+                "warp_dfeat", "merge_backward", "conv_s2d")
+                else "pwc_fallback_step_bf16")
+            t["launches"] = by_path[t["path"]]
+            if not t["launches"]:
+                raise AssertionError(f"{e['name']} was not launched on the "
+                                     f"bf16 training path {t['path']}")
         if "bf16" in e:
             # the bf16 forward with the s2d conv's switch (all four); PWC-Net's
             # in bf16 for the two it runs
@@ -3998,6 +4641,7 @@ def main():
                    launches_per_pretrain_step=pre_per_step,
                    closing_the_loop=closing, s2d_decoder=s2d,
                    eval=evaluation, pwc=pwc, realworld=realworld, bf16=bf16,
+                   bf16_training=bf16_training,
                    odd_shapes=odd_shapes, build_s=secs,
                    total_s=time.perf_counter() - t_start, card=smi)
     log("summary " + json.dumps(summary))

@@ -1,9 +1,12 @@
 """Fine-tune DBSR on real BurstSR bursts with aligned supervision (port of
-``dbsr_tpu/configs/dbsr/default_realworld.py``, float32).
+``dbsr_tpu/configs/dbsr/default_realworld.py``).
 
 Restores the newest ``dbsr_synthetic`` checkpoint of
 ``<workspace>/dbsr/default_synthetic`` (the network as that checkpoint
-records it, in float32 whatever dtype it records), then trains on the
+records it, in the compute dtype it records: bf16 after a default
+``default_synthetic`` run, as the JAX config rebuilds it; the prediction,
+SCA and its float32 copy of the aligner, and so the masked L1, stay
+float32), then trains on the
 BurstSR tree of ``env.burstsr_dir`` (``DBSR_TPU_BURSTSR_DIR``): 56-px crops
 (packed), bursts of 8, batch 12, random Bayer-preserving flips, 300 steps
 per epoch for 40 epochs, Adam 1e-5 with StepLR(15 epochs, 0.2); the loss
@@ -79,7 +82,7 @@ def make_trainer(settings, device="cuda"):
     if ckpt_path is None:
         raise FileNotFoundError(
             f"train dbsr/default_synthetic first (no checkpoint in {syn_dir})")
-    net, _ = load_network(ckpt_path, device=dev, dtype=None)
+    net, _ = load_network(ckpt_path, device=dev)
     print(f"restored {ckpt_path}", flush=True)
     restored = {k: v.clone() for k, v in net.state_dict().items()}
 

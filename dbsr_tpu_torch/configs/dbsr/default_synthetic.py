@@ -1,5 +1,5 @@
 """Default DBSR training on synthetic bursts (port of
-``dbsr_tpu/configs/dbsr/default_synthetic.py``, float32).
+``dbsr_tpu/configs/dbsr/default_synthetic.py``).
 
 100 epochs x 1000 batches of 16 8-frame bursts from 384^2 crops (432^2
 before the 24 px border crop) at x4 downsampling, <= 24 px translation and
@@ -18,16 +18,21 @@ PWC-Net end to end with the rest (``flow_net='pwc'``,
 train_alignment=True`` trains a grafted aligner with the rest (Adam then
 covers it too). The
 decoder runs its post-shuffle stage on the space-to-depth-2 layout, as the
-JAX config does (``fused_s2d_decoder``, default True; with
-``DBSR_FINE_PATCH_S2D=1`` its 3x3 convs launch the fine-patch conv kernel,
-forward and d_input).
+JAX config does (``fused_s2d_decoder``, default True; on the card its 3x3
+convs launch the fine-patch conv kernel, forward and d_input, unless
+``DBSR_FINE_PATCH_S2D=0``). The network computes in bf16, the JAX config's
+default (``compute_dtype``): parameters and Adam's moments float32, each
+conv in bf16 on the parameters cast at use, the flow, the offsets, the
+prediction and the loss float32, no loss scaling; ``--set
+compute_dtype=float32`` trains in float32.
 
 Settings read (``--set K=V``): ``batch_size``, ``epochs``,
 ``steps_per_epoch``, ``print_interval``, ``seed``, ``pool_size``,
 ``fused_resample``, ``pwc_checkpoint``, ``train_alignment``, ``grad_clip``,
 ``fused_s2d_decoder`` (``False``: the decoder at fine resolution),
-``flow_net`` (the checkpoint's kind by default); and, to refuse what the
-port does not run, ``compute_dtype`` and ``mix``.
+``flow_net`` (the checkpoint's kind by default), ``compute_dtype``
+(``bfloat16``/``bf16`` or ``float32``/``f32``; any other raises); and, to
+refuse what the port does not run, ``mix``.
 """
 
 from __future__ import annotations
@@ -164,10 +169,14 @@ def make_trainer(settings, device="cuda"):
         smoothstep=True, gamma=True, add_noise=True,
         fused_resample=getattr(settings, "fused_resample", True))
 
-    compute_dtype = getattr(settings, "compute_dtype", "float32")
-    if compute_dtype not in ("float32", "f32"):
+    # bf16 compute, float32 parameters and Adam state, as the JAX config
+    compute_dtype = getattr(settings, "compute_dtype", "bfloat16")
+    dtypes = {"bfloat16": "bfloat16", "bf16": "bfloat16", "float32": None,
+              "f32": None}
+    if compute_dtype not in dtypes:
         raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: the port trains float32")
+            f"compute_dtype={compute_dtype!r}: the port trains float32 or "
+            "bfloat16")
 
     # the reference protocol: a pretrained aligner, frozen; without one the
     # aligner trains end to end
@@ -196,7 +205,8 @@ def make_trainer(settings, device="cuda"):
         offset_feat_dim=64, weight_pred_proj_dim=64,
         num_weight_predictor_res=3, gauss_blur_sd=1.0, icnrinit=True,
         train_alignment=train_alignment, flow_net=flow_net,
-        fused_s2d_decoder=getattr(settings, "fused_s2d_decoder", True))
+        fused_s2d_decoder=getattr(settings, "fused_s2d_decoder", True),
+        dtype=dtypes[compute_dtype])
     dev = torch.device(device)
     loaders, prepare_fn = make_data(settings, cfg, steps_per_epoch, dev)
     actor = make_synthetic_actor(net, loss_weight=1.0, boundary_ignore=40)

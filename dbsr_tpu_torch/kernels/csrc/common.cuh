@@ -16,13 +16,17 @@ DBSR_EXPORT const char* dbsr_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// cp.async of kBytes (4 or 16) with src_bytes of them read, the rest zeros
+// cp.async of kBytes (4, 8 or 16) with src_bytes of them read, the rest
+// zeros
 template <int kBytes>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          int src_bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   if constexpr (kBytes == 16) {
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(src_bytes));
+  } else if constexpr (kBytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
                  :: "r"(d), "l"(src), "r"(src_bytes));
   } else {
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"

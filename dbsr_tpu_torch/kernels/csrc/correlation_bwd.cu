@@ -64,6 +64,18 @@
 //   the same bits on every call.
 // - Shared memory: 31 KB of g / G' and 32-40 KB per stage (C = 24-96: one
 //   stage, 63-72 KB); above 48 KB the launch opts in.
+//
+// bfloat16 (dbsr_correlation_dfirst_bf16, _dsecond_bf16: bf16 operand, g and
+// gradient; the Pallas bodies' arithmetic at bf16, float32 sums, 1/C once,
+// one rounding of the output): half the bytes. The operand's stages hold
+// bf16, 8 bytes a 4-channel group, copied by 8-byte cp.async where C % 4 ==
+// 0 (else by plain loads and stores, zeros past C), and are widened to
+// float32 as the sums read them; g / G' is widened as it is staged (plain
+// loads: a bf16 g row is not 4-byte aligned in general) into the same
+// float32 [tile pixels][81]. The sums are the float32 ones: bf16 x bf16
+// products are exact in float32, so each fmaf rounds once, as the plain
+// versions' adds in ascending o (ops/correlation.py) do, and the two agree
+// bit for bit.
 #include <climits>
 
 #include "common.cuh"
@@ -107,20 +119,53 @@ int groups_of(int c4) {
   return best;
 }
 
-// float4s per staged halo row: kHX * ncg, padded to equal ncg mod 8
+// 4-channel groups per staged halo row: kHX * ncg, padded to equal ncg
+// mod 8
 int row_stride(int ncg) {
   return kHX * ncg + ((ncg - kHX * ncg) % 8 + 8) % 8;
 }
 
-template <bool kShifted, bool kVec>
+// A staged 4-channel group of element type T (float4; 4 bf16 in a uint2)
+// and its channels as float32.
+template <typename T>
+struct Group;
+template <>
+struct Group<float> {
+  using Unit = float4;
+  static __device__ __forceinline__ float4 widen(float4 u) { return u; }
+  static __device__ __forceinline__ float load(const float* p) {
+    return *p;
+  }
+  static __device__ __forceinline__ void store(float* p, float v) { *p = v; }
+};
+template <>
+struct Group<bf16> {
+  using Unit = uint2;
+  static __device__ __forceinline__ float4 widen(uint2 u) {
+    return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y),
+                       bf16_hi(u.y));
+  }
+  static __device__ __forceinline__ float load(const bf16* p) {
+    return load_bf16(p);
+  }
+  static __device__ __forceinline__ void store(bf16* p, float v) {
+    *p = to_bf16(v);
+  }
+};
+
+template <typename T, bool kShifted, bool kVec>
 __global__ void __launch_bounds__(kMaxThreads)
-correlation_bwd_kernel(const float* __restrict__ operand,
-                       const float* __restrict__ g, float* __restrict__ out,
+correlation_bwd_kernel(const T* __restrict__ operand,
+                       const T* __restrict__ g, T* __restrict__ out,
                        int H, int W, int C, int ncg, int rs, int chunks,
                        int tiles_x, int tiles) {
-  // stages of [kHY][rs] float4s (the operand's halo'd tile, channel groups
-  // innermost), then g (d_first) or G' (d_second) on the tile, [kTile][81]
-  extern __shared__ float4 smem[];
+  using Unit = typename Group<T>::Unit;
+  constexpr bool kF32 = sizeof(T) == 4;
+  // stages of [kHY][rs] 4-channel groups (the operand's halo'd tile,
+  // channel groups innermost), then g (d_first) or G' (d_second) on the
+  // tile, float32 [kTile][81]
+  extern __shared__ float4 smem_raw[];
+  Unit* smem = reinterpret_cast<Unit*>(smem_raw);
   const int stage4 = kHY * rs;
   const int splits = static_cast<int>(gridDim.y);
   const int per = (chunks - static_cast<int>(blockIdx.y) + splits - 1)
@@ -132,9 +177,9 @@ correlation_bwd_kernel(const float* __restrict__ operand,
   const int ty0 = (tile / tiles_x) * kTY;
   const int tx0 = (tile % tiles_x) * kTX;
   const long long plane = static_cast<long long>(H) * W;
-  const float* ob = operand + frame * plane * C;
-  const float* gb = g + frame * plane * kOff;
-  float* db = out + frame * plane * C;
+  const T* ob = operand + frame * plane * C;
+  const T* gb = g + frame * plane * kOff;
+  T* db = out + frame * plane * C;
 
   const int nthreads = kPG * ncg;
   const int cg = threadIdx.x % ncg;   // channel group
@@ -145,7 +190,7 @@ correlation_bwd_kernel(const float* __restrict__ operand,
   // cp.async channels of chunk k of the halo'd tile into stage buf; this
   // thread copies group cg of pixels pg, pg + kPG, ..
   auto stage = [&](int buf, int k) {
-    float4* st = smem + buf * stage4;
+    Unit* st = smem + buf * stage4;
     const int c = (k * ncg + cg) * 4;
     for (int p = pg; p < kHalo; p += kPG) {
       const int hy = p / kHX;
@@ -153,18 +198,23 @@ correlation_bwd_kernel(const float* __restrict__ operand,
       const int y = ty0 - kR + hy;
       const int x = tx0 - kR + hx;
       const bool in = y >= 0 && y < H && x >= 0 && x < W;
-      const float* src =
+      const T* src =
           ob + (in ? static_cast<long long>(y) * W + x : 0) * C + c;
-      float* d = reinterpret_cast<float*>(st + hy * rs + hx * ncg + cg);
+      T* d = reinterpret_cast<T*>(st + hy * rs + hx * ncg + cg);
       if constexpr (kVec) {
         const bool ok = in && c < C;  // C % 4 == 0: all or none
-        cp_async<16>(d, ok ? src : ob, ok ? 16 : 0);
-      } else {
+        constexpr int kBytes = sizeof(Unit);
+        cp_async<kBytes>(d, ok ? src : ob, ok ? kBytes : 0);
+      } else if constexpr (kF32) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const bool ok = in && c + e < C;
           cp_async<4>(d + e, ok ? src + e : ob, ok ? 4 : 0);
         }
+      } else {  // no 2-byte cp.async: plain loads and stores
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          d[e] = in && c + e < C ? src[e] : to_bf16(0.0f);
       }
     }
   };
@@ -177,9 +227,16 @@ correlation_bwd_kernel(const float* __restrict__ operand,
       constexpr int kRow = kTX * kOff;
       const int nx = min(kTX, W - tx0) * kOff;  // a row's values in the plane
       const int ny = min(kTY, H - ty0);
-      const float* g0 = gb + (static_cast<long long>(ty0) * W + tx0) * kOff;
+      const T* g0 = gb + (static_cast<long long>(ty0) * W + tx0) * kOff;
       const long long g_row = static_cast<long long>(W) * kOff;
-      if (W % 4 == 0) {
+      if constexpr (!kF32) {  // widened as staged
+        for (int i = threadIdx.x; i < kTile * kOff; i += nthreads) {
+          const int tr = i / kRow;
+          const int e = i - tr * kRow;
+          s_g[i] = tr < ny && e < nx ? Group<T>::load(g0 + tr * g_row + e)
+                                     : 0.0f;
+        }
+      } else if (W % 4 == 0) {
         for (int i = threadIdx.x * 4; i < kTile * kOff; i += nthreads * 4) {
           const int tr = i / kRow;
           const int e = i - tr * kRow;
@@ -215,18 +272,21 @@ correlation_bwd_kernel(const float* __restrict__ operand,
         const int tc = hx + dxi - 2 * kR;   // output column w = source + dx
         const int x = tx0 + hx - kR;
         const bool x_in = x >= 0 && x < W;
-        const float* gx0 = gb + (x_in ? x * kOff + dxi : 0);
+        const T* gx0 = gb + (x_in ? x * kOff + dxi : 0);
         float* sq = s_g + tc * kOff + dxi;
         for (int tr = 0; tr < kTY; ++tr) {
 #pragma unroll
           for (int dyi = 0; dyi < kD; ++dyi) {  // dy + kR
             const int y = ty0 + tr + kR - dyi;
             const bool in = x_in && y >= 0 && y < H;
-            cp_async<4>(sq + tr * kTX * kOff + dyi * kD,
-                        in ? gx0 + static_cast<long long>(y) * W * kOff
-                                 + dyi * kD
-                           : gb,
-                        in ? 4 : 0);
+            const T* src =
+                in ? gx0 + static_cast<long long>(y) * W * kOff + dyi * kD
+                   : gb;
+            float* dst = sq + tr * kTX * kOff + dyi * kD;
+            if constexpr (kF32)
+              cp_async<4>(dst, src, in ? 4 : 0);
+            else
+              *dst = in ? Group<T>::load(src) : 0.0f;
           }
         }
       }
@@ -255,19 +315,19 @@ correlation_bwd_kernel(const float* __restrict__ operand,
     for (int i = 0; i < kK; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][e] = 0.0f;
-    const float4* st = smem + buf * stage4;
+    const Unit* st = smem + buf * stage4;
     for (int iy = 0; iy < kD; ++iy) {
       // d_first: second's row r + dy, halo row r + iy; d_second: first's
       // row r - dy, halo row r + 2 kR - iy
       const int hy = kShifted ? r + 2 * kR - iy : r + iy;
-      const float4* orow = st + hy * rs + gx * ncg + cg;
+      const Unit* orow = st + hy * rs + gx * ncg + cg;
       const float* gr = gq + iy * kD;
 #pragma unroll
       for (int jj = 0; jj < kK + 2 * kR; ++jj) {
         // d_second walks the taps backwards: each sum still takes
         // ascending dx, so ascending o
         const int j = kShifted ? kK + 2 * kR - 1 - jj : jj;
-        const float4 b = orow[j * ncg];
+        const float4 b = Group<T>::widen(orow[j * ncg]);
 #pragma unroll
         for (int i = 0; i < kK; ++i) {
           const int dxi = kShifted ? i - j + 2 * kR : j - i;  // dx + kR
@@ -289,15 +349,18 @@ correlation_bwd_kernel(const float* __restrict__ operand,
       for (int i = 0; i < kK; ++i) {
         const int x = tx0 + gx + i;
         if (x >= W) break;
-        float* d = db + (static_cast<long long>(y) * W + x) * C + c;
-        if constexpr (kVec) {
-          *reinterpret_cast<float4*>(d) =
-              make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv,
-                          acc[i][3] * inv);
+        T* d = db + (static_cast<long long>(y) * W + x) * C + c;
+        const float4 v = make_float4(acc[i][0] * inv, acc[i][1] * inv,
+                                     acc[i][2] * inv, acc[i][3] * inv);
+        if constexpr (kVec && kF32) {
+          *reinterpret_cast<float4*>(d) = v;
+        } else if constexpr (kVec) {
+          store_bf16x4(reinterpret_cast<bf16*>(d), v);
         } else {
+          const float e4[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (c + e < C) d[e] = acc[i][e] * inv;
+            if (c + e < C) Group<T>::store(d + e, e4[e]);
         }
       }
     }
@@ -305,8 +368,8 @@ correlation_bwd_kernel(const float* __restrict__ operand,
   }
 }
 
-template <bool kShifted, bool kVec>
-int launch_kernel(const float* operand, const float* g, float* out, int H,
+template <typename T, bool kShifted, bool kVec>
+int launch_kernel(const T* operand, const T* g, T* out, int H,
                   int W, int C, int ncg, int chunks, int tiles_x, int tiles,
                   long long blocks, cudaStream_t stream) {
   // split the chunks across blocks until the launch has kTargetBlocks
@@ -314,10 +377,10 @@ int launch_kernel(const float* operand, const float* g, float* out, int H,
   const int splits = static_cast<int>(want < chunks ? want : chunks);
   const int per = (chunks + splits - 1) / splits;
   const int rs = row_stride(ncg);
-  const size_t smem =
-      (per > 1 ? 2 : 1) * kHY * rs * sizeof(float4) + kGBytes;
+  const size_t smem = (per > 1 ? 2 : 1) * kHY * rs
+                     * sizeof(typename Group<T>::Unit) + kGBytes;
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = correlation_bwd_kernel<kShifted, kVec>;
+  auto kernel = correlation_bwd_kernel<T, kShifted, kVec>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -330,8 +393,8 @@ int launch_kernel(const float* operand, const float* g, float* out, int H,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool kShifted>
-int launch(const float* operand, const float* g, float* out, int frames,
+template <bool kShifted, typename T>
+int launch(const T* operand, const T* g, T* out, int frames,
            int H, int W, int C, void* stream) {
   if (C <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (frames == 0 || H == 0 || W == 0) return 0;
@@ -345,12 +408,14 @@ int launch(const float* operand, const float* g, float* out, int frames,
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (C % 4 == 0)
-    return launch_kernel<kShifted, true>(operand, g, out, H, W, C, ncg,
-                                         chunks, tiles_x,
-                                         static_cast<int>(tiles), blocks, st);
-  return launch_kernel<kShifted, false>(operand, g, out, H, W, C, ncg, chunks,
-                                        tiles_x, static_cast<int>(tiles),
-                                        blocks, st);
+    return launch_kernel<T, kShifted, true>(operand, g, out, H, W, C, ncg,
+                                            chunks, tiles_x,
+                                            static_cast<int>(tiles), blocks,
+                                            st);
+  return launch_kernel<T, kShifted, false>(operand, g, out, H, W, C, ncg,
+                                           chunks, tiles_x,
+                                           static_cast<int>(tiles), blocks,
+                                           st);
 }
 
 }  // namespace
@@ -368,5 +433,20 @@ DBSR_EXPORT int dbsr_correlation_dfirst_f32(const float* second, const float* g,
 DBSR_EXPORT int dbsr_correlation_dsecond_f32(const float* first, const float* g,
                                              float* dsecond, int frames, int H,
                                              int W, int C, void* stream) {
+  return launch<true>(first, g, dsecond, frames, H, W, C, stream);
+}
+
+// the same in bfloat16 (second or first, g and the gradient all bf16)
+DBSR_EXPORT int dbsr_correlation_dfirst_bf16(const bf16* second,
+                                             const bf16* g, bf16* dfirst,
+                                             int frames, int H, int W, int C,
+                                             void* stream) {
+  return launch<false>(second, g, dfirst, frames, H, W, C, stream);
+}
+
+DBSR_EXPORT int dbsr_correlation_dsecond_bf16(const bf16* first,
+                                              const bf16* g, bf16* dsecond,
+                                              int frames, int H, int W, int C,
+                                              void* stream) {
   return launch<true>(first, g, dsecond, frames, H, W, C, stream);
 }

@@ -1,4 +1,5 @@
-// Backward of the bilinear backward warp (warp.cu), float32, channels-last:
+// Backward of the bilinear backward warp (warp.cu), channels-last, float32
+// or bfloat16 features and gradients (the flow float32):
 //   out[b, p, c] = sum over the 4 floor taps q of (p + flow[b, p]) of
 //                  w_q * feat[b, q, c],  out-of-range taps weigh 0.
 //
@@ -57,7 +58,21 @@
 // the encoder's shape, ~0.32 ms. Design: one warp per output pixel; its
 // lanes walk the channels in 4-channel groups (16-byte loads of g and of
 // the four taps of feat), accumulate both sums in registers and reduce
-// them with shuffles; lane 0 writes the pixel's two values.
+// them with shuffles; lane 0 writes the pixel's two values. Where C % 4 !=
+// 0 the lanes walk single channels (4-byte loads) in the same way.
+//
+// The bf16 entries (dbsr_warp_dfeat_bf16, dbsr_warp_dflow_bf16) replace the
+// same two TPU kernels at bf16, whose `_dot` casts the one-hot operator to
+// bf16 and sums bf16 x bf16 products in float32. They are the float32
+// bodies with bf16 loads widened to float32 in registers as they arrive
+// (d_feat: 16-byte loads of 8 channels where C % 8 == 0; d_flow: 8-byte
+// loads of 4 where C % 4 == 0; one channel an access otherwise): d_feat rounds
+// each tap weight to bf16 before its product (exact in float32), sums in
+// the CSR's ascending source order and rounds each output once; d_flow
+// rounds each derivative weight to bf16 before it meets feat and writes
+// float32. Half the bytes of float32: at the encoder's shape ~0.53 GB,
+// ~0.16 ms at 3.35 TB/s for either. The plain versions (ops/warp.py) sum
+// in the same order, so d_feat agrees with them bit for bit.
 #include <climits>
 
 #include "common.cuh"
@@ -324,14 +339,75 @@ csr_sort_kernel(const int* __restrict__ start, int2* __restrict__ entries,
   sort_bucket(entries + frame * 4 * P + s[q], s[q + 1] - s[q]);
 }
 
-// 5. d_feat[q, c:c+4] = sum over q's bucket, in ascending source order, of
-// w * g[p, c:c+4]; a block is a 4x8 tile of targets x a slab of G x V
-// 4-channel groups, thread (target, j) the groups j, j + G, .. of the slab
-template <int G, int V>
+// Loads of kVec channels of element type T widened to float32, stores
+// rounded to T, and the tap weight as a T operand holds it.
+template <typename T, int kVec>
+struct Io;
+template <>
+struct Io<float, 4> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
+    const float4 r = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = r.x, v[1] = r.y, v[2] = r.z, v[3] = r.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct Io<float, 1> {
+  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) {
+    v[0] = __ldg(p);
+  }
+  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) {
+    *p = v[0];
+  }
+};
+template <>
+struct Io<bf16, 8> {
+  static __device__ __forceinline__ void load(const bf16* p, float (&v)[8]) {
+    load_bf16x8(p, v);
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float (&v)[8]) {
+    store_bf16x8(p, v);
+  }
+};
+template <>
+struct Io<bf16, 4> {
+  static __device__ __forceinline__ void load(const bf16* p, float (&v)[4]) {
+    const float4 r = load_bf16x4(p);
+    v[0] = r.x, v[1] = r.y, v[2] = r.z, v[3] = r.w;
+  }
+};
+template <>
+struct Io<bf16, 1> {
+  static __device__ __forceinline__ void load(const bf16* p, float (&v)[1]) {
+    v[0] = load_bf16(p);
+  }
+  static __device__ __forceinline__ void store(bf16* p, const float (&v)[1]) {
+    *p = to_bf16(v[0]);
+  }
+};
+
+__device__ __forceinline__ float operand(float w, const float*) { return w; }
+__device__ __forceinline__ float operand(float w, const bf16*) {
+  return round_bf16(w);
+}
+
+// the channels of one 16-byte access of T
+template <typename T>
+constexpr int kWide = 16 / static_cast<int>(sizeof(T));
+
+// 5. d_feat[q, c:c+kVec] = sum over q's bucket, in ascending source order,
+// of w * g[p, c:c+kVec] (kVec = kWide<T>: 4 float32 or 8 bf16 channels, one
+// 16-byte access); a block is a 4x8 tile of targets x a slab of G x V
+// channel groups, thread (target, j) the groups j, j + G, .. of the slab
+template <typename T, int G, int V>
 __global__ void __launch_bounds__(kTargets * G)
-dfeat_gather_kernel(const float* __restrict__ g, const int* __restrict__ start,
-                    const int2* __restrict__ entries, float* __restrict__ dfeat,
+dfeat_gather_kernel(const T* __restrict__ g, const int* __restrict__ start,
+                    const int2* __restrict__ entries, T* __restrict__ dfeat,
                     int H, int W, int C, int tiles_x, int tiles, int slabs) {
+  constexpr int kVec = kWide<T>;
+  using A = Io<T, kVec>;
   const int P = H * W;
   long long bid = blockIdx.x;
   const int slab = static_cast<int>(bid % slabs);
@@ -343,44 +419,45 @@ dfeat_gather_kernel(const float* __restrict__ g, const int* __restrict__ start,
   const int x = (tile % tiles_x) * kTileX + lt % kTileX;
   if (y >= H || x >= W) return;
   const int q = y * W + x;
-  const int c = (slab * G * V + static_cast<int>(threadIdx.x) % G) * 4;
+  const int c = (slab * G * V + static_cast<int>(threadIdx.x) % G) * kVec;
   const int* s = start + frame * (P + 1);
   const int2* e = entries + frame * 4 * P;
-  const float* gb = g + frame * P * C + c;
-  float4 acc[V];
+  const T* gb = g + frame * P * C + c;
+  float acc[V][kVec];
 #pragma unroll
-  for (int v = 0; v < V; ++v) acc[v] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int v = 0; v < V; ++v)
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) acc[v][i] = 0.0f;
   const int hi = s[q + 1];
 #pragma unroll 2
   for (int k = s[q]; k < hi; ++k) {
     const int2 ent = __ldg(e + k);
-    const float w = __int_as_float(ent.y);
-    const float* gp = gb + static_cast<long long>(ent.x) * C;
+    const float w = operand(__int_as_float(ent.y), g);
+    const T* gp = gb + static_cast<long long>(ent.x) * C;
 #pragma unroll
     for (int v = 0; v < V; ++v) {
-      const float4 val = __ldg(reinterpret_cast<const float4*>(gp + v * G * 4));
-      acc[v].x = fmaf(w, val.x, acc[v].x);
-      acc[v].y = fmaf(w, val.y, acc[v].y);
-      acc[v].z = fmaf(w, val.z, acc[v].z);
-      acc[v].w = fmaf(w, val.w, acc[v].w);
+      float val[kVec];
+      A::load(gp + v * G * kVec, val);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) acc[v][i] = fmaf(w, val[i], acc[v][i]);
     }
   }
-  float* out = dfeat + (frame * P + q) * C + c;
+  T* out = dfeat + (frame * P + q) * C + c;
 #pragma unroll
-  for (int v = 0; v < V; ++v)
-    *reinterpret_cast<float4*>(out + v * G * 4) = acc[v];
+  for (int v = 0; v < V; ++v) A::store(out + v * G * kVec, acc[v]);
 }
 
 // 5, for any C: d_feat[q, c] as above, one channel a thread; a block is a
 // 4x8 tile of targets x a slab of G channels, thread (target, j) channel
 // slab * G + j, idle past C
-template <int G>
+template <typename T, int G>
 __global__ void __launch_bounds__(kTargets * G)
-dfeat_gather_scalar_kernel(const float* __restrict__ g,
+dfeat_gather_scalar_kernel(const T* __restrict__ g,
                            const int* __restrict__ start,
                            const int2* __restrict__ entries,
-                           float* __restrict__ dfeat, int H, int W, int C,
+                           T* __restrict__ dfeat, int H, int W, int C,
                            int tiles_x, int tiles, int slabs) {
+  using A = Io<T, 1>;
   const int P = H * W;
   long long bid = blockIdx.x;
   const int slab = static_cast<int>(bid % slabs);
@@ -395,90 +472,101 @@ dfeat_gather_scalar_kernel(const float* __restrict__ g,
   const int q = y * W + x;
   const int* s = start + frame * (P + 1);
   const int2* e = entries + frame * 4 * P;
-  const float* gb = g + frame * P * C + c;
-  float acc = 0.0f;
+  const T* gb = g + frame * P * C + c;
+  float acc[1] = {0.0f};
   const int hi = s[q + 1];
 #pragma unroll 4
   for (int k = s[q]; k < hi; ++k) {
     const int2 ent = __ldg(e + k);
-    acc = fmaf(__int_as_float(ent.y),
-               __ldg(gb + static_cast<long long>(ent.x) * C), acc);
+    float val[1];
+    A::load(gb + static_cast<long long>(ent.x) * C, val);
+    acc[0] = fmaf(operand(__int_as_float(ent.y), g), val[0], acc[0]);
   }
-  dfeat[(frame * P + q) * C + c] = acc;
+  A::store(dfeat + (frame * P + q) * C + c, acc);
 }
 
-template <int G>
-void launch_gather_scalar(const float* g, const Csr& csr, float* dfeat,
-                          int frames, int H, int W, int C,
-                          cudaStream_t stream) {
+template <typename T, int G>
+void launch_gather_scalar(const T* g, const Csr& csr, T* dfeat, int frames,
+                          int H, int W, int C, cudaStream_t stream) {
   const int tiles_x = (W + kTileX - 1) / kTileX;
   const int tiles = ((H + kTileY - 1) / kTileY) * tiles_x;
   const int slabs = (C + G - 1) / G;
   const long long blocks = static_cast<long long>(frames) * tiles * slabs;
-  dfeat_gather_scalar_kernel<G><<<static_cast<unsigned>(blocks), kTargets * G,
-                                  0, stream>>>(g, csr.start, csr.entries,
-                                               dfeat, H, W, C, tiles_x, tiles,
-                                               slabs);
+  dfeat_gather_scalar_kernel<T, G><<<static_cast<unsigned>(blocks),
+                                     kTargets * G, 0, stream>>>(
+      g, csr.start, csr.entries, dfeat, H, W, C, tiles_x, tiles, slabs);
 }
 
-template <int G, int V>
-void launch_gather(const float* g, const Csr& csr, float* dfeat, int frames,
-                   int H, int W, int C, cudaStream_t stream) {
+template <typename T, int G, int V>
+void launch_gather(const T* g, const Csr& csr, T* dfeat, int frames, int H,
+                   int W, int C, cudaStream_t stream) {
   const int tiles_x = (W + kTileX - 1) / kTileX;
   const int tiles = ((H + kTileY - 1) / kTileY) * tiles_x;
-  const int slabs = C / 4 / (G * V);
+  const int slabs = C / kWide<T> / (G * V);
   const long long blocks = static_cast<long long>(frames) * tiles * slabs;
-  dfeat_gather_kernel<G, V><<<static_cast<unsigned>(blocks), kTargets * G, 0,
-                              stream>>>(g, csr.start, csr.entries, dfeat, H, W,
-                                        C, tiles_x, tiles, slabs);
+  dfeat_gather_kernel<T, G, V><<<static_cast<unsigned>(blocks), kTargets * G,
+                                 0, stream>>>(g, csr.start, csr.entries, dfeat,
+                                              H, W, C, tiles_x, tiles, slabs);
 }
 
-// G: the widest of 8, 4, 2, 1 4-channel groups that divides C / 4; V: 2
+// G: the widest of 8, 4, 2, 1 16-byte groups that divides C / kWide; V: 2
 // slabs of G a thread where they divide it too (two 16-byte loads in
-// flight per entry; 4 was slower at the encoder's C = 512)
-template <int G>
-void launch_gather_v(const float* g, const Csr& csr, float* dfeat, int frames,
-                     int H, int W, int C, cudaStream_t stream) {
-  if ((C / 4) % (2 * G) == 0)
-    launch_gather<G, 2>(g, csr, dfeat, frames, H, W, C, stream);
+// flight per entry; 4 was slower at the encoder's C = 512 in float32)
+template <typename T, int G>
+void launch_gather_v(const T* g, const Csr& csr, T* dfeat, int frames, int H,
+                     int W, int C, cudaStream_t stream) {
+  if ((C / kWide<T>) % (2 * G) == 0)
+    launch_gather<T, G, 2>(g, csr, dfeat, frames, H, W, C, stream);
   else
-    launch_gather<G, 1>(g, csr, dfeat, frames, H, W, C, stream);
+    launch_gather<T, G, 1>(g, csr, dfeat, frames, H, W, C, stream);
 }
 
+// d_flow: one warp per output pixel, its lanes on kVec channels at a time
+template <typename T, int kVec>
 __global__ void __launch_bounds__(kThreads)
-dflow_kernel(const float* __restrict__ feat, const float* __restrict__ flow,
-             const float* __restrict__ g, float* __restrict__ dflow, int P,
+dflow_kernel(const T* __restrict__ feat, const float* __restrict__ flow,
+             const T* __restrict__ g, float* __restrict__ dflow, int P,
              int H, int W, int C, long long total) {
+  using A = Io<T, kVec>;
   const long long pix = (static_cast<long long>(blockIdx.x) * kThreads +
                          threadIdx.x) / 32;
   const int lane = threadIdx.x & 31;
   if (pix >= total) return;  // whole warps leave together
   const long long frame = pix / P;
   const int p = static_cast<int>(pix - frame * P);
-  const Taps t = tap_geometry(flow + pix * 2, p, H, W);
-  const float* fb = feat + frame * P * C;
-  const float* gp = g + pix * C;
+  Taps t = tap_geometry(flow + pix * 2, p, H, W);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // the derivative weights as T operands
+    t.dx[k] = operand(t.dx[k], feat);
+    t.dy[k] = operand(t.dy[k], feat);
+  }
+  const T* fb = feat + frame * P * C;
+  const T* gp = g + pix * C;
   float sx = 0.0f, sy = 0.0f;
-  for (int c = lane * 4; c < C; c += 128) {
-    const float4 gv = __ldg(reinterpret_cast<const float4*>(gp + c));
-    float4 fx = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    float4 fy = fx;
+  for (int c = lane * kVec; c < C; c += 32 * kVec) {
+    float gv[kVec], fx[kVec], fy[kVec];
+    A::load(gp + c, gv);
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) fx[i] = fy[i] = 0.0f;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       if (t.dx[k] == 0.0f && t.dy[k] == 0.0f) continue;
-      const float4 v = __ldg(reinterpret_cast<const float4*>(
-          fb + static_cast<long long>(t.q[k]) * C + c));
-      fx.x = fmaf(t.dx[k], v.x, fx.x);
-      fx.y = fmaf(t.dx[k], v.y, fx.y);
-      fx.z = fmaf(t.dx[k], v.z, fx.z);
-      fx.w = fmaf(t.dx[k], v.w, fx.w);
-      fy.x = fmaf(t.dy[k], v.x, fy.x);
-      fy.y = fmaf(t.dy[k], v.y, fy.y);
-      fy.z = fmaf(t.dy[k], v.z, fy.z);
-      fy.w = fmaf(t.dy[k], v.w, fy.w);
+      float v[kVec];
+      A::load(fb + static_cast<long long>(t.q[k]) * C + c, v);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        fx[i] = fmaf(t.dx[k], v[i], fx[i]);
+        fy[i] = fmaf(t.dy[k], v[i], fy[i]);
+      }
     }
-    sx += gv.x * fx.x + gv.y * fx.y + gv.z * fx.z + gv.w * fx.w;
-    sy += gv.x * fy.x + gv.y * fy.y + gv.z * fy.z + gv.w * fy.w;
+    float ax = 0.0f, ay = 0.0f;
+#pragma unroll
+    for (int i = 0; i < kVec; ++i) {
+      ax += gv[i] * fx[i];
+      ay += gv[i] * fy[i];
+    }
+    sx += ax;
+    sy += ay;
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) {
@@ -491,23 +579,15 @@ dflow_kernel(const float* __restrict__ feat, const float* __restrict__ flow,
   }
 }
 
-}  // namespace
-
-// flow [frames, H, W, 2], g and dfeat [frames, H, W, C]; all float32,
-// contiguous, 16-byte aligned; any C (16-byte accesses where C % 4 == 0,
-// 4-byte ones otherwise); scratch int32, 16-byte aligned,
-// of at least scratch_words words (the CSR; csr_words). dfeat needs no
-// initial value: every element is written once.
-DBSR_EXPORT int dbsr_warp_dfeat_f32(const float* flow, const float* g,
-                                    float* dfeat, int* scratch, int frames,
-                                    int H, int W, int C, int scratch_words,
-                                    void* stream) {
+template <typename T>
+int run_dfeat(const float* flow, const T* g, T* dfeat, int* scratch,
+              int frames, int H, int W, int C, int scratch_words,
+              cudaStream_t st) {
   const long long P = static_cast<long long>(H) * W;
   if (P > INT_MAX / 4
       || csr_words(frames, P) > static_cast<long long>(scratch_words))
     return static_cast<int>(cudaErrorInvalidValue);
   if (frames == 0 || P == 0 || C == 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Csr csr = csr_layout(scratch, frames, P);
   const long long smem = build_smem_bytes(P);
   if (smem <= kMaxSmem) {
@@ -533,38 +613,81 @@ DBSR_EXPORT int dbsr_warp_dfeat_f32(const float* flow, const float* g,
     csr_sort_kernel<<<blocks, kThreads, 0, st>>>(
         csr.start, csr.entries, static_cast<int>(P), total);
   }
-  const int c4 = C / 4;
-  if (C % 4 != 0) {
+  const int cw = C / kWide<T>;
+  if (C % kWide<T> != 0) {
     if (C == 1)
-      launch_gather_scalar<1>(g, csr, dfeat, frames, H, W, C, st);
+      launch_gather_scalar<T, 1>(g, csr, dfeat, frames, H, W, C, st);
     else if (C == 2)
-      launch_gather_scalar<2>(g, csr, dfeat, frames, H, W, C, st);
-    else if (C == 3)
-      launch_gather_scalar<4>(g, csr, dfeat, frames, H, W, C, st);
+      launch_gather_scalar<T, 2>(g, csr, dfeat, frames, H, W, C, st);
+    else if (C <= 4)
+      launch_gather_scalar<T, 4>(g, csr, dfeat, frames, H, W, C, st);
     else
-      launch_gather_scalar<8>(g, csr, dfeat, frames, H, W, C, st);
-  } else if (c4 % 8 == 0)
-    launch_gather_v<8>(g, csr, dfeat, frames, H, W, C, st);
-  else if (c4 % 4 == 0)
-    launch_gather_v<4>(g, csr, dfeat, frames, H, W, C, st);
-  else if (c4 % 2 == 0)
-    launch_gather_v<2>(g, csr, dfeat, frames, H, W, C, st);
+      launch_gather_scalar<T, 8>(g, csr, dfeat, frames, H, W, C, st);
+  } else if (cw % 8 == 0)
+    launch_gather_v<T, 8>(g, csr, dfeat, frames, H, W, C, st);
+  else if (cw % 4 == 0)
+    launch_gather_v<T, 4>(g, csr, dfeat, frames, H, W, C, st);
+  else if (cw % 2 == 0)
+    launch_gather_v<T, 2>(g, csr, dfeat, frames, H, W, C, st);
   else
-    launch_gather_v<1>(g, csr, dfeat, frames, H, W, C, st);
+    launch_gather_v<T, 1>(g, csr, dfeat, frames, H, W, C, st);
   return static_cast<int>(cudaGetLastError());
 }
 
-// feat and g [frames, H, W, C], flow and dflow [frames, H, W, 2]; all
-// float32, contiguous, 16-byte aligned; C % 4 == 0.
-DBSR_EXPORT int dbsr_warp_dflow_f32(const float* feat, const float* flow,
-                                    const float* g, float* dflow, int frames,
-                                    int H, int W, int C, void* stream) {
-  if (C % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+// 4 channels an access where C % 4 == 0 (16 bytes of float32, 8 of
+// bf16), else one
+template <typename T>
+int run_dflow(const T* feat, const float* flow, const T* g, float* dflow,
+              int frames, int H, int W, int C, cudaStream_t st) {
   const long long total = static_cast<long long>(frames) * H * W;
   if (total == 0 || C == 0) return 0;
   const long long blocks = (total * 32 + kThreads - 1) / kThreads;
-  dflow_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      feat, flow, g, dflow, H * W, H, W, C, total);
+  if (C % 4 == 0)
+    dflow_kernel<T, 4><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        feat, flow, g, dflow, H * W, H, W, C, total);
+  else
+    dflow_kernel<T, 1><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+        feat, flow, g, dflow, H * W, H, W, C, total);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// flow [frames, H, W, 2] float32, g and dfeat [frames, H, W, C] float32
+// (or bfloat16: dbsr_warp_dfeat_bf16); contiguous, 16-byte aligned; any C
+// (16-byte accesses where C % 4 == 0 in float32, C % 8 == 0 in bf16; one
+// channel an access otherwise); scratch int32, 16-byte aligned, of at
+// least scratch_words words (the CSR; csr_words). dfeat needs no initial
+// value: every element is written once.
+DBSR_EXPORT int dbsr_warp_dfeat_f32(const float* flow, const float* g,
+                                    float* dfeat, int* scratch, int frames,
+                                    int H, int W, int C, int scratch_words,
+                                    void* stream) {
+  return run_dfeat(flow, g, dfeat, scratch, frames, H, W, C, scratch_words,
+                   static_cast<cudaStream_t>(stream));
+}
+
+DBSR_EXPORT int dbsr_warp_dfeat_bf16(const float* flow, const bf16* g,
+                                     bf16* dfeat, int* scratch, int frames,
+                                     int H, int W, int C, int scratch_words,
+                                     void* stream) {
+  return run_dfeat(flow, g, dfeat, scratch, frames, H, W, C, scratch_words,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// feat and g [frames, H, W, C] float32 (or bfloat16: dbsr_warp_dflow_bf16),
+// flow and dflow [frames, H, W, 2] float32; contiguous, 16-byte aligned;
+// any C (4 channels an access where C % 4 == 0, one otherwise).
+DBSR_EXPORT int dbsr_warp_dflow_f32(const float* feat, const float* flow,
+                                    const float* g, float* dflow, int frames,
+                                    int H, int W, int C, void* stream) {
+  return run_dflow(feat, flow, g, dflow, frames, H, W, C,
+                   static_cast<cudaStream_t>(stream));
+}
+
+DBSR_EXPORT int dbsr_warp_dflow_bf16(const bf16* feat, const float* flow,
+                                     const bf16* g, float* dflow, int frames,
+                                     int H, int W, int C, void* stream) {
+  return run_dflow(feat, flow, g, dflow, frames, H, W, C,
+                   static_cast<cudaStream_t>(stream));
 }

@@ -14,14 +14,15 @@ computed without gradient and its parameters do not require one. With
 launches the warp's d_flow and, inside the aligner, the cost volume's
 d_first and d_second kernels. With ``fused_s2d_decoder=True`` the decoder's
 stage after the pixel shuffle runs on the phase-major space-to-depth-2
-layout; with ``DBSR_FINE_PATCH_S2D=1`` its 3x3 convs launch the fine-patch
-conv kernel (``ops/conv_s2d.py``) in the forward and again as d_input in the
-backward.
+layout; on the card its 3x3 convs launch the fine-patch conv kernel
+(``ops/conv_s2d.py``) in the forward and again as d_input in the backward,
+unless ``DBSR_FINE_PATCH_S2D=0``.
 
-``dtype="bfloat16"`` (the JAX package's serving and scoring default, and
-what the banked checkpoints record) runs every conv, the aligner included,
-in bf16 with float32 parameters cast where they are used; the kernels take
-their bf16 instantiations. What the JAX package keeps in float32 stays so:
+``dtype="bfloat16"`` (the JAX package's default compute dtype for serving,
+scoring and training, and what the banked checkpoints record) runs every
+conv, the aligner included, in bf16 with float32 parameters cast where
+they are used, so that their gradients come back float32; the kernels,
+forward and backward, take their bf16 instantiations. What the JAX package keeps in float32 stays so:
 the demosaiced burst and the aligner's flow, the offsets through their
 ``% offset_modulo`` (cast at ``offset_conv``), the prediction.
 """

@@ -27,9 +27,10 @@ a 1x1 through the block-diagonal ``[4O, 4C, 1, 1]`` conv of
 :func:`s2d_conv_kernel`, the bias tiled over the four phases. The parameters
 stay in the fine ``nn.Conv2d`` named ``Conv_0``; only the forward differs.
 
-A compute dtype (:func:`set_compute_dtype`; bfloat16 serving) follows
-flax's ``dtype=`` semantics: parameters stay float32 and are cast where
-they are used, the conv's input is cast to the compute dtype and the bias
+A compute dtype (:func:`set_compute_dtype`; bfloat16 serving and
+training) follows flax's ``dtype=`` semantics: parameters stay float32
+and are cast where they are used (under autograd their gradients come
+back float32 through the cast), the conv's input is cast to the compute dtype and the bias
 is added in it to the conv's rounded output (two roundings, as XLA's and
 cuDNN's; oneDNN would add a bias handed to the conv before rounding);
 :class:`TorchConvTranspose` computes in its input's dtype, as the JAX

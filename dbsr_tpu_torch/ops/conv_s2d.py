@@ -12,21 +12,24 @@ compute-only.
   ``[16C]`` patch row (pieces in ``_SLOT`` order) times :func:`block_weight`
   ``[16C, 4O]``.
 * :func:`conv3x3_s2d` is differentiable (``Conv3x3S2D``). For CUDA tensors
-  (float32; bfloat16 forward only, the TPU kernel's bf16 matmul: the
-  weight rounded to bf16, float32 accumulation, one rounding of the
-  output) its forward launches ``kernels/csrc/conv_s2d.cu``, which skips
-  the block weight's zero slots, and its d_input launches the same kernel
-  with ``weight.flip(2, 3).transpose(0, 1)``; d_kernel is PyTorch's conv
-  weight gradient of the fine-resolution conv on the unfolded ``x`` and
-  output gradient (the JAX package computes that term with XLA too). For
+  (float32, or bfloat16: the TPU kernel's bf16 matmul, the weight rounded
+  to bf16, float32 accumulation, one rounding of the output) its forward
+  launches ``kernels/csrc/conv_s2d.cu``, which skips the block weight's
+  zero slots, and its d_input launches the same kernel, in the output
+  gradient's type, with ``weight.flip(2, 3).transpose(0, 1)``; d_kernel
+  is PyTorch's float32 conv weight gradient of the fine-resolution conv on
+  the unfolded ``x`` and output gradient, TF32 off (the JAX package
+  computes that term with XLA too, float32 on bf16-valued operands). For
   CPU tensors the same ``Function`` runs the plain version. It keeps ``x``
   only when the weight needs a gradient and the weight only when ``x``
   does, and is bypassed when no gradient is needed. The kernel's launches
   (forward and d_input) are counted in ``conv3x3_s2d.launches``.
-* :func:`conv3x3_s2d_auto` is the JAX package's dispatch:
-  ``DBSR_FINE_PATCH_S2D=1`` (read per call) or ``force=True`` selects
-  :func:`conv3x3_s2d`; otherwise the structured-dense conv, one
-  ``F.conv2d`` with ``s2d_conv_kernel`` weights (``models/layers.py``).
+* :func:`conv3x3_s2d_auto` dispatches: a CUDA tensor takes
+  :func:`conv3x3_s2d` unless ``DBSR_FINE_PATCH_S2D=0`` (read per call); a
+  CPU tensor keeps the JAX package's dispatch, :func:`conv3x3_s2d` only
+  with ``DBSR_FINE_PATCH_S2D=1``; ``force`` wins over both. The other
+  branch is the structured-dense conv, one ``F.conv2d`` with
+  ``s2d_conv_kernel`` weights (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -176,7 +179,7 @@ class Conv3x3S2D(torch.autograd.Function):
         need_dx, need_dk = ctx.needs_input_grad
         ctx.save_for_backward(x if need_dk else None,
                               weight if need_dx else None)
-        ctx.weight_shape = weight.shape
+        ctx.weight_shape, ctx.weight_dtype = weight.shape, weight.dtype
         return conv3x3_s2d_forward(x, weight)
 
     @staticmethod
@@ -187,8 +190,14 @@ class Conv3x3S2D(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = conv3x3_s2d_forward(g, rotate_weight(weight))
         if ctx.needs_input_grad[1]:
-            dk = torch.nn.grad.conv2d_weight(
-                _unfold_nchw(x), ctx.weight_shape, _unfold_nchw(g), padding=1)
+            cudnn = torch.backends.cudnn
+            tf32, cudnn.allow_tf32 = cudnn.allow_tf32, False
+            try:
+                dk = torch.nn.grad.conv2d_weight(
+                    _unfold_nchw(x), ctx.weight_shape, _unfold_nchw(g),
+                    padding=1).to(ctx.weight_dtype)
+            finally:
+                cudnn.allow_tf32 = tf32
         return dx, dk
 
 
@@ -207,13 +216,17 @@ conv3x3_s2d.launches = 0
 
 def conv3x3_s2d_auto(x: torch.Tensor, weight: torch.Tensor,
                      force: Optional[bool] = None) -> torch.Tensor:
-    """The JAX package's dispatch: the fine-patch conv (:func:`conv3x3_s2d`)
-    when ``DBSR_FINE_PATCH_S2D=1`` or ``force`` is True, else the
-    structured-dense conv, one 3x3 SAME ``F.conv2d`` over the s2d tensor
-    with the ``[4O, 4C, 3, 3]`` kernel of ``s2d_conv_kernel``. ``force``
-    wins over the environment."""
-    fine_patch = (os.environ.get(FINE_PATCH_ENV) == "1" if force is None
-                  else force)
+    """The fine-patch conv (:func:`conv3x3_s2d`) for a CUDA tensor unless
+    ``DBSR_FINE_PATCH_S2D=0``, for a CPU one only with
+    ``DBSR_FINE_PATCH_S2D=1`` (the JAX package's dispatch), or as ``force``
+    says; else the structured-dense conv, one 3x3 SAME ``F.conv2d`` over
+    the s2d tensor with the ``[4O, 4C, 3, 3]`` kernel of
+    ``s2d_conv_kernel``."""
+    if force is None:
+        switch = os.environ.get(FINE_PATCH_ENV)
+        fine_patch = switch != "0" if x.is_cuda else switch == "1"
+    else:
+        fine_patch = force
     if fine_patch:
         return conv3x3_s2d(x, weight)
     from dbsr_tpu_torch.models.layers import s2d_conv_kernel

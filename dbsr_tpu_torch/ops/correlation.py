@@ -17,10 +17,10 @@ the gradient shifted per pixel, ``shift_gradient``). The inputs are
 kept for the backward only when a gradient is needed, so nothing is saved
 under ``no_grad``. Each kernel wrapper counts its launches in ``.launches``.
 
-The forward takes float32 or bfloat16 (both inputs and the output of one
-type); in bfloat16 it follows the TPU kernel's arithmetic: the sums, the
-1/C and the division in float32, one rounding of the output. The backward
-kernels take float32.
+The forward and both backward kernels take float32 or bfloat16 (the
+inputs, the gradient and the outputs of one type); in bfloat16 they follow
+the TPU kernels' arithmetic: the sums and the 1/C in float32, one rounding
+of the output.
 """
 
 from __future__ import annotations
@@ -182,10 +182,12 @@ def correlation_dfirst(second: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _check_grad("correlation_dfirst", second, g)
     if _on_cpu(second, g):
         return correlation_dfirst_plain(second, g)
-    B, H, W, C = _launch_checks("correlation_dfirst", second, g)
+    fn = kernels.entry("correlation_dfirst", "dbsr_correlation_dfirst",
+                       second.dtype)
+    B, H, W, C = _launch_checks("correlation_dfirst", second, g,
+                                dtypes=(second.dtype,) * 2)
     out = torch.empty_like(second)
-    kernels.launch("correlation_bwd", "dbsr_correlation_dfirst_f32",
-                   (second, g, out), (B, H, W, C))
+    kernels.launch("correlation_bwd", fn, (second, g, out), (B, H, W, C))
     correlation_dfirst.launches += 1
     return out
 
@@ -196,10 +198,12 @@ def correlation_dsecond(first: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     _check_grad("correlation_dsecond", first, g)
     if _on_cpu(first, g):
         return correlation_dsecond_plain(first, g)
-    B, H, W, C = _launch_checks("correlation_dsecond", first, g)
+    fn = kernels.entry("correlation_dsecond", "dbsr_correlation_dsecond",
+                       first.dtype)
+    B, H, W, C = _launch_checks("correlation_dsecond", first, g,
+                                dtypes=(first.dtype,) * 2)
     out = torch.empty_like(first)
-    kernels.launch("correlation_bwd", "dbsr_correlation_dsecond_f32",
-                   (first, g, out), (B, H, W, C))
+    kernels.launch("correlation_bwd", fn, (first, g, out), (B, H, W, C))
     correlation_dsecond.launches += 1
     return out
 
@@ -227,9 +231,8 @@ class _Correlation(torch.autograd.Function):
 
 def cost_volume(first: torch.Tensor, second: torch.Tensor) -> torch.Tensor:
     """81-channel local cost volume of ``[B, H, W, C]`` features,
-    differentiable in both: the CUDA kernels for CUDA tensors (float32,
-    any C >= 1; the forward also bfloat16), the plain versions for CPU
-    tensors. A non-contiguous input
+    differentiable in both: the CUDA kernels for CUDA tensors (float32 or
+    bfloat16, any C >= 1), the plain versions for CPU tensors. A non-contiguous input
     (a broadcast target pyramid, a masked backwarp) is copied first."""
     return _Correlation.apply(first.contiguous(), second.contiguous())
 

@@ -11,10 +11,9 @@ tensors the same ``Function`` runs ``fused_softmax_merge_plain`` and
 ``fused_softmax_merge_backward_plain``. ``fused_softmax_merge.launches``
 and ``merge_backward.launches`` count kernel launches.
 
-The forward takes float32 or bfloat16 (feat and logits of one type, the
-output feat's); in bfloat16 the max, the exps and the sums are float32 and
-the output is rounded once, as in the TPU kernel. The backward kernel
-takes float32.
+The forward and the backward take float32 or bfloat16 (feat, logits and
+the gradients of one type); in bfloat16 the max, the exps and the sums are
+float32 and each output is rounded once, as in the TPU kernels.
 """
 
 from __future__ import annotations
@@ -53,12 +52,21 @@ def fused_softmax_merge_backward_plain(feat: torch.Tensor,
                                        logits: torch.Tensor, g: torch.Tensor
                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain backward, ``(d_feat, d_logits)`` for the output gradient ``g``
-    ``[B, h, w, C]`` (mirrors ``merge_pallas._merge_bwd_kernel``)."""
+    ``[B, h, w, C]``, in float32 in the steps of the TPU kernel's body
+    (``merge_pallas._merge_bwd_kernel``), the sums over the frames taken
+    frame by frame, the order of the bf16 kernel: the max ``m``, ``s = sum
+    exp(l - m)``, ``w = exp(l - m) / s``, ``fused = sum w f``, then ``w g``
+    and ``w g (f - fused)``, each rounded once to the inputs' type."""
     l = logits.float()
     f = feat.float()
     e = torch.exp(l - l.amax(dim=1, keepdim=True))
-    w = e / e.sum(dim=1, keepdim=True)
-    fused = (w * f).sum(dim=1)
+    s = e[:, 0]
+    for n in range(1, e.shape[1]):
+        s = s + e[:, n]
+    w = e / s[:, None]
+    fused = w[:, 0] * f[:, 0]
+    for n in range(1, e.shape[1]):
+        fused = fused + w[:, n] * f[:, n]
     wg = w * g.float()[:, None]
     return (wg.to(feat.dtype),
             (wg * (f - fused[:, None])).to(logits.dtype))
@@ -106,10 +114,12 @@ def merge_backward(feat: torch.Tensor, logits: torch.Tensor,
                          f"{tuple(feat.shape)}")
     if all(t.device.type == "cpu" for t in (feat, logits, g)):
         return fused_softmax_merge_backward_plain(feat, logits, g)
-    B, N, P, C = _sizes("merge_backward", feat, logits, g)
+    fn = kernels.entry("merge_backward", "dbsr_merge_bwd", feat.dtype)
+    B, N, P, C = _sizes("merge_backward", feat, logits, g,
+                        dtypes=(feat.dtype,) * 3)
     dfeat = torch.empty_like(feat)
     dlogits = torch.empty_like(logits)
-    kernels.launch("merge_bwd", "dbsr_merge_bwd_f32",
+    kernels.launch("merge_bwd", fn,
                    (feat, logits, g, dfeat, dlogits), (B, N, P, C))
     merge_backward.launches += 1
     return dfeat, dlogits
@@ -131,8 +141,8 @@ class _Merge(torch.autograd.Function):
 
 def fused_softmax_merge(feat: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """One-pass frame-softmax weighted sum, differentiable in both inputs:
-    the CUDA kernels for CUDA tensors (float32, contiguous, C % 4 == 0; the
-    forward also bfloat16), the plain versions for CPU tensors."""
+    the CUDA kernels for CUDA tensors (float32 or bfloat16, contiguous,
+    C % 4 == 0), the plain versions for CPU tensors."""
     return _Merge.apply(feat, logits)
 
 

@@ -13,10 +13,11 @@ tensors the same ``Function`` runs the plain versions
 (``warp_feat_plain``, ``warp_feat_backward_plain``). Each kernel wrapper
 counts its launches in ``.launches``.
 
-The forward takes float32 or bfloat16 features (the flow float32); in
-bfloat16 it follows the TPU kernel's arithmetic (each tap weight rounded
-to bf16, products and sums in float32, one rounding of the output). The
-backward kernels take float32.
+The forward and both backward kernels take float32 or bfloat16 features
+and gradients (the flow float32); in bfloat16 they follow the TPU
+kernels' arithmetic (each tap weight, or each derivative weight of
+d_flow, rounded to bf16, products and sums in float32, one rounding of
+each bf16 output; d_flow's output is float32, the flow's type).
 """
 
 from __future__ import annotations
@@ -97,7 +98,14 @@ def warp_feat_plain(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 
 def warp_dfeat_plain(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``_dfeat_kernel``: the transposed 4-tap operator applied to ``g``
-    ``[B, H, W, C]``, as a scatter-add of ``w_tap * g`` into the taps."""
+    ``[B, H, W, C]``, as a scatter-add of ``w_tap * g`` into the taps.
+    Below float32 (a bfloat16 ``g``), as the TPU kernel's bf16 matmul and
+    the CUDA kernel's gather: each tap weight rounded to bf16, every input
+    pixel's terms summed in float32 in ascending source order (the order
+    of the kernel's CSR), and the sum rounded once
+    (:func:`_dfeat_ordered`)."""
+    if g.dtype not in (torch.float32, torch.float64):
+        return _dfeat_ordered(flow, g)
     B, H, W, C = g.shape
     coords = base_grid(H, W, g.device) + flow.float()
     offset = (torch.arange(B, device=g.device) * (H * W)).reshape(B, 1, 1)
@@ -109,17 +117,54 @@ def warp_dfeat_plain(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return out.reshape(B, H, W, C)
 
 
+def _dfeat_ordered(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """d_feat with each target's terms added in ascending source order, the
+    same bits on every device: the (target, source) pairs of the nonzero
+    taps sorted, then one ``index_add_`` per rank within a target's bucket,
+    which touches each target at most once, so no two adds race."""
+    B, H, W, C = g.shape
+    P = H * W
+    coords = base_grid(H, W, g.device) + flow.float()
+    frame = (torch.arange(B, device=g.device) * P).reshape(B, 1, 1)
+    src = (frame + torch.arange(P, device=g.device).reshape(1, H, W)
+           ).reshape(-1)
+    tgt, srcs, wts = [], [], []
+    for idx, w, _, _ in _taps(coords, H, W):
+        keep = (w != 0).reshape(-1)
+        tgt.append((idx + frame).reshape(-1)[keep])
+        srcs.append(src[keep])
+        wts.append(w.reshape(-1)[keep])
+    tgt, srcs, wts = torch.cat(tgt), torch.cat(srcs), torch.cat(wts)
+    order = torch.argsort(tgt * (B * P) + srcs)
+    tgt, srcs, wts = tgt[order], srcs[order], wts[order]
+    counts = torch.bincount(tgt, minlength=B * P)
+    start = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(tgt.numel(), device=g.device) - start[tgt]
+    gf = g.reshape(B * P, C).float()
+    wq = wts.to(g.dtype).float()  # the weights as bf16 operands hold them
+    out = torch.zeros((B * P, C), dtype=torch.float32, device=g.device)
+    for r in range(int(counts.max()) if tgt.numel() else 0):
+        sel = rank == r
+        out.index_add_(0, tgt[sel], gf[srcs[sel]] * wq[sel, None])
+    return out.to(g.dtype).reshape(B, H, W, C)
+
+
 def warp_dflow_plain(feat: torch.Tensor, flow: torch.Tensor,
                      g: torch.Tensor) -> torch.Tensor:
     """``_dflow_kernel``: per output pixel, ``sum_c g[p, c] *
     sum_tap dw_tap/d(x, y) * feat[tap, c]`` with the floor-tap one-sided
-    derivative (``feat[i+1] - feat[i]`` at an integer coordinate)."""
+    derivative (``feat[i+1] - feat[i]`` at an integer coordinate), the
+    taps' terms summed in tap order in float32. Below float32 (a bfloat16
+    ``feat``) each derivative weight is rounded to ``feat``'s type first,
+    as the TPU kernel's bf16 matmul rounds its operator."""
     B, H, W, C = feat.shape
     coords = base_grid(H, W, feat.device) + flow.float()
     flat = feat.reshape(B, H * W, C)
     fx = fy = None
     for idx, _, dwdx, dwdy in _taps(coords, H, W):
         val = _gather(flat, idx).float()
+        if feat.dtype not in (torch.float32, torch.float64):
+            dwdx, dwdy = (d.to(feat.dtype).float() for d in (dwdx, dwdy))
         tx, ty = val * dwdx[..., None], val * dwdy[..., None]
         fx = tx if fx is None else fx + tx
         fy = ty if fy is None else fy + ty
@@ -146,13 +191,10 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def _launch_checks(op: str, *tensors: torch.Tensor, any_c: bool = True,
+def _launch_checks(op: str, *tensors: torch.Tensor,
                    dtypes=()) -> Tuple[int, ...]:
     kernels.require_cuda(op, *tensors, dtypes=dtypes)
-    B, H, W, C = tensors[0].shape
-    if not any_c and C % 4:
-        raise ValueError(f"{op}: kernel takes C % 4 == 0, got C={C}")
-    return B, H, W, C
+    return tuple(tensors[0].shape)
 
 
 def warp_forward(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -181,17 +223,20 @@ def _dfeat_scratch_words(frames: int, P: int) -> int:
 
 def warp_dfeat(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """d_feat of the warp for the output gradient ``g`` ``[B, H, W, C]``:
-    the kernel (a gather over the transposed taps, bit-identical from call
-    to call; any C, 4-byte accesses where C % 4 != 0) for CUDA tensors, the
-    plain scatter-add for CPU ones."""
+    the kernel (float32 or bfloat16 ``g``, float32 flow; a gather over the
+    transposed taps, bit-identical from call to call; any C, one channel
+    an access where the channels do not fill 16 bytes) for CUDA tensors,
+    the plain version for CPU ones."""
     _check("warp_dfeat", g, flow)
     if _on_cpu(flow, g):
         return warp_dfeat_plain(flow, g)
-    B, H, W, C = _launch_checks("warp_dfeat", g, flow)
+    fn = kernels.entry("warp_dfeat", "dbsr_warp_dfeat", g.dtype)
+    B, H, W, C = _launch_checks("warp_dfeat", g, flow,
+                                dtypes=(g.dtype, torch.float32))
     out = torch.empty_like(g)
     words = _dfeat_scratch_words(B, H * W)
     scratch = torch.empty(words, dtype=torch.int32, device=g.device)
-    kernels.launch("warp_bwd", "dbsr_warp_dfeat_f32", (flow, g, out, scratch),
+    kernels.launch("warp_bwd", fn, (flow, g, out, scratch),
                    (B, H, W, C, words))
     warp_dfeat.launches += 1
     return out
@@ -199,19 +244,21 @@ def warp_dfeat(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def warp_dflow(feat: torch.Tensor, flow: torch.Tensor,
                g: torch.Tensor) -> torch.Tensor:
-    """d_flow of the warp ``[B, H, W, 2]``: the kernel (one warp per output
-    pixel; C % 4 == 0 only, no path warps a flow-trained image of other
-    widths) for CUDA tensors, the plain version for CPU ones."""
+    """d_flow of the warp ``[B, H, W, 2]``, float32: the kernel (float32 or
+    bfloat16 ``feat`` and ``g``, float32 flow; one warp per output pixel,
+    any C) for CUDA tensors, the plain version for CPU ones."""
     _check("warp_dflow", feat, flow)
     if g.shape != feat.shape:
         raise ValueError(f"warp_dflow: g {tuple(g.shape)} vs feat "
                          f"{tuple(feat.shape)}")
     if _on_cpu(feat, flow, g):
         return warp_dflow_plain(feat, flow, g)
-    B, H, W, C = _launch_checks("warp_dflow", feat, g, flow, any_c=False)
+    fn = kernels.entry("warp_dflow", "dbsr_warp_dflow", feat.dtype)
+    B, H, W, C = _launch_checks("warp_dflow", feat, g, flow,
+                                dtypes=(feat.dtype, feat.dtype,
+                                        torch.float32))
     out = torch.empty_like(flow)
-    kernels.launch("warp_bwd", "dbsr_warp_dflow_f32", (feat, flow, g, out),
-                   (B, H, W, C))
+    kernels.launch("warp_bwd", fn, (feat, flow, g, out), (B, H, W, C))
     warp_dflow.launches += 1
     return out
 
@@ -235,9 +282,9 @@ class _Warp(torch.autograd.Function):
 
 def warp_feat(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Backward-warp ``feat`` ``[B, H, W, C]`` by ``flow`` ``[B, H, W, 2]``,
-    differentiable in both: the CUDA kernels for CUDA tensors (float32,
-    contiguous; any C, but d_flow only for C % 4 == 0; the forward also
-    bfloat16 features), the plain versions for CPU tensors."""
+    differentiable in both: the CUDA kernels for CUDA tensors (float32 or
+    bfloat16 features, float32 flow, contiguous, any C), the plain
+    versions for CPU tensors."""
     return _Warp.apply(feat, flow)
 
 

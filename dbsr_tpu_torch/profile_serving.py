@@ -6,10 +6,10 @@
 Loads the banked flagship checkpoint at full width into the predictor
 (batch 8; float32 with TF32 off, or bf16, the serving default) with the
 decoder in the given form
-(``s2d_dense``, the default: the s2d layout that ``load_predictor``
-defaults to, with ``DBSR_FINE_PATCH_S2D`` unset, so its 3x3 convs run as
-the structured-dense conv; ``s2d_kernel``: the same with
-``DBSR_FINE_PATCH_S2D=1``, the fine-patch conv kernel; ``fine``:
+(``s2d_dense``, the default: the s2d layout that ``load_predictor`` defaults to, with
+``DBSR_FINE_PATCH_S2D=0``, so its 3x3 convs run as the structured-dense
+conv; ``s2d_kernel``: the same with the switch set to ``1``, the
+fine-patch conv kernel, what the card runs by default; ``fine``:
 ``fused_s2d=False``), warms up, then traces three forwards with
 ``torch.profiler``.
 Prints the device time by kernel (top 15), grouped into the port's own
@@ -39,7 +39,8 @@ OWN_KERNELS = ("warp_kernel", "correlation_kernel", "merge_kernel",
                "csr_scan_kernel", "csr_fill_kernel", "csr_sort_kernel",
                "dfeat_gather_kernel", "dfeat_gather_scalar_kernel",
                "dflow_kernel",
-               "merge_bwd_kernel", "correlation_bwd_kernel",
+               "merge_bwd_kernel", "merge_bwd_bf16_kernel",
+               "correlation_bwd_kernel",
                "conv_s2d_kernel", "merge_bf16_kernel",
                "conv_s2d_bf16_kernel")
 DECODERS = ("s2d_dense", "s2d_kernel", "fine")
@@ -115,10 +116,7 @@ def main(argv=None):
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip()
 
-    if decoder == "s2d_kernel":
-        os.environ["DBSR_FINE_PATCH_S2D"] = "1"
-    else:
-        os.environ.pop("DBSR_FINE_PATCH_S2D", None)
+    os.environ["DBSR_FINE_PATCH_S2D"] = "1" if decoder == "s2d_kernel" else "0"
     pred = load_predictor(FLAGSHIP_CHECKPOINT, batch_size=BATCH,
                           device="cuda", dtype=args.dtype,
                           fused_s2d=decoder != "fine")

@@ -13,8 +13,9 @@ kernels' bf16 instantiations, the flow, the offsets and the prediction in
 float32); ``dtype=None`` (or ``"float32"``) serves in float32. It runs on
 ``device`` ("cuda" by default; "cuda" with no card raises), with the JAX
 package's fused s2d decoder by default (``fused_s2d=True``: the stage after
-the pixel shuffle on the space-to-depth-2 layout; ``DBSR_FINE_PATCH_S2D=1``
-runs its 3x3 convs through the fine-patch conv kernel). Its forward turns
+the pixel shuffle on the space-to-depth-2 layout, whose 3x3 convs run on the
+card through the fine-patch conv kernel unless ``DBSR_FINE_PATCH_S2D=0``).
+Its forward turns
 TF32 off for cuDNN convs and matmuls, which PyTorch otherwise lets cuDNN
 use, so that what runs in float32 is float32, and restores the caller's
 settings afterwards.

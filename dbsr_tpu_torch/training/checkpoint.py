@@ -33,6 +33,7 @@ import torch
 from dbsr_tpu_torch import resolve_device
 from dbsr_tpu_torch.models.align_lite import BurstAlignLite
 from dbsr_tpu_torch.models.dbsr import DBSRNet
+from dbsr_tpu_torch.models.layers import resolve_dtype
 from dbsr_tpu_torch.models.pwcnet import BurstFlowNet
 from dbsr_tpu_torch.utils.convert import params_from_flax, params_to_flax
 
@@ -270,10 +271,14 @@ def write_checkpoint(path: str, header: dict, tree: Any) -> str:
 def network_spec(net) -> Dict[str, Any]:
     """The JAX package's ``net_spec`` of a port network (``DBSRNet``,
     ``BurstAlignLite``): the JAX module's path and class (``net.jax_spec``)
-    and the constructor kwargs (dtypes as ``{"__dtype__": name}``), so
+    and the constructor kwargs (the compute dtype as the JAX package
+    records it: None for float32, else ``{"__dtype__": name}``, also when
+    the network was given it by name), so
     ``dbsr_tpu.training.checkpoint.load_network`` rebuilds it."""
     kwargs = {}
     for k, v in net.spec_kwargs.items():
+        if k == "dtype":
+            v = resolve_dtype(v)
         if isinstance(v, torch.dtype):
             v = {"__dtype__": str(v).replace("torch.", "")}
         kwargs[k] = v
