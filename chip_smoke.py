@@ -80,14 +80,19 @@ the eval entries, ``default_realworld``) or its bf16 default
    96x96 plane (its CSR built outside shared memory), at C in {1, 2, 3, 5}
    beside 24 on the ragged plane and at C = 3 at the fine-tuning step's
    [12, 448, 448, 3] (each twice, bit-identical required, against plain and
-   autograd; the latter timed: ``sca_shapes`` and ``any_c``); times
+   autograd; the latter timed: ``sca_shapes`` and ``any_c``); d_flow
+   called twice must give the same bits, at the train step's shapes and at
+   every lane width of its dispatch (``DFLOW_CHANNELS`` on 3 frames of
+   13x21, a frame with every tap out of range giving zeros, in float32
+   here and in bf16 beside 15a: ``lane_widths``); times
    as in phase 3 (the yardsticks ``F.grid_sample`` and its autograd: for
    d_feat with respect to the input alone, for d_flow with respect to
    both); the host's microseconds per call of the resample and of
    ``F.grid_sample`` at the fused shape, over a tight loop of calls; then
    PWC-Net's backward shapes at its pretraining batch (112 frames):
    d_first and d_second at the five levels, d_feat and d_flow at the four
-   backwarps, against plain and autograd, timed (``pwc_shapes``);
+   backwarps (each twice, the same bits), against plain and autograd,
+   timed beside the same yardsticks (``pwc_shapes``);
 7. training with the banked aligner, frozen: (a) one train step of the
    banked flagship at B=1, N=8 on the card against the same step on the
    CPU (loss and every gradient; as in 9 and 10c, on the first batch seed
@@ -329,6 +334,10 @@ LAUNCHES_PER_S2D_FORWARD = dict(LAUNCHES_PER_FORWARD,
                                 conv_s2d=LAUNCHES_S2D_PER_FORWARD)
 FRAMES = B * (N - 1)
 KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6   # vs plain on the card: sum order only
+# d_flow's channel counts: one for each (access width, lanes a pixel) its
+# dispatch takes in either dtype (tests/test_torch_port_dflow_packed.py)
+DFLOW_CHANNELS = (1, 2, 3, 4, 5, 8, 12, 13, 16, 20, 24, 32, 33, 36, 48, 96,
+                  128, 196, 512)
 CARD_VS_CPU_TOL = 1e-3                  # [0, 1] output, whole network
 
 # training: default_synthetic's batch of 16 8-frame bursts, 48x48 packed
@@ -762,9 +771,9 @@ def pwc_backward_rows(dev, g, frames=TRAIN_FRAMES):
                                                 correlation_dsecond,
                                                 correlation_dsecond_plain,
                                                 correlation_plain)
-    from dbsr_tpu_torch.ops.warp import (warp_dfeat, warp_dfeat_plain,
-                                         warp_dflow, warp_dflow_plain,
-                                         warp_feat_plain)
+    from dbsr_tpu_torch.ops.warp import (base_grid, warp_dfeat,
+                                         warp_dfeat_plain, warp_dflow,
+                                         warp_dflow_plain, warp_feat_plain)
 
     rows = {k: [] for k in ("correlation_dfirst", "correlation_dsecond",
                             "warp_dfeat", "warp_dflow")}
@@ -800,15 +809,29 @@ def pwc_backward_rows(dev, g, frames=TRAIN_FRAMES):
               fl.clone().requires_grad_(True))
         auto_df, auto_dfl = torch.autograd.grad(warp_feat_plain(*xs), xs,
                                                 gout)
+        # the yardsticks of phase 6: autograd through grid_sample, the
+        # input's gradient for d_feat, both gradients for d_flow
+        nchw = feat.permute(0, 3, 1, 2).detach().requires_grad_(True)
+        grid = _grid_sample_grid(base_grid(s, s, dev) + fl, s, s)
+        grid_req = grid.detach().requires_grad_(True)
+        out_feat = F.grid_sample(nchw, grid, align_corners=False,
+                                 padding_mode="zeros")
+        out_both = F.grid_sample(nchw, grid_req, align_corners=False,
+                                 padding_mode="zeros")
+        g_nchw = gout.permute(0, 3, 1, 2)
         n, nf = feat.numel(), fl.numel()
-        for name, fn, plain, want_auto, nbytes, flops in (
+        for name, fn, plain, lib, want_auto, nbytes, flops in (
                 ("warp_dfeat", lambda: warp_dfeat(fl, gout),
-                 lambda: warp_dfeat_plain(fl, gout), auto_df,
-                 (2 * n + nf) * 4, 8 * n),
+                 lambda: warp_dfeat_plain(fl, gout),
+                 lambda: torch.autograd.grad(out_feat, nchw, g_nchw,
+                                             retain_graph=True),
+                 auto_df, (2 * n + nf) * 4, 8 * n),
                 ("warp_dflow", lambda: warp_dflow(feat, fl, gout),
-                 lambda: warp_dflow_plain(feat, fl, gout), auto_dfl,
-                 (2 * n + 2 * nf) * 4, 20 * n)):
-            got = fn()
+                 lambda: warp_dflow_plain(feat, fl, gout),
+                 lambda: torch.autograd.grad(out_both, (nchw, grid_req),
+                                             g_nchw, retain_graph=True),
+                 auto_dfl, (2 * n + 2 * nf) * 4, 20 * n)):
+            got = check_repeat(f"{name} {list(feat.shape)} (PWC-Net)", fn)
             errs = [check_close(f"{name} {list(feat.shape)} (PWC-Net)", got,
                                 plain()),
                     check_close(f"{name} {list(feat.shape)} vs autograd",
@@ -817,7 +840,8 @@ def pwc_backward_rows(dev, g, frames=TRAIN_FRAMES):
             rows[name].append(dict(
                 shape=list(feat.shape), max_abs_err=errs[0],
                 err_vs_autograd=errs[1], bound_ms=bms, bound_by=by,
-                **timings(name, fn, plain)))
+                **timings(name, fn, plain, lib)))
+        del nchw, grid, grid_req, out_feat, out_both
     return rows
 
 
@@ -1175,7 +1199,9 @@ def backward_kernel_phase(dev, g):
         want_df, want_dfl = warp_feat_backward_plain(feat, fl, gout)
         xs = (feat.clone().requires_grad_(True), fl.clone().requires_grad_(True))
         auto_df, auto_dfl = torch.autograd.grad(warp_feat_plain(*xs), xs, gout)
-        got_df, got_dfl = warp_dfeat(fl, gout), warp_dflow(feat, fl, gout)
+        got_df = warp_dfeat(fl, gout)
+        got_dfl = check_repeat(f"warp d_flow {list(s)}",
+                               lambda: warp_dflow(feat, fl, gout))
         errs = [check_close(f"warp d_feat {list(s)}", got_df, want_df),
                 check_close(f"warp d_feat {list(s)} vs autograd", got_df,
                             auto_df),
@@ -1343,6 +1369,40 @@ def dfeat_determinism(dev, g):
     return dict(repeat_identical=True, pile_up_identical=True,
                 pile_up_max_abs_err=err, pile_up_device_ms=pile_ms,
                 out_of_range_zeros=True, odd_shapes=odd)
+
+
+def dflow_lane_rows(dev, g, dtype):
+    """``warp_dflow`` at every lane width of its dispatch (DFLOW_CHANNELS)
+    in ``dtype``, on 3 frames of 13x21 (the last warp part-filled at every
+    width): flows of +-5 px, a fifth of the rows on exact pixel centres, in
+    two frames, every tap out of range in the third (zeros required);
+    against its plain version (float32: check_close; bf16:
+    check_dflow_bf16), the same bits twice."""
+    from dbsr_tpu_torch.ops.warp import warp_dflow, warp_dflow_plain
+
+    fl = torch.rand(3, 13, 21, 2, generator=g, device=dev) * 10 - 5
+    fl[:2, ::5] = torch.round(fl[:2, ::5])
+    fl[2] = 40.0
+    fl = fl.contiguous()
+    rows = []
+    for c in DFLOW_CHANNELS:
+        feat, gout = (torch.randn(3, 13, 21, c, generator=g,
+                                  device=dev).to(dtype) for _ in range(2))
+        name = f"warp d_flow {str(dtype)[6:]} {[3, 13, 21, c]}"
+        got = check_repeat(name, lambda: warp_dflow(feat, fl, gout))
+        if dtype == torch.float32:
+            row = dict(max_abs_err=check_close(
+                name, got, warp_dflow_plain(feat, fl, gout)),
+                repeat_equal=True)
+        else:
+            row = check_dflow_bf16(name, lambda: warp_dflow(feat, fl, gout),
+                                   lambda: warp_dflow_plain(feat, fl, gout),
+                                   dflow_terms(feat, fl, gout))
+        if got[2].any():
+            raise AssertionError(f"{name}: nonzero where every tap is out of "
+                                 f"range")
+        rows.append(dict(shape=[3, 13, 21, c], **row))
+    return rows
 
 
 def _wide_flow(g, dev, shape, amp):
@@ -4487,6 +4547,14 @@ def main():
     dfeat_e["any_c"], dfeat_e["sca_shapes"] = dfeat_any_c_rows(dev, g13)
     for r in dfeat_e["sca_shapes"]:
         log_row("warp_dfeat (SCA)", r)
+    # a generator of its own, as g13; in float32 here, in bf16 beside 15a
+    g_lanes = torch.Generator(device=dev)
+    g_lanes.manual_seed(16)
+    log("warp d_flow at every lane width of its dispatch:")
+    next(e for e in new if e["name"] == "warp_dflow")["lane_widths"] = \
+        dflow_lane_rows(dev, g_lanes, torch.float32)
+    bf16_backward["warp_dflow"]["other_shapes"] += dflow_lane_rows(
+        dev, g_lanes, torch.bfloat16)
     torch.cuda.empty_cache()
     log(f"PWC-Net's backward shapes (its pretraining, B={TRAIN_B}, "
         f"N={TRAIN_N}):")

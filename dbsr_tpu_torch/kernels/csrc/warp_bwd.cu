@@ -54,19 +54,39 @@
 //      same order, so also bit-identical from call to call.
 //
 // dbsr_warp_dflow_f32 -- d_flow[p] = sum_c g[p, c] * sum_tap dw_tap/d(x,y) *
-// feat[tap, c]. Bound: memory; one read of g and feat (+ flow), ~1.06 GB at
-// the encoder's shape, ~0.32 ms. Design: one warp per output pixel; its
-// lanes walk the channels in 4-channel groups (16-byte loads of g and of
-// the four taps of feat), accumulate both sums in registers and reduce
-// them with shuffles; lane 0 writes the pixel's two values. Where C % 4 !=
-// 0 the lanes walk single channels (4-byte loads) in the same way.
+// feat[tap, c]. Bound: memory; one read of g and feat (+ flow) and one write
+// of d_flow, ~1.06 GB at the encoder's [112, 48, 48, 512], ~0.32 ms at 3.35
+// TB/s; ~50 MB, ~0.016 ms, at AlignLite's [112, 48, 48, 24]. A pixel's work
+// is C / kVec channel groups of one access each (kVec: 16 bytes where C
+// divides it, 4 float32 or 8 bf16 channels; bf16 with C % 8 != 0 but C % 4
+// == 0 8 bytes, 4 channels; else one channel), so at small C one pixel
+// cannot fill a warp: a warp a pixel spent its time on tap geometry and a
+// 32-lane reduction, not on bytes. Design: a warp takes 32 / L pixels,
+// neighbours along a row (they share taps, so the L1 serves much of feat),
+// L the least power of two >= the groups, at most 32 (C = 24: 4 pixels a
+// warp in float32, 8 in bf16); the L lanes of a pixel's segment compute its
+// tap geometry once, skip the taps out of range (uniformly in the
+// segment), and walk its groups L apart, one a step (g's access and the
+// four taps', five loads in flight; g's first is issued before the
+// geometry). The bytes in flight come from occupancy: ten loads a step
+// (two groups) took 80-122 registers a thread and ran 13-29% slower at C =
+// 512 than one warp a pixel, so the kernel keeps each access as loaded and
+// widens one channel at a time (a bf16 access in 4 registers, not 8) and
+// holds the geometry as four weights and four tap rows (40-64 registers).
+// Each lane sums, channel by channel in ascending order, g * (the taps'
+// derivative weights * feat, summed in tap order) into float32 sums by
+// fmaf; the segment then adds its lanes' sums in a butterfly of log2(L)
+// __shfl_xor_sync steps (none at L = 1), a fixed order, so the output is
+// the same bits from call to call; no atomics. The segment's first lane
+// writes the pixel's two values as one float2.
 //
 // The bf16 entries (dbsr_warp_dfeat_bf16, dbsr_warp_dflow_bf16) replace the
 // same two TPU kernels at bf16, whose `_dot` casts the one-hot operator to
 // bf16 and sums bf16 x bf16 products in float32. They are the float32
-// bodies with bf16 loads widened to float32 in registers as they arrive
-// (d_feat: 16-byte loads of 8 channels where C % 8 == 0; d_flow: 8-byte
-// loads of 4 where C % 4 == 0; one channel an access otherwise): d_feat rounds
+// bodies with bf16 loads widened to float32 in registers (d_feat as they
+// arrive, d_flow a channel at a time as its sums take it; 16-byte loads of
+// 8 channels where C % 8 == 0, d_flow also 8-byte loads of 4 where C % 4 ==
+// 0, one channel an access otherwise): d_feat rounds
 // each tap weight to bf16 before its product (exact in float32), sums in
 // the CSR's ascending source order and rounds each output once; d_flow
 // rounds each derivative weight to bf16 before it meets feat and writes
@@ -372,13 +392,6 @@ struct Io<bf16, 8> {
   }
 };
 template <>
-struct Io<bf16, 4> {
-  static __device__ __forceinline__ void load(const bf16* p, float (&v)[4]) {
-    const float4 r = load_bf16x4(p);
-    v[0] = r.x, v[1] = r.y, v[2] = r.z, v[3] = r.w;
-  }
-};
-template <>
 struct Io<bf16, 1> {
   static __device__ __forceinline__ void load(const bf16* p, float (&v)[1]) {
     v[0] = load_bf16(p);
@@ -521,62 +534,145 @@ void launch_gather_v(const T* g, const Csr& csr, T* dfeat, int frames, int H,
     launch_gather<T, G, 1>(g, csr, dfeat, frames, H, W, C, stream);
 }
 
-// d_flow: one warp per output pixel, its lanes on kVec channels at a time
+// d_flow's accesses of kVec channels of T, held as loaded and widened to
+// float32 a channel at a time where the sums take it (a bf16 access in
+// half the registers of its float32 values)
 template <typename T, int kVec>
+struct Raw;
+template <>
+struct Raw<float, 4> {
+  using type = float4;
+  static __device__ __forceinline__ type load(const float* p) {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+  static __device__ __forceinline__ float at(const type& r, int i) {
+    return i == 0 ? r.x : i == 1 ? r.y : i == 2 ? r.z : r.w;
+  }
+};
+template <>
+struct Raw<float, 1> {
+  using type = float;
+  static __device__ __forceinline__ type load(const float* p) {
+    return __ldg(p);
+  }
+  static __device__ __forceinline__ float at(const type& r, int) { return r; }
+};
+template <>
+struct Raw<bf16, 8> {
+  using type = uint4;
+  static __device__ __forceinline__ type load(const bf16* p) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  static __device__ __forceinline__ float at(const type& r, int i) {
+    const uint32_t w = i < 2 ? r.x : i < 4 ? r.y : i < 6 ? r.z : r.w;
+    return i & 1 ? bf16_hi(w) : bf16_lo(w);
+  }
+};
+template <>
+struct Raw<bf16, 4> {
+  using type = uint2;
+  static __device__ __forceinline__ type load(const bf16* p) {
+    return __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  static __device__ __forceinline__ float at(const type& r, int i) {
+    const uint32_t w = i < 2 ? r.x : r.y;
+    return i & 1 ? bf16_hi(w) : bf16_lo(w);
+  }
+};
+template <>
+struct Raw<bf16, 1> {
+  using type = unsigned short;
+  static __device__ __forceinline__ type load(const bf16* p) {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  static __device__ __forceinline__ float at(const type& r, int) {
+    return __uint_as_float(static_cast<uint32_t>(r) << 16);
+  }
+};
+
+// d_flow: 32 / L pixels a warp, neighbours along a row; lane sub of a
+// pixel's L-lane segment takes its channel groups sub, sub + L, .. (kVec
+// channels each, one access of g and of each tap a group); the segment's
+// sums meet in a butterfly. The geometry is tap_geometry's, held in fewer
+// registers: the derivative weights of taps 00, 01, 10, 11 are, along x,
+// -ay, ay, -wy, wy and, along y, -ax, -wx, ax, wx (ax = 1 - wx, ay = 1 -
+// wy), each rounded as a T operand, a tap taken where it is in range and
+// one of its two weights is nonzero
+template <typename T, int kVec, int L>
 __global__ void __launch_bounds__(kThreads)
 dflow_kernel(const T* __restrict__ feat, const float* __restrict__ flow,
              const T* __restrict__ g, float* __restrict__ dflow, int P,
              int H, int W, int C, long long total) {
-  using A = Io<T, kVec>;
-  const long long pix = (static_cast<long long>(blockIdx.x) * kThreads +
-                         threadIdx.x) / 32;
+  using R = Raw<T, kVec>;
+  constexpr int kPixels = 32 / L;
+  const long long first = (static_cast<long long>(blockIdx.x) * kThreads +
+                           threadIdx.x) / 32 * kPixels;
+  if (first >= total) return;  // whole warps leave together
   const int lane = threadIdx.x & 31;
-  if (pix >= total) return;  // whole warps leave together
-  const long long frame = pix / P;
-  const int p = static_cast<int>(pix - frame * P);
-  Taps t = tap_geometry(flow + pix * 2, p, H, W);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {  // the derivative weights as T operands
-    t.dx[k] = operand(t.dx[k], feat);
-    t.dy[k] = operand(t.dy[k], feat);
-  }
-  const T* fb = feat + frame * P * C;
-  const T* gp = g + pix * C;
+  const int sub = lane % L;
+  const long long pix = first + lane / L;
+  const int groups = pix < total ? C / kVec : 0;
   float sx = 0.0f, sy = 0.0f;
-  for (int c = lane * kVec; c < C; c += 32 * kVec) {
-    float gv[kVec], fx[kVec], fy[kVec];
-    A::load(gp + c, gv);
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) fx[i] = fy[i] = 0.0f;
+  if (sub < groups) {
+    const T* gp = g + pix * C;
+    typename R::type gr = R::load(gp + sub * kVec);  // in flight meanwhile
+    const long long frame = pix / P;
+    const int p = static_cast<int>(pix - frame * P);
+    const float x = __fadd_rn(static_cast<float>(p % W), flow[pix * 2]);
+    const float y = __fadd_rn(static_cast<float>(p / W), flow[pix * 2 + 1]);
+    const float x0 = floorf(x);
+    const float y0 = floorf(y);
+    const float wx = __fsub_rn(x, x0);
+    const float wy = __fsub_rn(y, y0);
+    const float ax = operand(__fsub_rn(1.0f, wx), feat);
+    const float ay = operand(__fsub_rn(1.0f, wy), feat);
+    const float bx = operand(wx, feat);
+    const float by = operand(wy, feat);
+    const float dx[4] = {-ay, ay, -by, by};
+    const float dy[4] = {-ax, -bx, ax, bx};
+    int q[4];
+    bool use[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      if (t.dx[k] == 0.0f && t.dy[k] == 0.0f) continue;
-      float v[kVec];
-      A::load(fb + static_cast<long long>(t.q[k]) * C + c, v);
+      const float yi = y0 + static_cast<float>(k >> 1);
+      const float xi = x0 + static_cast<float>(k & 1);
+      use[k] = yi >= 0.0f && yi < static_cast<float>(H) && xi >= 0.0f &&
+               xi < static_cast<float>(W) && (dx[k] != 0.0f || dy[k] != 0.0f);
+      q[k] = use[k] ? static_cast<int>(yi) * W + static_cast<int>(xi) : 0;
+    }
+    const T* fb = feat + frame * P * C;
+    for (int j = sub; j < groups; j += L) {
+      if (j != sub) gr = R::load(gp + j * kVec);
+      typename R::type vr[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (use[k])
+          vr[k] = R::load(fb + static_cast<long long>(q[k]) * C + j * kVec);
+      // per channel, in ascending order: the taps' derivative weights times
+      // feat summed in tap order, then g times that added to the sums
 #pragma unroll
       for (int i = 0; i < kVec; ++i) {
-        fx[i] = fmaf(t.dx[k], v[i], fx[i]);
-        fy[i] = fmaf(t.dy[k], v[i], fy[i]);
+        float fx = 0.0f, fy = 0.0f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          if (!use[k]) continue;
+          const float v = R::at(vr[k], i);
+          fx = fmaf(dx[k], v, fx);
+          fy = fmaf(dy[k], v, fy);
+        }
+        const float gv = R::at(gr, i);
+        sx = fmaf(gv, fx, sx);
+        sy = fmaf(gv, fy, sy);
       }
     }
-    float ax = 0.0f, ay = 0.0f;
-#pragma unroll
-    for (int i = 0; i < kVec; ++i) {
-      ax += gv[i] * fx[i];
-      ay += gv[i] * fy[i];
-    }
-    sx += ax;
-    sy += ay;
   }
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    sx += __shfl_down_sync(0xffffffffu, sx, o);
-    sy += __shfl_down_sync(0xffffffffu, sy, o);
+  for (int o = L / 2; o > 0; o >>= 1) {  // within the segment: lane ^ o
+    sx += __shfl_xor_sync(0xffffffffu, sx, o);
+    sy += __shfl_xor_sync(0xffffffffu, sy, o);
   }
-  if (lane == 0) {
-    dflow[pix * 2] = sx;
-    dflow[pix * 2 + 1] = sy;
-  }
+  if (sub == 0 && pix < total)
+    *reinterpret_cast<float2*>(dflow + pix * 2) = make_float2(sx, sy);
 }
 
 template <typename T>
@@ -634,20 +730,49 @@ int run_dfeat(const float* flow, const T* g, T* dfeat, int* scratch,
   return static_cast<int>(cudaGetLastError());
 }
 
-// 4 channels an access where C % 4 == 0 (16 bytes of float32, 8 of
-// bf16), else one
+template <typename T, int kVec, int L>
+void launch_dflow(const T* feat, const float* flow, const T* g, float* dflow,
+                  long long total, int H, int W, int C, cudaStream_t st) {
+  const long long warps = (total + 32 / L - 1) / (32 / L);
+  const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
+  dflow_kernel<T, kVec, L><<<static_cast<unsigned>(blocks), kThreads, 0,
+                             st>>>(feat, flow, g, dflow, H * W, H, W, C,
+                                   total);
+}
+
+// L: the least power of two >= the channel groups, at most 32
+template <typename T, int kVec>
+void launch_dflow_l(const T* feat, const float* flow, const T* g,
+                    float* dflow, long long total, int H, int W, int C,
+                    cudaStream_t st) {
+  const int groups = C / kVec;
+  if (groups > 16)
+    launch_dflow<T, kVec, 32>(feat, flow, g, dflow, total, H, W, C, st);
+  else if (groups > 8)
+    launch_dflow<T, kVec, 16>(feat, flow, g, dflow, total, H, W, C, st);
+  else if (groups > 4)
+    launch_dflow<T, kVec, 8>(feat, flow, g, dflow, total, H, W, C, st);
+  else if (groups > 2)
+    launch_dflow<T, kVec, 4>(feat, flow, g, dflow, total, H, W, C, st);
+  else if (groups > 1)
+    launch_dflow<T, kVec, 2>(feat, flow, g, dflow, total, H, W, C, st);
+  else
+    launch_dflow<T, kVec, 1>(feat, flow, g, dflow, total, H, W, C, st);
+}
+
+// 16 bytes an access where C divides it (4 float32 or 8 bf16 channels),
+// else 8 bytes of bf16 where C % 4 == 0, else one channel
 template <typename T>
 int run_dflow(const T* feat, const float* flow, const T* g, float* dflow,
               int frames, int H, int W, int C, cudaStream_t st) {
   const long long total = static_cast<long long>(frames) * H * W;
   if (total == 0 || C == 0) return 0;
-  const long long blocks = (total * 32 + kThreads - 1) / kThreads;
-  if (C % 4 == 0)
-    dflow_kernel<T, 4><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        feat, flow, g, dflow, H * W, H, W, C, total);
+  if (C % kWide<T> == 0)
+    launch_dflow_l<T, kWide<T>>(feat, flow, g, dflow, total, H, W, C, st);
+  else if (sizeof(T) == 2 && C % 4 == 0)
+    launch_dflow_l<T, 4>(feat, flow, g, dflow, total, H, W, C, st);
   else
-    dflow_kernel<T, 1><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-        feat, flow, g, dflow, H * W, H, W, C, total);
+    launch_dflow_l<T, 1>(feat, flow, g, dflow, total, H, W, C, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -677,7 +802,8 @@ DBSR_EXPORT int dbsr_warp_dfeat_bf16(const float* flow, const bf16* g,
 
 // feat and g [frames, H, W, C] float32 (or bfloat16: dbsr_warp_dflow_bf16),
 // flow and dflow [frames, H, W, 2] float32; contiguous, 16-byte aligned;
-// any C (4 channels an access where C % 4 == 0, one otherwise).
+// any C (16-byte accesses where C % 4 == 0 in float32, C % 8 == 0 in bf16;
+// 8-byte ones of bf16 where C % 4 == 0; one channel an access otherwise).
 DBSR_EXPORT int dbsr_warp_dflow_f32(const float* feat, const float* flow,
                                     const float* g, float* dflow, int frames,
                                     int H, int W, int C, void* stream) {

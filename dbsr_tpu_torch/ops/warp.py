@@ -245,8 +245,8 @@ def warp_dfeat(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 def warp_dflow(feat: torch.Tensor, flow: torch.Tensor,
                g: torch.Tensor) -> torch.Tensor:
     """d_flow of the warp ``[B, H, W, 2]``, float32: the kernel (float32 or
-    bfloat16 ``feat`` and ``g``, float32 flow; one warp per output pixel,
-    any C) for CUDA tensors, the plain version for CPU ones."""
+    bfloat16 ``feat`` and ``g``, float32 flow; several pixels a warp at
+    small C, any C) for CUDA tensors, the plain version for CPU ones."""
     _check("warp_dflow", feat, flow)
     if g.shape != feat.shape:
         raise ValueError(f"warp_dflow: g {tuple(g.shape)} vs feat "
