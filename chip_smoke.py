@@ -254,16 +254,40 @@ the eval entries, ``default_realworld``) or its bf16 default
     bf16 checkpoint: restored in bf16 (exact launches, its checkpoint
     records bf16), its B=12 step time, one step card vs CPU as in (b).
 
+16. training data beyond dead leaves: (d, run beside phase 3) the
+    resample kernel through ``warp_affine`` at [8, 432, 432, 3] with
+    rotation, shear and scale, bit-equal to its plain version, exactly one
+    launch; (a) each generator of the mixed corpus (dead leaves, edges,
+    gratings, noise, gradients) on the card against the CPU from the same
+    draws (float image within 1e-5, uint8 >= 99.9% equal and <= 1 LSB
+    apart), ms per image, and a ``mix='mixed'`` pool of 128 at 432^2 in two
+    chunks of 64; (b) ``run_training dbsr default_synthetic --set
+    mix=mixed`` (bf16, B=16, AlignLite frozen, pool 128, 5 steps), exact
+    launches (15b's), its step's time, peak memory and busy share; (c) the
+    host-fed path: a ``Trainer`` on ``CropBatcher`` over 16 PNGs of 512^2
+    (``ImageFolder``, png16) with the prefetcher's pinned ``device_put``,
+    the first batch on the card bit-equal to the CPU's, a timed epoch of 5
+    steps (exact launches; ms per step, the worker's ms per batch, the wait
+    on the queue); (e) ``run_training dbsr smoke_tiny`` (2 epochs, exact
+    launches, checkpoints); (f) ``generate_synthetic_burst_val
+    --source_dir`` on the PNG folder, 3 bursts read back; (g) 15c's
+    ``default_realworld`` trainer timed through the prefetcher; and whether
+    the machine has ``g++``, ``jpeglib.h`` and libjpeg (nothing decoded).
+
 The second-to-last line is ``{"kernels": [...]}`` (all ten kernels;
 ``launches`` is the count on the entry's own ``path``, whose shapes its
 times are summed over, except the s2d conv's, whose times are one launch's
 and whose path launches it 8 times per forward; ``launches_by_path`` has
-the counts on all twenty-three paths (``eval``: phase 11's generation and
+the counts on all twenty-nine paths (``eval``: phase 11's generation and
 flagship scoring; ``eval_r3d``, ``serving_r3d_3_requests`` and the
 ``pwc_*_step`` paths: PWC-Net's; ``burstsr_eval`` and
 ``burstsr_eval_r3d``: phase 13c's scoring of 3 bursts; ``realworld_step``:
 per ``default_realworld`` step; the ``*_bf16*`` paths: phase 14's
-serving and scoring and phase 15's training steps);
+serving and scoring and phase 15's training steps; phase 16's:
+``mixed_step_bf16``, ``host_fed_step_bf16``, ``smoke_tiny_step``,
+``realworld_step_bf16_prefetched`` per step, ``val_source_dir`` its 3
+bursts, ``warp_affine`` one call, whose row is the resample's last
+``other_shapes`` entry);
 ``device_ms``, ``kernel_device_ms`` and ``library_device_ms`` beside
 ``ms`` and ``library_ms``; the s2d conv's ``bound_ms`` is that of its own
 math, 3xTF32 on the tensor cores, also given as ``tc_bound_ms``, and
@@ -507,6 +531,22 @@ LAUNCHES_PER_BF16_PWC_FROZEN_STEP = dict(
     LAUNCHES_PER_PWC_FROZEN_STEP, conv_s2d=2 * LAUNCHES_S2D_PER_FORWARD)
 LAUNCHES_PER_BF16_PWC_UNFROZEN_STEP = dict(
     LAUNCHES_PER_PWC_UNFROZEN_STEP, conv_s2d=2 * LAUNCHES_S2D_PER_FORWARD)
+# phase 16, the training data beyond dead leaves: a mixed pool of 128
+# sources at 432^2 in two chunks of 64; each generator's card rendering of
+# GEN_CHECK_N images against the CPU's from the same draws (float image
+# within GEN_ATOL; uint8 at least GEN_U8_SHARE equal, at most 1 LSB off)
+MIXED_POOL, MIXED_CHUNK, MIXED_SEED = 128, 64, 0
+GEN_CHECK_N, GEN_ATOL, GEN_U8_SHARE = 2, 1e-5, 0.999
+# the host-fed path: 16 PNGs of 512^2, B=16, five steps an epoch
+HOST_PNGS, HOST_PNG_HW, HOST_STEPS = 16, 512, 5
+WARP_AFFINE_SHAPE = (8, 432, 432, 3)
+# per smoke_tiny step (float32, 2 epochs of 4 steps): the strict
+# synthesis' resample; the tiny net's frozen PWC-Net (four backwarps, five
+# cost volumes) and feature warp; the merge; d_feat and the merge backward;
+# the fine decoder, no s2d conv
+LAUNCHES_PER_SMOKE_TINY_STEP = LAUNCHES_PER_PWC_FROZEN_STEP
+SMOKE_TINY_STEPS = 8
+SOURCE_DIR_BURSTS = 3
 
 def log(*a):
     print(*a, flush=True)
@@ -4446,6 +4486,420 @@ def bf16_training_phase(dev, workdir):
     return out, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training data beyond dead leaves
+
+
+def _to_cpu(draws):
+    return {k: [t.cpu() for t in v] if isinstance(v, list) else v.cpu()
+            for k, v in draws.items()}
+
+
+def _u8(img):
+    return (img * 255.0 + 0.5).to(torch.uint8)
+
+
+def check_u8(what, got, want):
+    """uint8 images: at least GEN_U8_SHARE of the values equal, none more
+    than 1 LSB apart. Returns (share equal, most LSBs apart)."""
+    diff = (got.int() - want.int()).abs()
+    share = (diff == 0).float().mean().item()
+    worst = int(diff.max().item())
+    log(f"  {what}: uint8 {100 * share:.4f}% equal, at most {worst} LSB apart")
+    if share < GEN_U8_SHARE or worst > 1:
+        raise AssertionError(f"{what}: uint8 card vs CPU {share} equal, "
+                             f"{worst} LSB apart")
+    return share, worst
+
+
+def mixed_pool_phase(dev):
+    """Phase 16a: each generator of the mixed corpus rendered on the card
+    and on the CPU from the same draws, its ms per image on the card (a
+    chunk of 64, CUDA events); the mixed pool of 128 at 432^2 in two chunks
+    of 64 (its plan, ms per image), the first image of each chunk against
+    the CPU's rendering of its own stream."""
+    from dbsr_tpu_torch.data import procedural as P
+
+    hw = (432, 432)
+    out = {"generators": {}}
+    for k, (name, (draw, render)) in enumerate(P.GENERATORS.items()):
+        draws = draw(P.make_generator(dev, 16, k), GEN_CHECK_N)
+        card = render(draws, hw)
+        cpu = render(_to_cpu(draws), hw)
+        err = (card.cpu() - cpu).abs().max().item()
+        log(f"  {name}: {GEN_CHECK_N} images of {hw}, max|card - cpu| = "
+            f"{err:.3e} (limit {GEN_ATOL:.0e})")
+        if not err <= GEN_ATOL:
+            raise AssertionError(f"{name}: card vs CPU {err} > {GEN_ATOL}")
+        share, worst = check_u8(name, _u8(card).cpu(), _u8(cpu))
+        chunk = draw(P.make_generator(dev, 17, k), MIXED_CHUNK)
+        ms = cuda_ms(lambda: render(chunk, hw), 1, 3) / MIXED_CHUNK
+        log(f"  {name}: {ms:.4f} ms per image on the card (a chunk of "
+            f"{MIXED_CHUNK})")
+        out["generators"][name] = dict(max_abs_err=err, u8_equal_share=share,
+                                       u8_max_lsb=worst, ms_per_image=ms)
+        del draws, card, cpu, chunk
+    torch.cuda.empty_cache()
+    pool = P.ProceduralImagePool(MIXED_POOL, hw, seed=MIXED_SEED,
+                                 chunk=MIXED_CHUNK, device=dev, mix="mixed")
+    plan = pool.plan(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    images = pool.refresh(0)
+    torch.cuda.synchronize()
+    pool_s = time.perf_counter() - t0
+    log(f"  mixed pool of {MIXED_POOL} at {hw}, chunks of {MIXED_CHUNK}: "
+        f"plan {plan}, {pool_s * 1e3 / MIXED_POOL:.4f} ms per image")
+    for c, name in enumerate(plan):
+        i = c * MIXED_CHUNK
+        draw, render = P.GENERATORS[name]
+        cpu = render(_to_cpu(draw(P.make_generator(dev, MIXED_SEED, 0, i), 1)),
+                     hw)
+        check_u8(f"pool image {i} ({name})", images[i:i + 1].cpu(), _u8(cpu))
+    out.update(plan=plan, pool_ms_per_image=pool_s * 1e3 / MIXED_POOL)
+    del pool, images
+    torch.cuda.empty_cache()
+    return out
+
+
+def warp_affine_phase(dev, g):
+    """Phase 16d (run beside phase 3, as the other timed rows): the resample
+    kernel through ``warp_affine`` at [8, 432, 432, 3] with rotation, shear
+    and scale, bit-equal to the plain version at the same inverse affines
+    (the resample's limit), timed and bounded as its rows, the launches of
+    one call counted. Returns the row and the counts."""
+    from dbsr_tpu_torch.ops.interp import (apply_affine_to_points,
+                                           invert_2x3, warp_affine)
+    from dbsr_tpu_torch.ops.resample import affine_resample_plain
+    from dbsr_tpu_torch.ops.warp import base_grid
+
+    B, H, W, C = WARP_AFFINE_SHAPE
+    im = torch.rand(WARP_AFFINE_SHAPE, generator=g, device=dev)
+    u = torch.rand((B, 5), generator=g, device=dev)
+    th, shear, scale = (u[:, 0] - 0.5) * 0.4, (u[:, 1] - 0.5) * 0.3, \
+        0.85 + 0.3 * u[:, 2]
+    tmat = torch.stack([
+        torch.stack([scale * th.cos(), shear - th.sin(), (u[:, 3] - 0.5) * 8],
+                    -1),
+        torch.stack([th.sin(), 1.1 * scale * th.cos(), (u[:, 4] - 0.5) * 8],
+                    -1)], -2)
+    invs = invert_2x3(tmat)[:, None].contiguous()
+    reset_counts()
+    got = warp_affine(im, tmat)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = {k: int(k == "resample") for k in counts}
+    log(f"  warp_affine {list(im.shape)}: launches {counts}")
+    if counts != want:
+        raise AssertionError(f"warp_affine: launches {counts}, expected "
+                             f"{want}")
+
+    def plain():
+        return affine_resample_plain(im, invs, (H, W), 1, 0)[:, 0]
+
+    err = check_exact(f"warp_affine {list(im.shape)} (shear, scale)", got,
+                      plain())
+    grid = _grid_sample_grid(apply_affine_to_points(
+        invs[:, 0], base_grid(H, W, dev)), H, W)
+    nchw = im.permute(0, 3, 1, 2)
+    nb = (im.numel() + tmat.numel() + got.numel()) * 4
+    bms, by = bound(nb, got.numel() // C * (20 + 8 * C))
+    row = dict(shape=[list(im.shape), list(got.shape)], path="warp_affine",
+               max_abs_err=err, bound_ms=bms, bound_by=by,
+               **timings("resample", lambda: warp_affine(im, tmat), plain,
+                         lambda: F.grid_sample(nchw, grid,
+                                               align_corners=False,
+                                               padding_mode="zeros")))
+    log_row("resample (warp_affine)", row)
+    return row, counts
+
+
+def _write_pngs(root):
+    """HOST_PNGS 8-bit RGB PNGs of HOST_PNG_HW^2 (smooth fields with
+    edges, from a fixed seed) written by the port's png16."""
+    from dbsr_tpu_torch.utils.png16 import write_png
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(16)
+    n = HOST_PNG_HW
+    for i in range(HOST_PNGS):
+        low = rng.rand(n // 16, n // 16, 3)
+        img = np.kron(low, np.ones((16, 16, 1))) * 0.7 \
+            + 0.3 * rng.rand(n, n, 3)
+        write_png(os.path.join(root, f"{i:02d}.png"),
+                  (img * 255).astype(np.uint8))
+    return root
+
+
+def mixed_training_phase(dev, workdir):
+    """Phase 16b: ``run_training dbsr default_synthetic --set mix=mixed``,
+    bf16 by default, B=16, the banked AlignLite frozen, a pool of 128, one
+    epoch of 5 steps, exact launches per step (15b's frozen bf16 step's);
+    then its step's time, samples/s, peak memory and busy share on a fixed
+    batch (step_phase)."""
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = os.path.join(workdir, "mixed")
+    kw = dict(steps_per_epoch=BF16_STEPS, pool_size=MIXED_POOL,
+              print_interval=BF16_STEPS, pwc_checkpoint=ALIGN_LITE,
+              mix="mixed")
+    per_step, logged, texts, headers = entry_phase(
+        "dbsr", "default_synthetic", kw, (1,), LAUNCHES_PER_BF16_STEP,
+        "dbsr_synthetic")
+    if "mix=mixed" not in texts[0] or headers[1]["net_spec"]["kwargs"][
+            "dtype"] != {"__dtype__": "bfloat16"}:
+        raise AssertionError("default_synthetic mix=mixed did not train the "
+                             "mixed pool in bf16")
+    trainer, state = default_synthetic_trainer(
+        dev, compute_dtype="bfloat16", fused_s2d_decoder=True,
+        pwc_checkpoint=ALIGN_LITE, mix="mixed")
+    step = step_phase(dev, "default_synthetic bf16, mix=mixed", trainer,
+                      state, LAUNCHES_PER_BF16_STEP, n_steps=8)
+    del trainer, state
+    torch.cuda.empty_cache()
+    return per_step, dict(losses=logged["Loss/total"], step=step)
+
+
+def _feed(trainer, steps):
+    f = trainer.feed["train"]
+    return dict(ms_per_step=f["cycle_s"] * 1e3 / steps,
+                host_ms_per_batch=f["batch_s"] * 1e3 / steps,
+                wait_ms_per_step=f["wait_s"] * 1e3 / steps)
+
+
+def _timed_epoch(what, trainer, epoch, steps, per_step_want,
+                 batch_size=TRAIN_B):
+    """``trainer.train(epoch)`` resumed from epoch ``epoch - 1``, the counts
+    reset just before and read just after: exact launches, the cycle's ms
+    per step from the prefetcher's feed (the steps and the waits on the
+    queue), the worker's ms per batch, peak memory; before it, the ms of
+    one batch made (and put on the card) alone on this thread, median of
+    three."""
+    batcher, put = trainer.loaders[0].batcher, trainer.device_put or (
+        lambda b: b)
+    alone = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        put(batcher.next_batch())
+        torch.cuda.synchronize()
+        alone.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        state = trainer.train(epoch)
+    torch.cuda.synchronize()
+    check_counts(what, read_counts(), steps, per_step_want)
+    losses = [float(v) for v in re.findall(
+        r"Loss/total: (-?[\d.]+(?:e-?\d+)?|nan|inf)", buf.getvalue())]
+    if state.step != epoch * steps or not losses \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{what}: step {state.step}, losses {losses}")
+    res = dict(_feed(trainer, steps), losses=losses,
+               host_alone_ms_per_batch=statistics.median(alone),
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    res["samples_per_s"] = batch_size / res["ms_per_step"] * 1e3
+    log(f"{what}: {res['ms_per_step']:.2f} ms per step through the prefetcher "
+        f"({res['samples_per_s']:.2f} samples/s), the step waited "
+        f"{res['wait_ms_per_step']:.2f} ms on the queue, the worker "
+        f"{res['host_ms_per_batch']:.2f} ms a batch (alone on this thread "
+        f"{res['host_alone_ms_per_batch']:.2f}); peak "
+        f"{res['peak_mem_gib']:.2f} GiB; losses {losses}")
+    return res
+
+
+def host_fed_phase(dev, workdir, png_dir):
+    """Phase 16c: the host-fed path at full width, bf16, B=16: a ``Trainer``
+    on ``CropBatcher(RandomImageSampler([ImageFolder(16 PNGs of 512^2)]))``
+    with ``make_data``'s host ``prepare_fn`` and the prefetcher's pinned
+    ``device_put``, the AlignLite checkpoint grafted and frozen; the first
+    batch copied to the card bit-equal to the same batcher's on the CPU; an
+    epoch of 5 steps to warm up, then one timed (exact launches, ms per
+    step, the worker's ms per batch, the wait on the queue)."""
+    from dbsr_tpu_torch.configs.dbsr.default_synthetic import (
+        burst_config, graft_alignment_params, make_crop_prepare_fn)
+    from dbsr_tpu_torch.data.datasets import ImageFolder
+    from dbsr_tpu_torch.data.pipeline import (CropBatcher,
+                                              RandomImageSampler,
+                                              pinned_device_put)
+    from dbsr_tpu_torch.training.checkpoint import save_checkpoint
+    from dbsr_tpu_torch.training.trainer import LoaderSpec, Trainer
+
+    cfg = burst_config(_settings())
+
+    def batcher():
+        return CropBatcher(RandomImageSampler(
+            [ImageFolder(png_dir)], [1.0],
+            samples_per_epoch=TRAIN_B * HOST_STEPS), TRAIN_B, cfg.pre_crop_sz,
+            seed=MIXED_SEED)
+
+    put = pinned_device_put(dev)
+    first_card = put(batcher().next_batch())
+    torch.cuda.synchronize()
+    first_cpu = torch.from_numpy(batcher().next_batch())
+    if first_card.device.type != "cuda" or not torch.equal(
+            first_card.cpu(), first_cpu):
+        raise AssertionError("the first host batch on the card differs from "
+                             "the CPU's")
+    log(f"  first host batch {list(first_cpu.shape)} {first_cpu.dtype}: on "
+        f"the card bit-equal to the CPU's")
+    base, _ = default_synthetic_trainer(dev, compute_dtype="bfloat16",
+                                        fused_s2d_decoder=True,
+                                        pwc_checkpoint=ALIGN_LITE)
+    ws = os.path.join(workdir, "host_fed")
+    trainer = Trainer(base.net, base.actor_fn, base.tx,
+                      [LoaderSpec("train", batcher())],
+                      make_crop_prepare_fn(cfg), ws,
+                      net_name="dbsr_synthetic", print_interval=HOST_STEPS,
+                      device=dev, device_put=put,
+                      header_settings=base.header_settings)
+    state = trainer.init_state()
+    graft_alignment_params(trainer.net, ALIGN_LITE)
+    save_checkpoint(ws, "dbsr_synthetic", 0, state,
+                    settings=trainer.header_settings)
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer.train(1)
+    res = _timed_epoch("host-fed default_synthetic bf16 (epoch 2)", trainer,
+                       2, HOST_STEPS, LAUNCHES_PER_BF16_STEP)
+    per_step = {k: v // HOST_STEPS for k, v in read_counts().items()}
+    del trainer, base, state
+    torch.cuda.empty_cache()
+    return per_step, res
+
+
+def smoke_tiny_phase(workdir):
+    """Phase 16e: ``python -m dbsr_tpu_torch.run_training dbsr smoke_tiny``
+    (its ``main``; the host-fed tiny config, float32, 2 epochs of 4 steps):
+    exact launches, finite losses, both checkpoints written."""
+    from dbsr_tpu_torch.run_training import main as run_training_cli
+    from dbsr_tpu_torch.training.checkpoint import list_checkpoints
+
+    ws = os.path.join(workdir, "smoke_tiny")
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = ws
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        run_training_cli(["dbsr", "smoke_tiny"])
+    torch.cuda.synchronize()
+    text = buf.getvalue()
+    for line in text.splitlines():
+        log(f"  | {line}")
+    counts = read_counts()
+    check_counts("run_training dbsr smoke_tiny", counts, SMOKE_TINY_STEPS,
+                 LAUNCHES_PER_SMOKE_TINY_STEP)
+    losses = [float(v) for v in re.findall(
+        r"Loss/total: (-?[\d.]+(?:e-?\d+)?|nan|inf)", text)]
+    ckpts = [e for e, _ in list_checkpoints(
+        os.path.join(ws, "dbsr", "smoke_tiny"), "smoke")]
+    if ckpts != [1, 2] or "[train: 2, 4/4]" not in text or not losses \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"smoke_tiny: checkpoints {ckpts}, losses "
+                             f"{losses}")
+    log(f"smoke_tiny: checkpoints of epochs {ckpts}, losses {losses}")
+    return ({k: v // SMOKE_TINY_STEPS for k, v in counts.items()},
+            dict(losses=losses))
+
+
+def source_dir_phase(workdir, png_dir):
+    """Phase 16f: ``generate_synthetic_burst_val --source_dir <the PNG
+    folder> --num_bursts 3`` (its ``main``, on the card), one resample a
+    burst, the set read back by the port's reader."""
+    from dbsr_tpu_torch import generate_synthetic_burst_val as gen
+    from dbsr_tpu_torch.data.datasets import SyntheticBurstVal
+
+    out = os.path.join(workdir, "val_source_dir")
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        gen.main(["--source_dir", png_dir, "--num_bursts",
+                  str(SOURCE_DIR_BURSTS), "--seed", "16", "--out_dir", out])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    want = {k: SOURCE_DIR_BURSTS * int(k == "resample") for k in counts}
+    if counts != want:
+        raise AssertionError(f"--source_dir: launches {counts}, expected "
+                             f"{want}")
+    ds = SyntheticBurstVal(out)
+    if len(ds) != SOURCE_DIR_BURSTS:
+        raise AssertionError(f"--source_dir wrote {len(ds)} bursts")
+    for i in range(len(ds)):
+        burst, gt, meta = ds[i]
+        if burst.shape != (N, HW, HW, 4) or gt.shape != (384, 384, 3) \
+                or not (np.isfinite(burst).all() and np.isfinite(gt).all()):
+            raise AssertionError(f"--source_dir burst {i}: {burst.shape}, "
+                                 f"{gt.shape}")
+    log(f"generate_synthetic_burst_val --source_dir: {SOURCE_DIR_BURSTS} "
+        f"bursts in {secs:.2f} s, launches {counts}, read back")
+    return counts, dict(seconds=secs, bursts=len(ds))
+
+
+def prefetched_finetune_phase(dev, step_ms):
+    """Phase 16g: phase 15c's bf16 ``default_realworld`` trainer through the
+    prefetcher, resumed from 15c's checkpoint: an epoch of 5 steps to warm
+    up, one timed (exact launches, ms per step, the BurstSR batcher's ms
+    per batch on the worker, the wait on the queue), beside 15c's
+    fixed-batch step (``step_ms``)."""
+    from dbsr_tpu_torch.configs.dbsr import default_realworld
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer, _ = default_realworld.make_trainer(
+            _settings(steps_per_epoch=RW_STEPS, print_interval=RW_STEPS), dev)
+        trainer.train(2)
+    res = _timed_epoch("default_realworld bf16 through the prefetcher "
+                       "(epoch 3)", trainer, 3, RW_STEPS,
+                       LAUNCHES_PER_RW_STEP, batch_size=RW_B)
+    per_step = {k: v // RW_STEPS for k, v in read_counts().items()}
+    log(f"default_realworld bf16: {res['ms_per_step']:.2f} ms per prefetched "
+        f"step, {step_ms:.2f} ms per fixed-batch step (15c)")
+    del trainer
+    torch.cuda.empty_cache()
+    return per_step, dict(res, fixed_batch_step_ms=step_ms)
+
+
+def native_io_facts():
+    """Whether this machine has what the port's JPEG binding builds with:
+    ``g++``, libjpeg's header and library (nothing is built or decoded)."""
+    import ctypes.util
+    import shutil
+
+    heads = [p for p in ("/usr/include/jpeglib.h",
+                         "/usr/local/include/jpeglib.h",
+                         "/usr/include/x86_64-linux-gnu/jpeglib.h")
+             if os.path.exists(p)]
+    facts = dict(gxx=shutil.which("g++"), jpeglib_h=heads,
+                 libjpeg=ctypes.util.find_library("jpeg"))
+    log(f"native JPEG build prerequisites on this machine: g++ "
+        f"{facts['gxx'] or 'absent'}; jpeglib.h {heads or 'absent'}; "
+        f"libjpeg {facts['libjpeg'] or 'absent'}")
+    return facts
+
+
+def data_phase(dev, workdir, finetune_step_ms):
+    """Phase 16 a-c and e-g (d runs beside phase 3): the mixed corpus, the
+    host-fed path, ``smoke_tiny``, ``--source_dir`` and the prefetched
+    fine-tuning step, after phase 15 (16g resumes 15c's workspace).
+    Returns the numbers and the launches of each path."""
+    out, paths = {"native_io": native_io_facts()}, {}
+    rw_ws = os.environ["DBSR_TPU_WORKSPACE_DIR"]
+    log("phase 16a, the mixed corpus on the card against the CPU:")
+    out["mixed_pool"] = mixed_pool_phase(dev)
+    png_dir = _write_pngs(os.path.join(workdir, "pngs"))
+    log("phase 16b, default_synthetic mix=mixed:")
+    paths["mixed_step_bf16"], out["mixed_training"] = \
+        mixed_training_phase(dev, workdir)
+    log("phase 16c, the host-fed path:")
+    paths["host_fed_step_bf16"], out["host_fed"] = host_fed_phase(
+        dev, workdir, png_dir)
+    log("phase 16e, smoke_tiny:")
+    paths["smoke_tiny_step"], out["smoke_tiny"] = smoke_tiny_phase(workdir)
+    log("phase 16f, --source_dir:")
+    paths["val_source_dir"], out["source_dir"] = source_dir_phase(workdir,
+                                                                  png_dir)
+    log("phase 16g, the fine-tuning step through the prefetcher:")
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = rw_ws
+    paths["realworld_step_bf16_prefetched"], out["finetune_prefetched"] = \
+        prefetched_finetune_phase(dev, finetune_step_ms)
+    return out, paths
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing to measure")
@@ -4516,6 +4970,12 @@ def main():
         f"B={TRAIN_B}, N={TRAIN_N}; PWC-Net's; an odd C):")
     bf16_backward = bf16_backward_kernel_phase(dev, g15)
     torch.cuda.empty_cache()
+    # 16d likewise: the resample kernel through warp_affine
+    g16 = torch.Generator(device=dev)
+    g16.manual_seed(16)
+    log("phase 16d, warp_affine on the card vs plain:")
+    warp_affine_row, warp_affine_counts = warp_affine_phase(dev, g16)
+    torch.cuda.empty_cache()
 
     # 4-5. serving through the fine decoder, then card against CPU
     rng = np.random.RandomState(0)
@@ -4561,6 +5021,8 @@ def main():
     add_pwc_rows(new, pwc_backward_rows(dev, g), "pwc_pretrain_step")
     results += new
     add_bf16_training_rows(results, bf16_backward)
+    next(e for e in results if e["name"] == "resample")[
+        "other_shapes"].append(warp_affine_row)
     torch.cuda.empty_cache()
 
     # 7. training with the banked aligner, frozen
@@ -4637,13 +5099,22 @@ def main():
         bf16_training, bf16_train_paths = bf16_training_phase(dev, workdir)
         bf16_training["phase_s"] = time.perf_counter() - t0
         log(f"phase 15b-c: {bf16_training['phase_s']:.1f} s")
+
+        # 16. training data beyond dead leaves (16d ran beside phase 3)
+        t0 = time.perf_counter()
+        data, data_paths = data_phase(
+            dev, workdir, bf16_training["realworld"]["step"]["step_ms"])
+        data["phase_s"] = time.perf_counter() - t0
+        log(f"phase 16: {data['phase_s']:.1f} s")
     paths = {"train_step": per_step, "pretrain_step": pre_per_step,
              "train_alignment_step":
                  closing["train_alignment"]["launches_per_step"],
              "s2d_train_step": s2d.pop("launches_per_step"),
              **{k: v for k, v in pwc_paths.items() if k.endswith("_step")},
              "realworld_step": rw_paths["realworld_step"],
-             **bf16_train_paths}
+             **bf16_train_paths,
+             **{k: v for k, v in data_paths.items()
+                if k != "val_source_dir"}}
     serving_launches = {"serving_3_requests": launches,
                         "serving_s2d_3_requests": s2d.pop("launches"),
                         "serving_r3d_3_requests":
@@ -4657,7 +5128,9 @@ def main():
                         "serving_bf16_r3d_3_requests": bf16_paths["r3d"],
                         "eval_bf16": bf16["eval"]["runs"][
                             "dbsr_campaign_r5"]["launches"],
-                        "burstsr_eval_bf16": bf16_paths["burstsr_eval"]}
+                        "burstsr_eval_bf16": bf16_paths["burstsr_eval"],
+                        "val_source_dir": data_paths["val_source_dir"],
+                        "warp_affine": warp_affine_counts}
     for e in results:
         # launches on each driven path: the three serving requests through
         # each decoder and of r3d, the eval protocol (the val set's
@@ -4710,6 +5183,7 @@ def main():
                    closing_the_loop=closing, s2d_decoder=s2d,
                    eval=evaluation, pwc=pwc, realworld=realworld, bf16=bf16,
                    bf16_training=bf16_training,
+                   training_data=data,
                    odd_shapes=odd_shapes, build_s=secs,
                    total_s=time.perf_counter() - t_start, card=smi)
     log("summary " + json.dumps(summary))

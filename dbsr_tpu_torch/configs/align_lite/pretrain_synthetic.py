@@ -15,8 +15,9 @@ Success: validation ``Stat/epe`` well below the zero-flow end-point error
 
 Settings read (``--set K=V``): ``batch_size``, ``epochs``,
 ``steps_per_epoch``, ``print_interval``, ``seed``, ``pool_size``,
-``fused_resample``, ``base_lr``; ``mix`` only to refuse what the port does
-not run.
+``fused_resample``, ``base_lr``, ``mix``; the source imagery is
+``default_synthetic``'s (``make_data``: staged Zurich RAW2RGB crops, else the
+procedural pool of ``mix``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ NET_NAME = "align_lite"
 
 def make_trainer(settings, device="cuda"):
     """The configured :class:`Trainer`: a fresh ``BurstAlignLite``, the
-    procedural pools, the flow actor and Adam."""
+    source imagery of ``make_data``, the flow actor and Adam."""
     from dbsr_tpu_torch.configs.dbsr.default_synthetic import make_data
     from dbsr_tpu_torch.data.synthetic import BurstConfig
     from dbsr_tpu_torch.models.align_lite import BurstAlignLite
@@ -50,8 +51,8 @@ def make_trainer(settings, device="cuda"):
         fused_resample=getattr(settings, "fused_resample", True))
 
     dev = torch.device(device)
-    loaders, prepare_fn = make_data(settings, cfg, steps_per_epoch, dev,
-                                    val_batches=50, val_interval=5)
+    loaders, prepare_fn, device_put = make_data(
+        settings, cfg, steps_per_epoch, dev, val_batches=50, val_interval=5)
     net = BurstAlignLite()
     actor = make_lite_flow_actor(net)
     tx = make_optimizer(base_lr=getattr(settings, "base_lr", 2e-4),
@@ -61,7 +62,8 @@ def make_trainer(settings, device="cuda"):
                              "pretrain_synthetic")
     return Trainer(net, actor, tx, loaders, prepare_fn, workspace,
                    net_name=NET_NAME, print_interval=settings.print_interval,
-                   seed=getattr(settings, "seed", 0), device=dev)
+                   seed=getattr(settings, "seed", 0), device=dev,
+                   device_put=device_put)
 
 
 def run(settings, device="cuda"):

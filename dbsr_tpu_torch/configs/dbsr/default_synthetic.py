@@ -4,8 +4,11 @@
 100 epochs x 1000 batches of 16 8-frame bursts from 384^2 crops (432^2
 before the 24 px border crop) at x4 downsampling, <= 24 px translation and
 <= 1 degree rotation, fused resampling; L1 loss with boundary_ignore 40;
-Adam 1e-4 with StepLR(40 epochs, 0.2). Source imagery is the procedural
-dead-leaves pool on the device. The aligner is grafted from a pretrained
+Adam 1e-4 with StepLR(40 epochs, 0.2). Source imagery is random crops of
+the Zurich RAW2RGB JPEGs where ``DBSR_TPU_ZURICHRAW2RGB_DIR`` stages them
+(made on the host, fed through the trainer's prefetcher), else the
+procedural pool on the device: dead leaves, or with ``--set mix=mixed`` the
+mixed corpus. The aligner is grafted from a pretrained
 checkpoint and frozen (the reference protocol): ``--set
 pwc_checkpoint=<path>``, else the latest checkpoint of
 ``align_lite/pretrain_synthetic`` in the workspace, else that of
@@ -31,42 +34,80 @@ Settings read (``--set K=V``): ``batch_size``, ``epochs``,
 ``fused_resample``, ``pwc_checkpoint``, ``train_alignment``, ``grad_clip``,
 ``fused_s2d_decoder`` (``False``: the decoder at fine resolution),
 ``flow_net`` (the checkpoint's kind by default), ``compute_dtype``
-(``bfloat16``/``bf16`` or ``float32``/``f32``; any other raises); and, to
-refuse what the port does not run, ``mix``.
+(``bfloat16``/``bf16`` or ``float32``/``f32``; any other raises), ``mix``
+(``deadleaves`` or ``mixed``).
 """
 
 from __future__ import annotations
 
 import os
+from typing import Callable
 
 import torch
 
+
+def make_crop_prepare_fn(cfg) -> Callable:
+    """``prepare(generator, crops) -> batch`` for host-made source crops
+    already on the device: uint8 -> float32 / 255 (float crops as they
+    are), then burst synthesis (``synthesize_batch`` with ``cfg``)."""
+    from dbsr_tpu_torch.data.synthetic import synthesize_batch
+
+    def prepare(generator, crops):
+        crops = crops.float() / 255.0 if crops.dtype == torch.uint8 \
+            else crops.float()
+        return synthesize_batch(generator, crops, cfg)
+
+    return prepare
+
+
 def make_data(settings, cfg, steps_per_epoch: int, device,
               val_batches: int = 200, val_interval: int = 5):
-    """``(loaders, prepare_fn)``: device-resident procedural dead-leaves
-    pools for train and val (the val pool an eighth of the train pool; a val
-    pass of ``val_batches`` batches every ``val_interval`` epochs). Shared
-    with ``align_lite/pretrain_synthetic``, so both train on the same source
+    """``(loaders, prepare_fn, device_put)`` for synthetic-burst training
+    (a val pass of ``val_batches`` batches every ``val_interval`` epochs):
+    with Zurich RAW2RGB staged (``env.zurichraw2rgb_dir``), random crops of
+    its train and test JPEGs made on the host (``CropBatcher`` seeded
+    ``seed`` and ``seed + 1``), shipped as uint8 through the prefetcher's
+    ``device_put``; otherwise device-resident procedural pools, the train
+    pool of ``settings.mix`` (``'mixed'``: the mixed corpus; else dead
+    leaves), the val pool dead leaves and an eighth of its size, and no
+    ``device_put``. Shared with ``align_lite/pretrain_synthetic`` and
+    ``pwcnet/pretrain_synthetic``, so all three train on the same source
     distribution."""
+    from dbsr_tpu_torch.training.trainer import LoaderSpec
+
+    B = settings.batch_size
+    seed = getattr(settings, "seed", 0)
+    zdir = settings.env.zurichraw2rgb_dir
+    if zdir and os.path.isdir(zdir):
+        from dbsr_tpu_torch.data.datasets import ZurichRAW2RGB
+        from dbsr_tpu_torch.data.pipeline import (CropBatcher,
+                                                  RandomImageSampler,
+                                                  pinned_device_put)
+
+        def batcher(split, n_batches, batcher_seed):
+            return CropBatcher(RandomImageSampler(
+                [ZurichRAW2RGB(zdir, split)], [1.0],
+                samples_per_epoch=B * n_batches), B, cfg.pre_crop_sz,
+                random_flip=True, seed=batcher_seed)
+
+        loaders = [
+            LoaderSpec("train", batcher("train", steps_per_epoch, seed)),
+            LoaderSpec("val", batcher("test", val_batches, seed + 1),
+                       training=False, epoch_interval=val_interval),
+        ]
+        return loaders, make_crop_prepare_fn(cfg), pinned_device_put(device)
+
     from dbsr_tpu_torch.data.procedural import (ProceduralImagePool,
                                                 ProceduralPoolBatcher,
                                                 make_pool_prepare_fn)
-    from dbsr_tpu_torch.training.trainer import LoaderSpec
 
-    zdir = settings.env.zurichraw2rgb_dir
-    if zdir and os.path.isdir(zdir):
-        raise NotImplementedError(
-            f"Zurich RAW2RGB data is staged ({zdir}), but the port trains "
-            "on the procedural pool only; unset DBSR_TPU_ZURICHRAW2RGB_DIR")
     mix = getattr(settings, "mix", "deadleaves")
-    if mix != "deadleaves":
-        raise NotImplementedError(f"mix={mix!r}: the port has the "
-                                  "dead-leaves pool only")
-    B = settings.batch_size
-    seed = getattr(settings, "seed", 0)
+    print(f"NOTE: no Zurich data staged (env.zurichraw2rgb_dir empty) — "
+          f"training on procedural source imagery (mix={mix})", flush=True)
     pool_size = getattr(settings, "pool_size", 2048)
     train_pool = ProceduralImagePool(pool_size, cfg.pre_crop_sz, seed=seed,
-                                     device=device)
+                                     device=device, mix=mix)
+    # the val pool stays dead leaves, so scores compare across mixes
     val_pool = ProceduralImagePool(max(pool_size // 8, 1), cfg.pre_crop_sz,
                                    seed=seed + 999, device=device)
     loaders = [
@@ -75,7 +116,7 @@ def make_data(settings, cfg, steps_per_epoch: int, device,
         LoaderSpec("val", ProceduralPoolBatcher(val_pool, B, val_batches),
                    training=False, epoch_interval=val_interval),
     ]
-    return loaders, make_pool_prepare_fn(cfg, B)
+    return loaders, make_pool_prepare_fn(cfg, B), None
 
 
 def find_pretrained_flow(settings):
@@ -147,12 +188,25 @@ def check_resume_matches(workspace: str, net_name: str,
             "cross-restore. Keep the setting, or start a fresh workspace.")
 
 
+def burst_config(settings):
+    """The training bursts: 8 frames from 384^2 crops at x4, a 24 px border,
+    <= 24 px translation, <= 1 degree rotation, fused resampling unless
+    ``settings.fused_resample`` is False."""
+    from dbsr_tpu_torch.data.synthetic import BurstConfig
+
+    return BurstConfig(
+        burst_size=8, crop_sz=(384, 384), downsample_factor=4,
+        border_crop=24, max_translation=24.0, max_rotation=1.0,
+        max_shear=0.0, max_scale=0.0, random_ccm=True, random_gains=True,
+        smoothstep=True, gamma=True, add_noise=True,
+        fused_resample=getattr(settings, "fused_resample", True))
+
+
 def make_trainer(settings, device="cuda"):
     """``(trainer, flow_ckpt)``: the configured :class:`Trainer` (fresh
-    network, procedural pools, Adam) and the pretrained aligner checkpoint
+    network, ``make_data``'s source imagery, Adam) and the pretrained aligner checkpoint
     that :func:`run` grafts into it, None when there is none (the aligner
     then trains from scratch with the rest)."""
-    from dbsr_tpu_torch.data.synthetic import BurstConfig
     from dbsr_tpu_torch.models.dbsr import dbsrnet_cvpr2021
     from dbsr_tpu_torch.training.actors import make_synthetic_actor
     from dbsr_tpu_torch.training.state import make_optimizer
@@ -162,12 +216,7 @@ def make_trainer(settings, device="cuda"):
     settings.print_interval = getattr(settings, "print_interval", 50)
     steps_per_epoch = getattr(settings, "steps_per_epoch", 1000)
 
-    cfg = BurstConfig(
-        burst_size=8, crop_sz=(384, 384), downsample_factor=4,
-        border_crop=24, max_translation=24.0, max_rotation=1.0,
-        max_shear=0.0, max_scale=0.0, random_ccm=True, random_gains=True,
-        smoothstep=True, gamma=True, add_noise=True,
-        fused_resample=getattr(settings, "fused_resample", True))
+    cfg = burst_config(settings)
 
     # bf16 compute, float32 parameters and Adam state, as the JAX config
     compute_dtype = getattr(settings, "compute_dtype", "bfloat16")
@@ -208,7 +257,8 @@ def make_trainer(settings, device="cuda"):
         fused_s2d_decoder=getattr(settings, "fused_s2d_decoder", True),
         dtype=dtypes[compute_dtype])
     dev = torch.device(device)
-    loaders, prepare_fn = make_data(settings, cfg, steps_per_epoch, dev)
+    loaders, prepare_fn, device_put = make_data(settings, cfg,
+                                                steps_per_epoch, dev)
     actor = make_synthetic_actor(net, loss_weight=1.0, boundary_ignore=40)
     workspace = os.path.join(settings.env.workspace_dir, "dbsr",
                              "default_synthetic")
@@ -223,7 +273,8 @@ def make_trainer(settings, device="cuda"):
                       net_name="dbsr_synthetic",
                       print_interval=settings.print_interval,
                       seed=getattr(settings, "seed", 0),
-                      header_settings={"masked_adam": masked}, device=dev)
+                      header_settings={"masked_adam": masked}, device=dev,
+                      device_put=device_put)
     return trainer, flow_ckpt
 
 

@@ -14,8 +14,9 @@ no AlignLite one, grafts it into ``encoder.alignment_net`` with
 
 Settings read (``--set K=V``): ``batch_size``, ``epochs``,
 ``steps_per_epoch``, ``print_interval``, ``seed``, ``pool_size``,
-``fused_resample``, ``base_lr``; ``mix`` only to refuse what the port does
-not run.
+``fused_resample``, ``base_lr``, ``mix``; the source imagery is
+``default_synthetic``'s (``make_data``: staged Zurich RAW2RGB crops, else the
+procedural pool of ``mix``).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ NET_NAME = "pwcnet_synth"
 
 def make_trainer(settings, device="cuda"):
     """The configured :class:`Trainer`: a fresh ``BurstFlowNet``, the
-    procedural pools, the flow actor and Adam."""
+    source imagery of ``make_data``, the flow actor and Adam."""
     from dbsr_tpu_torch.configs.dbsr.default_synthetic import make_data
     from dbsr_tpu_torch.data.synthetic import BurstConfig
     from dbsr_tpu_torch.models.pwcnet import BurstFlowNet
@@ -49,8 +50,8 @@ def make_trainer(settings, device="cuda"):
         fused_resample=getattr(settings, "fused_resample", True))
 
     dev = torch.device(device)
-    loaders, prepare_fn = make_data(settings, cfg, steps_per_epoch, dev,
-                                    val_batches=50, val_interval=5)
+    loaders, prepare_fn, device_put = make_data(
+        settings, cfg, steps_per_epoch, dev, val_batches=50, val_interval=5)
     net = BurstFlowNet()
     actor = make_flow_actor(net)
     # 2e-4: PWC-Net's 1e-4 at B=8, scaled for B=16
@@ -61,7 +62,8 @@ def make_trainer(settings, device="cuda"):
                              "pretrain_synthetic")
     return Trainer(net, actor, tx, loaders, prepare_fn, workspace,
                    net_name=NET_NAME, print_interval=settings.print_interval,
-                   seed=getattr(settings, "seed", 0), device=dev)
+                   seed=getattr(settings, "seed", 0), device=dev,
+                   device_put=device_put)
 
 
 def run(settings, device="cuda"):

@@ -1,7 +1,14 @@
-"""The SyntheticBurstVal reader and writer (port of
-``dbsr_tpu/data/datasets.py:133-243``): the pre-generated validation set
-of the synthetic protocol, channels-last numpy arrays, PNGs through the
+"""Host-side dataset readers (port of ``dbsr_tpu/data/datasets.py``),
+channels-last numpy arrays: the single-image datasets that synthetic
+training and val-set generation draw source images from (``ZurichRAW2RGB``,
+``ImageFolder``), and the SyntheticBurstVal reader and writer, the
+pre-generated validation set of the synthetic protocol, PNGs through the
 port's ``utils/png16.py``.
+
+Source images load as uint8 RGB ``[H, W, 3]``: JPEGs through the native
+libjpeg decoder (``utils/native_io.py``), else PIL where it is installed;
+PNGs through ``png16``; anything else through PIL. A file nothing here can
+decode raises an error that names what is missing.
 
 Sets this writer (or the JAX package's) made carry a ``format.json``
 marker and hold RGB channel order; sets without it were written by OpenCV,
@@ -21,6 +28,120 @@ import torch
 from dbsr_tpu_torch.utils.png16 import read_png, write_png
 
 _SCALE = 2 ** 14  # uint16 PNGs hold values in [0, 1] at this scale
+
+
+def _pil_rgb(path: str, why: str) -> np.ndarray:
+    try:
+        from PIL import Image
+    except ImportError:
+        raise RuntimeError(f"{path}: cannot decode: {why}, and PIL is not "
+                           "installed") from None
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def _png_rgb(path: str) -> np.ndarray:
+    """An 8-bit PNG as RGB, as PIL's ``convert("RGB")`` gives it: grey
+    repeated, alpha dropped."""
+    im = read_png(path)
+    if im.dtype != np.uint8:
+        raise ValueError(f"{path}: a {im.dtype.itemsize * 8}-bit PNG; source "
+                         "images are 8-bit")
+    if im.shape[-1] in (1, 2):
+        return np.repeat(im[..., :1], 3, axis=-1)
+    return np.ascontiguousarray(im[..., :3])
+
+
+def _load_image(path: str) -> np.ndarray:
+    """Load an 8-bit image as uint8 RGB ``[H, W, 3]``."""
+    lower = path.lower()
+    if lower.endswith((".jpg", ".jpeg")):
+        from dbsr_tpu_torch.utils.native_io import NativeUnavailable, read_jpeg
+        try:
+            return read_jpeg(path)
+        except NativeUnavailable as e:
+            return _pil_rgb(path, f"the native JPEG decoder is unavailable "
+                                  f"({e})")
+    if lower.endswith(".png"):
+        try:
+            return _png_rgb(path)
+        except ValueError as e:
+            if "color type" not in str(e):  # a palette PNG: PIL reads it
+                raise
+            return _pil_rgb(path, str(e))
+    return _pil_rgb(path, f"no decoder of the port reads "
+                          f"{os.path.splitext(path)[1] or 'this file'}")
+
+
+class BaseImageDataset:
+    """Single-image dataset contract: ``get_num_images()`` and
+    ``get_image(i) -> (uint8 [H, W, 3], info)``."""
+
+    def __init__(self, name: str, root: str):
+        self.name = name
+        self.root = root
+
+    def get_name(self) -> str:
+        return self.name
+
+    def get_num_images(self) -> int:
+        raise NotImplementedError
+
+    def __len__(self):
+        return self.get_num_images()
+
+    def get_image(self, im_id: int, info: Optional[dict] = None):
+        raise NotImplementedError
+
+    def get_image_info(self, im_id: int) -> dict:
+        return {}
+
+
+class ZurichRAW2RGB(BaseImageDataset):
+    """Canon sRGB images of the Zurich RAW-to-RGB dataset, the synthesis
+    source: ``<root>/<split>/canon/{i}.jpg``, 46,839 train / 1,204 test. A
+    partial copy is trusted when its listing holds fewer JPEGs."""
+
+    SPLIT_SIZES = {"train": 46839, "test": 1204}
+
+    def __init__(self, root: str, split: str = "train"):
+        super().__init__("ZurichRAW2RGB", root)
+        if split not in self.SPLIT_SIZES:
+            raise ValueError(f"unknown split {split!r}")
+        self.split = split
+        self.img_pth = os.path.join(root, split, "canon")
+        n = self.SPLIT_SIZES[split]
+        if os.path.isdir(self.img_pth):
+            present = len([f for f in os.listdir(self.img_pth)
+                           if f.endswith(".jpg")])
+            n = min(n, present) if present else n
+        self.image_list = [f"{i:d}.jpg" for i in range(n)]
+
+    def get_num_images(self) -> int:
+        return len(self.image_list)
+
+    def get_image(self, im_id: int, info: Optional[dict] = None):
+        frame = _load_image(os.path.join(self.img_pth, self.image_list[im_id]))
+        return frame, info if info is not None else {}
+
+
+class ImageFolder(BaseImageDataset):
+    """A folder of images (``.jpg``, ``.jpeg``, ``.png``, ``.bmp``), sorted
+    by name."""
+
+    EXTS = (".jpg", ".jpeg", ".png", ".bmp")
+
+    def __init__(self, root: str, name: str = "ImageFolder"):
+        super().__init__(name, root)
+        self.image_list = sorted(
+            f for f in os.listdir(root) if f.lower().endswith(self.EXTS))
+
+    def get_num_images(self) -> int:
+        return len(self.image_list)
+
+    def get_image(self, im_id: int, info: Optional[dict] = None):
+        frame = _load_image(os.path.join(self.root, self.image_list[im_id]))
+        return frame, info if info is not None else {}
 
 
 class SyntheticBurstVal:

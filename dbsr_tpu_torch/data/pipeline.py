@@ -1,15 +1,21 @@
-"""Host-side crop extraction in numpy (port of
-``dbsr_tpu/data/pipeline.py:23-82``): the random resized crop and the
-centre crop that val-set generation takes from each source image, with the
-half-pixel bilinear resize they need. Burst synthesis itself runs on the
+"""The host-side data pipeline (port of ``dbsr_tpu/data/pipeline.py``):
+image samplers, crop extraction in numpy (the random resized crop and the
+centre crop, with the half-pixel bilinear resize they need), the
+``CropBatcher`` that makes a batch of source crops, and the
+``DevicePrefetcher`` that makes the next batches on a background thread
+while the card runs the current step. Burst synthesis itself runs on the
 device (``data/synthetic.py``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import queue
+import threading
+import time
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 
 def random_resized_crop(rng: np.random.Generator, frame: np.ndarray,
@@ -70,3 +76,197 @@ def _resize_bilinear_np(im: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
     top = im[y0][:, x0] * (1 - wx) + im[y0][:, x1] * wx
     bot = im[y1][:, x0] * (1 - wx) + im[y1][:, x1] * wx
     return top * (1 - wy) + bot * wy
+
+
+class RandomImageSampler:
+    """Weighted random image draws with fail-safe retry: a dataset by
+    ``weights``, then an image of it uniformly."""
+
+    def __init__(self, datasets: Sequence, weights: Sequence[float],
+                 samples_per_epoch: int, max_retries: int = 100):
+        assert len(datasets) == len(weights)
+        self.datasets = list(datasets)
+        p = np.asarray(weights, np.float64)
+        self.p = p / p.sum()
+        self.samples_per_epoch = samples_per_epoch
+        self.max_retries = max_retries
+
+    def __len__(self):
+        return self.samples_per_epoch
+
+    def sample(self, rng: np.random.Generator) -> np.ndarray:
+        for _ in range(self.max_retries):
+            try:
+                d = self.datasets[rng.choice(len(self.datasets), p=self.p)]
+                idx = int(rng.integers(0, d.get_num_images()))
+                frame, _ = d.get_image(idx)
+                return frame
+            except Exception:
+                continue
+        raise RuntimeError(
+            f"failed to sample an image after {self.max_retries} retries")
+
+
+class IndexedImageSampler:
+    """Sequential image access."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return self.dataset.get_num_images()
+
+    def get(self, idx: int) -> np.ndarray:
+        frame, _ = self.dataset.get_image(idx)
+        return frame
+
+
+class CropBatcher:
+    """Sample -> [0, 1] float -> brightness jitter -> random horizontal flip
+    -> random (or centre) crop to ``crop_sz`` -> a batch ``[B, h, w, 3]``,
+    uint8 by default (``transfer_dtype``; the card casts back to
+    float32 / 255) or float32. The host half of synthetic training; with the
+    same seed and datasets the batches equal the JAX package's bit for
+    bit."""
+
+    def __init__(self, sampler, batch_size: int, crop_sz: Tuple[int, int],
+                 scale_range=None, ar_range=None, random_flip: bool = True,
+                 random_crop: bool = True, brightness_jitter: float = 0.0,
+                 seed: int = 0, transfer_dtype: str = "uint8"):
+        self.sampler = sampler
+        self.batch_size = batch_size
+        self.crop_sz = crop_sz
+        self.scale_range = scale_range
+        self.ar_range = ar_range
+        self.random_flip = random_flip
+        self.random_crop = random_crop
+        self.brightness_jitter = brightness_jitter
+        self.transfer_dtype = transfer_dtype
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+
+    def fold_in_process(self, process_index: int) -> None:
+        """Decorrelate this batcher's random stream per process, for data
+        parallelism where every process runs the same config seed."""
+        self.rng = np.random.default_rng([self.seed, process_index])
+
+    def __len__(self):
+        return max(1, len(self.sampler) // self.batch_size)
+
+    def next_batch(self) -> np.ndarray:
+        crops = []
+        for _ in range(self.batch_size):
+            frame = np.asarray(self.sampler.sample(self.rng))
+            if frame.dtype == np.uint8:
+                frame = frame.astype(np.float32) / 255.0
+            if self.brightness_jitter > 0.0:
+                factor = np.exp(self.rng.uniform(-self.brightness_jitter,
+                                                 self.brightness_jitter))
+                frame = np.clip(frame * factor, 0.0, 1.0)
+            if self.random_flip and self.rng.random() < 0.5:
+                frame = frame[:, ::-1]
+            if self.random_crop:
+                crop = random_resized_crop(self.rng, frame, self.crop_sz,
+                                           self.scale_range, self.ar_range)
+            else:
+                crop = center_crop(frame, self.crop_sz)
+            crops.append(np.ascontiguousarray(crop, np.float32))
+        batch = np.stack(crops)
+        if self.transfer_dtype == "uint8":
+            # 8-bit sRGB, the source JPEGs' own precision: 4x fewer bytes
+            # to the card
+            return (np.clip(batch, 0.0, 1.0) * 255.0 + 0.5).astype(
+                np.uint8)
+        return batch
+
+
+def pinned_device_put(device) -> Callable:
+    """``put(batch)``: a numpy batch copied into page-locked memory and on
+    to ``device`` with ``non_blocking=True`` on the current (default)
+    stream, so a step launched after it on that stream reads the copied
+    bytes; a CPU device takes the array as a tensor."""
+    device = torch.device(device)
+
+    def put(batch):
+        t = torch.from_numpy(np.ascontiguousarray(batch))
+        if device.type == "cpu":
+            return t
+        return t.pin_memory().to(device, non_blocking=True)
+
+    return put
+
+
+class DevicePrefetcher:
+    """Background thread making host batches and shipping them to the device
+    ahead of use (a queue ``depth`` deep). ``batch_fn`` runs on the one
+    worker thread, in order, so the batches are the inline ones;
+    ``device_put`` (None: the batch as it is) runs there after it.
+    ``wait_s`` sums the time the consumer waited on the queue, ``batch_s``
+    the worker's time in ``batch_fn`` and ``device_put``."""
+
+    def __init__(self, batch_fn: Callable[[], object], num_batches: int,
+                 device_put: Optional[Callable] = None, depth: int = 2):
+        self.batch_fn = batch_fn
+        self.num_batches = num_batches
+        self.device_put = device_put
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._thread: Optional[threading.Thread] = None
+        self._err = None
+        self._stop = False
+        self.wait_s = 0.0
+        self.batch_s = 0.0
+
+    def _put(self, b) -> bool:
+        """Stop-aware queue put; False when closed mid-wait."""
+        while not self._stop:
+            try:
+                self.q.put(b, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _worker(self):
+        try:
+            for _ in range(self.num_batches):
+                if self._stop:
+                    return
+                t0 = time.perf_counter()
+                b = self.batch_fn()
+                if self.device_put is not None:
+                    b = self.device_put(b)
+                self.batch_s += time.perf_counter() - t0
+                if not self._put(b):
+                    return
+        except Exception as e:  # surfaced in the consumer
+            self._err = e
+            self._put(None)
+
+    def __iter__(self):
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._thread.start()
+        for _ in range(self.num_batches):
+            t0 = time.perf_counter()
+            b = self.q.get()
+            self.wait_s += time.perf_counter() - t0
+            if b is None:
+                raise RuntimeError("prefetch worker failed") from self._err
+            yield b
+        self._thread.join()
+
+    def close(self):
+        """Release the worker when the consumer abandons the epoch
+        mid-iteration (a crash or a divergence abort): else it blocks on a
+        full queue, and a retried epoch's new prefetcher would race it for
+        the shared batcher's random stream. Idempotent; harmless after
+        normal completion."""
+        self._stop = True
+        t = self._thread
+        if t is None:
+            return
+        while t.is_alive():
+            try:
+                self.q.get_nowait()  # unblock a put-waiting worker
+            except queue.Empty:
+                pass
+            t.join(timeout=0.05)

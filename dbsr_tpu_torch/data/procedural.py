@@ -1,7 +1,7 @@
-"""Procedural source imagery on the device: the dead-leaves image model and
-the pool of uint8 source crops that synthetic training draws from, and the
-image dataset that val-set generation draws from (port of
-``dbsr_tpu/data/procedural.py:49-151,306-448``, dead-leaves mix only).
+"""Procedural source imagery on the device: the dead-leaves image model, the
+four generators of the mixed corpus, the pool of uint8 source crops that
+synthetic training draws from, and the image dataset that val-set
+generation draws from (port of ``dbsr_tpu/data/procedural.py``).
 
 Per image: a 4-colour palette and background; ``num_leaves`` anti-aliased
 ellipses painted in order (power-law radii, palette colours with jitter and
@@ -11,6 +11,14 @@ a batch on the device. The random draws (``dead_leaves_draws``) are
 separate from the rendering (``dead_leaves_from_draws``), so a test can
 feed the JAX package's own draws; likewise the pool's crop draws
 (``draw_crops``) from ``crops_from_draws``.
+
+The mixed corpus (``mix='mixed'``) adds hard edges (rotated bars and
+strokes), near-Nyquist gratings, smooth gradient fields and full-band noise
+texture in the ``MIXED_RECIPE`` proportions, one generator per chunk of the
+pool (``_mix_plan``, the JAX package's numpy plan). Their transcendental
+functions (``_f32``) are evaluated in float64 and rounded once to float32,
+the same value on every device, so the card's rendering stays within a
+few float32 roundings of the CPU's.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from dbsr_tpu_torch.ops.camera import normal, uniform
@@ -30,6 +39,12 @@ PALETTE_SIZE = 4
 SIGMA_RANGE = (0.2, 1.1)
 RMIN, RMAX_FRAC = 4.0, 0.45
 COLOR_JITTER, GRAD_AMP, TEXTURE_AMP, ILLUM_AMP = 0.12, 0.35, 0.10, 0.15
+# the mixed corpus' generators (the JAX package's defaults)
+NUM_SHAPES, EDGES_SIGMA = 120, (0.15, 0.7)
+NUM_COMPONENTS, GRATINGS_SIGMA = 3, (0.15, 0.5)
+GRADIENT_BASES, GRADIENT_DECAY = (2, 3, 5), 0.7
+NOISE_BASES, NOISE_DECAY, NOISE_SIGMA = (7, 14, 28, 56, 112, 224), 0.65, \
+    (0.2, 0.9)
 
 
 def octave_noise(coarse: Sequence[torch.Tensor], hw: Tuple[int, int],
@@ -138,12 +153,169 @@ def dead_leaves_from_draws(draws: Dict[str, object],
 
 
 def concat_draws(parts: Sequence[Dict[str, object]]) -> Dict[str, object]:
-    """Draws of several image batches joined into one batch."""
-    out = {k: torch.cat([p[k] for p in parts]) for k in parts[0]
-           if k != "octaves"}
-    out["octaves"] = [torch.cat(o) for o in zip(*(p["octaves"]
-                                                  for p in parts))]
-    return out
+    """Draws of several image batches joined into one batch (list-valued
+    draws, the octave fields, joined per entry)."""
+    return {k: [torch.cat(o) for o in zip(*(p[k] for p in parts))]
+            if isinstance(v, list) else torch.cat([p[k] for p in parts])
+            for k, v in parts[0].items()}
+
+
+def _f32(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` of float32 ``x`` in float64, rounded once to float32: the same
+    bits on every device (float32 sin, cos, exp and pow differ in the last
+    place between the CPU's and the card's libraries)."""
+    return fn(x.double()).float()
+
+
+def _log32(v: float) -> float:
+    """``log(float32(v))`` rounded to float32, as XLA folds ``jnp.log`` of a
+    Python number."""
+    return float(np.float32(np.log(np.float64(np.float32(v)))))
+
+
+def _grid(hw: Tuple[int, int], device):
+    H, W = hw
+    return (torch.arange(H, dtype=torch.float32, device=device)[:, None],
+            torch.arange(W, dtype=torch.float32, device=device)[None, :])
+
+
+def _col(v: torch.Tensor) -> torch.Tensor:
+    """Per-image ``[n, ...]`` -> ``[n, 1, 1, ...]`` against ``[H, W]``."""
+    return v.reshape(v.shape[:1] + (1, 1) + v.shape[1:])
+
+
+def _unit_dir(d: torch.Tensor) -> torch.Tensor:
+    return d / torch.sqrt((d * d).sum(dim=-1, keepdim=True) + 1e-8)
+
+
+def hard_edges_draws(generator: torch.Generator, n: int,
+                     num_shapes: int = NUM_SHAPES) -> Dict[str, object]:
+    """The random values of ``n`` hard-edges images."""
+    return {"bg": uniform(generator, (n, 3)),
+            "shape_u": uniform(generator, (n, num_shapes, 9)),
+            "shape_color": uniform(generator, (n, num_shapes, 3)),
+            "sigma": uniform(generator, (n,), *EDGES_SIGMA)}
+
+
+def hard_edges_from_draws(draws: Dict[str, object],
+                          hw: Tuple[int, int]) -> torch.Tensor:
+    """High-contrast rotated rectangles, bars and thin strokes painted in
+    order on a uniform background (half-extents log-uniform from 1 px to
+    W/6 and from 0.7 px to H/24; half the shapes' colours pushed to the
+    rails), then a random blur: ``[n, H, W, 3]`` in [0, 1]
+    (``dbsr_tpu/data/procedural.py:154``)."""
+    H, W = hw
+    bg = draws["bg"]
+    n = bg.shape[0]
+    img = _col(bg).expand(n, H, W, 3)
+    ys, xs = _grid(hw, bg.device)
+    log_hx, log_hy0, log_hy = _log32(W / 6.0), _log32(0.7), _log32(H / 24.0)
+    for i in range(draws["shape_u"].shape[1]):
+        u = draws["shape_u"][:, i]
+        cx = _col(u[:, 0] * (W - 1))
+        cy = _col(u[:, 1] * (H - 1))
+        theta = u[:, 2] * math.pi
+        hx = _col(_f32(torch.exp, 0.0 + u[:, 3] * log_hx))
+        hy = _col(_f32(torch.exp, log_hy0 + u[:, 4] * log_hy))
+        color = draws["shape_color"][:, i]
+        color = torch.where(u[:, 5:6] < 0.5, (color > 0.5).float(), color)
+        ct, st = _col(_f32(torch.cos, theta)), _col(_f32(torch.sin, theta))
+        dx = xs - cx
+        dy = ys - cy
+        xr = ct * dx + st * dy
+        yr = -st * dx + ct * dy
+        cover = ((0.5 + (hx - xr.abs())).clamp(0.0, 1.0)
+                 * (0.5 + (hy - yr.abs())).clamp(0.0, 1.0))[..., None]
+        img = img * (1.0 - cover) + _col(color) * cover
+    img = gaussian_blur(img, draws["sigma"])
+    return img.clamp(0.0, 1.0)
+
+
+def gratings_draws(generator: torch.Generator, n: int,
+                   num_components: int = NUM_COMPONENTS) -> Dict[str, object]:
+    """The random values of ``n`` gratings images."""
+    return {"dc": uniform(generator, (n, 3), 0.25, 0.75),
+            "comp_u": uniform(generator, (n, num_components, 6)),
+            "comp_color": uniform(generator, (n, num_components, 3), -1.0,
+                                  1.0),
+            "sigma": uniform(generator, (n,), *GRATINGS_SIGMA)}
+
+
+def gratings_from_draws(draws: Dict[str, object],
+                        hw: Tuple[int, int]) -> torch.Tensor:
+    """Oriented sinusoidal gratings (frequencies log-uniform in [1/64, 0.45]
+    cycles/px, up to near Nyquist) under Gaussian envelopes on a grey
+    level, then a random blur: ``[n, H, W, 3]`` in [0, 1]
+    (``dbsr_tpu/data/procedural.py:199``)."""
+    H, W = hw
+    dc = draws["dc"]
+    n = dc.shape[0]
+    img = _col(dc).expand(n, H, W, 3)
+    ys, xs = _grid(hw, dc.device)
+    log_lo = _log32(1.0 / 64.0)
+    log_span = float(np.float32(_log32(0.45) - log_lo))
+    for i in range(draws["comp_u"].shape[1]):
+        u = draws["comp_u"][:, i]
+        theta = u[:, 0] * math.pi
+        freq = _f32(torch.exp, log_lo + u[:, 1] * log_span)
+        phase = _col(u[:, 2] * (2.0 * math.pi))
+        amp = _col(0.08 + 0.22 * u[:, 3])
+        ct, st = _col(_f32(torch.cos, theta)), _col(_f32(torch.sin, theta))
+        wave = _f32(torch.sin, _col(2.0 * math.pi * freq)
+                    * (ct * xs + st * ys) + phase)
+        ex = (xs - _col(u[:, 4] * (W - 1))) / (0.45 * W)
+        ey = (ys - _col(u[:, 5] * (H - 1))) / (0.45 * H)
+        env = _f32(torch.exp, -(ex * ex + ey * ey))
+        img = img + amp[..., None] * (wave * env)[..., None] \
+            * _col(draws["comp_color"][:, i])
+    img = gaussian_blur(img, draws["sigma"])
+    return img.clamp(0.0, 1.0)
+
+
+def smooth_gradients_draws(generator: torch.Generator,
+                           n: int) -> Dict[str, object]:
+    """The random values of ``n`` smooth-gradient images."""
+    return {"octaves": [uniform(generator, (n, b, b, 3))
+                        for b in GRADIENT_BASES],
+            "illum_dir": normal(generator, (n, 2)),
+            "gamma_u": uniform(generator, (n, 3), -0.5, 0.5)}
+
+
+def smooth_gradients_from_draws(draws: Dict[str, object],
+                                hw: Tuple[int, int]) -> torch.Tensor:
+    """Very low-frequency content: coarse octave noise (bases 2, 3, 5),
+    an illumination ramp and a random per-channel gamma: ``[n, H, W, 3]``
+    in [0, 1] (``dbsr_tpu/data/procedural.py:237``)."""
+    H, W = hw
+    img = octave_noise(draws["octaves"], hw, decay=GRADIENT_DECAY)
+    ys, xs = _grid(hw, img.device)
+    gdir = _unit_dir(draws["illum_dir"])
+    ramp = (_col(gdir[:, 0]) * (xs / W - 0.5)
+            + _col(gdir[:, 1]) * (ys / H - 0.5))
+    img = img * (1.0 + 0.4 * ramp[..., None])
+    gamma = _col(_f32(torch.exp, draws["gamma_u"]))
+    return _f32(lambda x: x ** gamma.double(),
+                img.clamp(0.0, 1.0)).clamp(0.0, 1.0)
+
+
+def noise_texture_draws(generator: torch.Generator,
+                        n: int) -> Dict[str, object]:
+    """The random values of ``n`` noise-texture images."""
+    return {"octaves": [uniform(generator, (n, b, b, 3))
+                        for b in NOISE_BASES],
+            "contrast": uniform(generator, (n,), 0.6, 1.6),
+            "sigma": uniform(generator, (n,), *NOISE_SIGMA)}
+
+
+def noise_texture_from_draws(draws: Dict[str, object],
+                             hw: Tuple[int, int]) -> torch.Tensor:
+    """Full-band multi-octave texture (bases 7 to 224) at a random
+    contrast, then a random blur: ``[n, H, W, 3]`` in [0, 1]
+    (``dbsr_tpu/data/procedural.py:256``)."""
+    img = octave_noise(draws["octaves"], hw, decay=NOISE_DECAY)
+    img = 0.5 + (img - 0.5) * _col(draws["contrast"])[..., None]
+    img = gaussian_blur(img, draws["sigma"])
+    return img.clamp(0.0, 1.0)
 
 
 def dead_leaves_image(generator: torch.Generator, n: int,
@@ -173,21 +345,67 @@ def make_generator(device, *parts: int) -> torch.Generator:
     return g
 
 
+# Mixed-corpus recipe: generator -> share of the pool (dead leaves the
+# backbone; the rest add straight step edges, aliasing-band gratings, smooth
+# fields and full-band texture)
+MIXED_RECIPE = (
+    ("dead_leaves", 0.45),
+    ("edges", 0.20),
+    ("gratings", 0.15),
+    ("noise", 0.10),
+    ("gradients", 0.10),
+)
+
+# name -> (draws(generator, n), from_draws(draws, hw))
+GENERATORS = {
+    "dead_leaves": (dead_leaves_draws, dead_leaves_from_draws),
+    "edges": (hard_edges_draws, hard_edges_from_draws),
+    "gratings": (gratings_draws, gratings_from_draws),
+    "noise": (noise_texture_draws, noise_texture_from_draws),
+    "gradients": (smooth_gradients_draws, smooth_gradients_from_draws),
+}
+
+
+def _mix_plan(n_chunks: int, seed: int, recipe=MIXED_RECIPE):
+    """Deterministic per-chunk generator assignment matching the recipe
+    proportions (shuffled so pool position carries no type information)."""
+    names = []
+    for name, frac in recipe:
+        names += [name] * max(1, round(frac * n_chunks))
+    names = names[:n_chunks]
+    while len(names) < n_chunks:
+        names.append(recipe[0][0])
+    rng = np.random.RandomState(seed ^ 0x5EED)
+    rng.shuffle(names)
+    return names
+
+
 class ProceduralImagePool:
-    """Device-resident pool of uint8 dead-leaves source crops
+    """Device-resident pool of uint8 procedural source crops
     ``[pool_size, H, W, 3]``, regenerated per round (epoch); image ``i``
-    of round ``r`` is drawn from ``(seed, r, i)``."""
+    of round ``r`` is drawn from ``(seed, r, i)``. ``mix='mixed'`` renders
+    chunk ``c`` of round ``r`` with generator ``_mix_plan(n_chunks, seed +
+    r)[c]``; any other ``mix`` is dead leaves throughout."""
 
     def __init__(self, pool_size: int, hw: Tuple[int, int], seed: int = 0,
-                 chunk: int = 32, device="cuda", num_leaves: int = 300):
+                 chunk: int = 32, device="cuda", num_leaves: int = 300,
+                 mix: str = "deadleaves"):
         self.pool_size = pool_size
         self.hw = tuple(hw)
         self.seed = seed
         self.chunk = chunk
         self.device = torch.device(device)
         self.num_leaves = num_leaves
+        self.mix = mix
         self._round = None
         self.pool: Optional[torch.Tensor] = None
+
+    def plan(self, round_idx: int):
+        """The generator of each chunk of round ``round_idx``."""
+        n_chunks = -(-self.pool_size // self.chunk)
+        if self.mix == "mixed":
+            return _mix_plan(n_chunks, self.seed + round_idx)
+        return ["dead_leaves"] * n_chunks
 
     def refresh(self, round_idx: int) -> torch.Tensor:
         """(Re)generate the pool for ``round_idx``; idempotent per round.
@@ -196,14 +414,18 @@ class ProceduralImagePool:
             return self.pool
         pool = torch.empty((self.pool_size,) + self.hw + (3,),
                            dtype=torch.uint8, device=self.device)
-        for lo in range(0, self.pool_size, self.chunk):
+        for c, name in enumerate(self.plan(round_idx)):
+            lo = c * self.chunk
+            draw, render = GENERATORS[name]
+            kw = {"num_leaves": self.num_leaves} \
+                if name == "dead_leaves" else {}
             # image i draws from its own (seed, round, i) stream, so the
-            # pool does not depend on the chunking
-            draws = concat_draws([dead_leaves_draws(
+            # dead-leaves pool does not depend on the chunking
+            draws = concat_draws([draw(
                 make_generator(self.device, self.seed, round_idx, i), 1,
-                num_leaves=self.num_leaves)
-                for i in range(lo, min(lo + self.chunk, self.pool_size))])
-            img = dead_leaves_from_draws(draws, self.hw)
+                **kw) for i in range(lo, min(lo + self.chunk,
+                                             self.pool_size))])
+            img = render(draws, self.hw)
             pool[lo:lo + img.shape[0]] = (img * 255.0 + 0.5).to(torch.uint8)
         self.pool = pool
         self._round = round_idx

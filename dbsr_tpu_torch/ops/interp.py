@@ -1,6 +1,7 @@
 """Resampling ops (port of ``dbsr_tpu/ops/interp.py``): ``resize_bilinear``,
-the PWC-style ``backwarp`` with its analytic validity mask, and the affine
-helpers of burst synthesis (``invert_2x3``, ``apply_affine_to_points``).
+the PWC-style ``backwarp`` with its analytic validity mask, the affine
+helpers of burst synthesis (``invert_2x3``, ``apply_affine_to_points``)
+and ``warp_affine``, which launches the resample kernel on the card.
 The gather warp itself lives in ``ops/warp.py``, beside its kernel.
 
 On the TPU, ``backwarp_auto`` routed AlignLite's small backwarps to a
@@ -11,7 +12,7 @@ CUDA warp kernel for a CUDA tensor.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -96,3 +97,26 @@ def apply_affine_to_points(tmat: torch.Tensor,
     out_x = t[..., 0, 0] * x + t[..., 0, 1] * y + t[..., 0, 2]
     out_y = t[..., 1, 0] * x + t[..., 1, 1] * y + t[..., 1, 2]
     return torch.stack([out_x, out_y], dim=-1)
+
+
+def warp_affine(im: torch.Tensor, tmat: torch.Tensor,
+                out_hw: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+    """``cv2.warpAffine`` with a constant zero border: ``tmat`` ``[..., 2,
+    3]`` maps source to destination, and each destination pixel (integer
+    coordinates) samples ``im`` ``[..., H, W, C]`` bilinearly at
+    ``inv(tmat) @ (x, y, 1)``. Goes through ``affine_resample`` at ``d=1``,
+    border 0 with the inverse affine: the resample kernel for CUDA tensors
+    (one launch per 4 channels), its plain version for CPU ones."""
+    from dbsr_tpu_torch.ops.resample import affine_resample
+
+    H, W, C = im.shape[-3:]
+    lead = im.shape[:-3]
+    out_hw = tuple(out_hw or (H, W))
+    images = im.reshape((-1, H, W, C)).float().contiguous()
+    invs = invert_2x3(tmat.float()).expand(lead + (2, 3)).reshape(
+        -1, 1, 2, 3).contiguous()
+    # the kernel takes at most 4 channels
+    outs = [affine_resample(images[..., c:c + 4].contiguous(), invs, out_hw,
+                            1, 0) for c in range(0, C, 4)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+    return out.reshape(lead + out_hw + (C,))

@@ -5,8 +5,11 @@ asynchronous checkpoint writer, no TensorBoard).
 
 One train step is: prepare (the loader's pool -> crop draw and burst
 synthesis on the device) -> forward -> loss -> ``backward`` -> Adam, under
-TF32-off float32 math (``serving.float32_math``). Per-step stats stay on
-the device and are fetched in one copy at ``print_interval``. Every cycle
+TF32-off float32 math (``serving.float32_math``). Every loader's batches
+come through a ``DevicePrefetcher``: one worker thread calls
+``next_batch()`` (and the trainer's ``device_put``) in order, ahead of the
+steps. Per-step stats stay on the device and are fetched in one copy at
+``print_interval``. Every cycle
 draws from its own ``torch.Generator`` on the device, seeded from
 ``(seed, epoch, training, retry_salt)`` as the JAX trainer folds its key.
 """
@@ -22,6 +25,7 @@ import numpy as np
 import torch
 
 from dbsr_tpu_torch import resolve_device
+from dbsr_tpu_torch.data.pipeline import DevicePrefetcher
 from dbsr_tpu_torch.data.procedural import make_generator
 from dbsr_tpu_torch.models.layers import init_params
 from dbsr_tpu_torch.serving import float32_math
@@ -80,17 +84,21 @@ class Trainer:
                  loaders: List[LoaderSpec], prepare_fn: Callable,
                  workspace_dir: str, net_name: str = "dbsr",
                  print_interval: int = 50, seed: int = 0,
-                 header_settings: Optional[dict] = None, device="cuda"):
+                 header_settings: Optional[dict] = None, device="cuda",
+                 device_put: Optional[Callable] = None):
         """``prepare_fn(generator, loader_output) -> batch`` maps a loader's
         output to the training batch on the device (crop draw and burst
         synthesis). ``actor_fn(batch) -> (loss, stats)`` is bound to
-        ``net``."""
+        ``net``. ``device_put`` (on the prefetch worker) moves a host
+        batch to the device; None for loaders whose batches are device
+        tensors already or that ``prepare_fn`` transfers."""
         self.device = resolve_device(device)
         self.net = net.to(self.device)
         self.actor_fn = actor_fn
         self.tx = tx
         self.loaders = loaders
         self.prepare_fn = prepare_fn
+        self.device_put = device_put
         self.workspace_dir = workspace_dir
         self.net_name = net_name
         self.header_settings = dict(header_settings or {})
@@ -101,6 +109,10 @@ class Trainer:
         self._retry_salt = 0
         self.stats: Dict[str, StatsDict] = {l.name: StatsDict()
                                             for l in loaders}
+        # per loader, the last cycle's feed: seconds the steps waited on
+        # the prefetch queue, seconds the worker made batches, the cycle's
+        # seconds from its start to its last stats fetched, batches
+        self.feed: Dict[str, Dict[str, float]] = {}
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
@@ -165,23 +177,35 @@ class Trainer:
                     raise MidEpochDivergence(interval_avg,
                                              self._best_train_loss, step)
 
-        for i in range(n):
-            data = loader.batcher.next_batch()
-            if loader.training:
-                step_stats = self.train_step(state, g, data)
-            else:
-                step_stats = self.eval_step(g, data)
-            bs = getattr(loader.batcher, "batch_size", None) or data.shape[0]
-            samples_done += bs
-            pending.append((step_stats, bs))
-            if (i + 1) % self.print_interval == 0 or (i + 1) == n:
-                flush(i + 1)
-                fps = samples_done / (time.perf_counter() - t0)
-                print(f"[{loader.name}: {self.epoch}, {i + 1}/{n}] "
-                      f"FPS: {fps:.1f}, " + ", ".join(
-                          f"{k}: {m.avg:.5f}" for k, m in stats.items()),
-                      flush=True)
-        flush(n)
+        prefetch = DevicePrefetcher(loader.batcher.next_batch, n,
+                                    self.device_put)
+        try:
+            for i, data in enumerate(prefetch):
+                if loader.training:
+                    step_stats = self.train_step(state, g, data)
+                else:
+                    step_stats = self.eval_step(g, data)
+                bs = getattr(loader.batcher, "batch_size", None) \
+                    or data.shape[0]
+                samples_done += bs
+                pending.append((step_stats, bs))
+                if (i + 1) % self.print_interval == 0 or (i + 1) == n:
+                    flush(i + 1)
+                    fps = samples_done / (time.perf_counter() - t0)
+                    print(f"[{loader.name}: {self.epoch}, {i + 1}/{n}] "
+                          f"FPS: {fps:.1f}, " + ", ".join(
+                              f"{k}: {m.avg:.5f}" for k, m in stats.items()),
+                          flush=True)
+            flush(n)
+        finally:
+            # an abandoned cycle (divergence abort, crash) releases the
+            # worker, or a retried epoch's prefetcher would race it for the
+            # batcher's stream
+            prefetch.close()
+            self.feed[loader.name] = {"wait_s": prefetch.wait_s,
+                                      "batch_s": prefetch.batch_s,
+                                      "cycle_s": time.perf_counter() - t0,
+                                      "batches": n}
         return state
 
     def _train_loss_avg(self) -> Optional[float]:

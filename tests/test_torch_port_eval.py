@@ -751,8 +751,9 @@ def test_generator_flags(monkeypatch, tmp_path, capsys):
               "--fused_resample", "--device", "cpu"])
     assert seen[1][0][3] == gen.eval_burst_config(8, True)
     assert seen[1][1]["device"] == "cpu"
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        gen.main(["--source_dir", "imgs", "--out_dir", "d"])
+    gen.main(["--source_dir", "imgs", "--out_dir", "d"])
+    assert seen[2][0][:3] == ("d", 300, None)
+    assert seen[2][1]["source_dir"] == "imgs"
     for argv in (["--out_dir", "d"],
                  ["--source_dir", "i", "--procedural", "2", "--out_dir",
                   "d"]):

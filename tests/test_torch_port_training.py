@@ -284,14 +284,48 @@ def workspace(tmp_path, monkeypatch):
     ({"flow_net": "conv"}, NotImplementedError, "flow_net='conv'"),
     ({"pwc_checkpoint": PWC, "flow_net": "conv"}, NotImplementedError,
      "flow_net='conv'"),
-    ({"compute_dtype": "float16"}, NotImplementedError, "float32"),
-    ({"pwc_checkpoint": ALIGN_LITE, "mix": "mixed"}, NotImplementedError,
-     "dead-leaves")])
+    ({"compute_dtype": "float16"}, NotImplementedError, "float32")])
 def test_training_entry_refuses_what_the_port_does_not_run(
         workspace, overrides, error, match):
     with pytest.raises(error, match=match):
         run_training("dbsr", "default_synthetic", device="cpu", **overrides)
     assert not workspace.exists() or not any(workspace.rglob("*.ckpt"))
+
+
+def test_mixed_pool_reaches_training(workspace, capsys):
+    """``--set mix=mixed``: ``default_synthetic``'s trainer gets the mixed
+    train pool (the val pool stays dead leaves), and a tiny trainer on
+    ``make_data``'s mixed loaders trains an epoch on it, the generator of
+    each chunk the plan's."""
+    from dbsr_tpu_torch.data.procedural import _mix_plan
+    from dbsr_tpu_torch.environment import Settings
+
+    settings = Settings()
+    for k, v in dict(pwc_checkpoint=ALIGN_LITE, mix="mixed", pool_size=64,
+                     steps_per_epoch=2).items():
+        setattr(settings, k, v)
+    trainer, _ = config.make_trainer(settings, device="cpu")
+    train_pool, val_pool = (l.batcher.pool for l in trainer.loaders)
+    assert (train_pool.mix, val_pool.mix) == ("mixed", "deadleaves")
+    assert trainer.device_put is None
+    assert "mix=mixed" in capsys.readouterr().out
+
+    settings.batch_size, settings.pool_size = 2, 6
+    loaders, prepare, put = config.make_data(settings, CFG, 2, "cpu")
+    pool = loaders[0].batcher.pool
+    pool.chunk = 2
+    assert put is None and pool.plan(0) == _mix_plan(3, 0)
+    assert len(set(pool.plan(0))) == 3
+    net = dbsrnet_tiny()
+    t = Trainer(net, make_synthetic_actor(net, boundary_ignore=4),
+                make_optimizer(base_lr=1e-3, steps_per_epoch=2),
+                loaders[:1], prepare, str(workspace), net_name="tiny",
+                device="cpu")
+    state = t.train(1)
+    assert state.step == 2
+    assert np.isfinite(t.stats["train"]["Loss/total"].avg)
+    assert pool._round == 0 and pool.pool.shape == (6,) + CFG.pre_crop_sz \
+        + (3,)
 
 
 def test_training_cli_parses_settings(workspace):
