@@ -274,11 +274,44 @@ the eval entries, ``default_realworld``) or its bf16 default
     ``default_realworld`` trainer timed through the prefetcher; and whether
     the machine has ``g++``, ``jpeglib.h`` and libjpeg (nothing decoded).
 
+17. the serving daemon and the trainer's service layer: (a)
+    ``make_server(load_predictor(flagship, batch_size=8))`` (bf16, the s2d
+    conv kernel) on loopback, ``serve_forever`` on a thread: 64 bursts of
+    a fixed seed posted from 8 client threads (a quarter as uint16 at
+    2^14), each response within 1e-3 of a direct ``Predictor`` call on the
+    same burst (the bit-equal share reported), the launches exactly 14b's
+    per device call; a wrong shape and a body that is not ``.npy`` get
+    400, unknown routes 404, a device call made to fail 503 for every
+    request of its batch, the daemon serving on after it; ``/healthz``'s
+    keys, ``/stats``'s counts exactly those sent, mean occupancy above 1;
+    request ms (p50, p95), bursts/s through HTTP beside the direct
+    forward's (14b's measurement, in this call); then the same bursts from
+    a client process of their own at linger 5 and 20 ms and with
+    TCP_NODELAY (bursts/s, occupancies; what sets the gap); (b) ``python -m
+    dbsr_tpu_torch.run_serving --checkpoint <flagship> --port <free>`` as
+    a subprocess: its "compiled" and "serving on" lines, one request
+    (against (a)'s direct prediction) and ``/healthz``, then SIGINT and a
+    clean exit; (c) ``run_training dbsr default_synthetic`` (bf16,
+    AlignLite frozen, 15b's pool and batch, 5 steps) for one epoch, a
+    params-only artifact of its checkpoint (``save_params_artifact``) in a
+    fresh workspace, the trainer resumed from it: parameters bit-equal,
+    Adam's moments zero and its count 0, ``step`` 5, then 10 after a
+    timed second epoch (exact launches), the last update's rate the
+    schedule's at its step, ``..._ep0002.ckpt`` written; (d) the same
+    trainer with the asynchronous checkpoint writer for two epochs, each
+    save also written synchronously elsewhere at the same moment, epoch
+    1's write held until epoch 2 has stepped: the files byte-equal, the ms
+    the epoch loop paid at each save both ways, the snapshot's bytes and
+    ms; (e) with ``DBSR_TPU_TRACE_DIR`` set, a third epoch of (c)'s
+    workspace at 10 steps: the Chrome trace of steps 5-9 names the port's
+    kernels (at least five steps' launches of each); whether
+    ``tensorboard`` imports, and what ``TensorboardWriter`` wrote.
+
 The second-to-last line is ``{"kernels": [...]}`` (all ten kernels;
 ``launches`` is the count on the entry's own ``path``, whose shapes its
 times are summed over, except the s2d conv's, whose times are one launch's
 and whose path launches it 8 times per forward; ``launches_by_path`` has
-the counts on all twenty-nine paths (``eval``: phase 11's generation and
+the counts on all thirty-two paths (``eval``: phase 11's generation and
 flagship scoring; ``eval_r3d``, ``serving_r3d_3_requests`` and the
 ``pwc_*_step`` paths: PWC-Net's; ``burstsr_eval`` and
 ``burstsr_eval_r3d``: phase 13c's scoring of 3 bursts; ``realworld_step``:
@@ -287,7 +320,9 @@ serving and scoring and phase 15's training steps; phase 16's:
 ``mixed_step_bf16``, ``host_fed_step_bf16``, ``smoke_tiny_step``,
 ``realworld_step_bf16_prefetched`` per step, ``val_source_dir`` its 3
 bursts, ``warp_affine`` one call, whose row is the resample's last
-``other_shapes`` entry);
+``other_shapes`` entry; phase 17's: ``serving_daemon_bf16`` over its 64
+posted bursts, ``resume_params_only_step_bf16`` and
+``async_ckpt_step_bf16`` per step);
 ``device_ms``, ``kernel_device_ms`` and ``library_device_ms`` beside
 ``ms`` and ``library_ms``; the s2d conv's ``bound_ms`` is that of its own
 math, 3xTF32 on the tensor cores, also given as ``tc_bound_ms``, and
@@ -4900,6 +4935,701 @@ def data_phase(dev, workdir, finetune_step_ms):
     return out, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the serving daemon and run_serving; the trainer's service layer
+
+
+DAEMON_BURSTS, DAEMON_CLIENTS, DAEMON_SEED = 64, 8, 17
+DAEMON_LINGER_MS = 5.0
+DAEMON_TOL = CARD_VS_CPU_TOL  # an HTTP response vs a direct Predictor call
+HEALTHZ_KEYS = {"status", "input_shape", "compile_seconds", "flops_per_batch"}
+CLI_TIMEOUT_S = 180  # run_serving's start (load, warm-up) and exit
+SERVICE_STEPS, TRACE_STEPS = BF16_STEPS, 10  # steps an epoch (17c-d; 17e)
+
+
+def _http(port, path, body=None):
+    """``(status, body bytes)`` of a GET (``body`` None) or a POST to the
+    daemon on this machine."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _npy(arr):
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def _from_npy(raw):
+    return np.load(io.BytesIO(raw), allow_pickle=False)
+
+
+# a client in a process of its own (numpy and the standard library only):
+# DAEMON_CLIENTS threads post the bursts of an .npz, write the responses to
+# an .npy and print the seconds from the first post to the last response;
+# with nodelay, each connection sets TCP_NODELAY (no Nagle delay on the
+# body's last segment)
+CLIENT_CODE = r"""
+import http.client, io, socket, sys, threading, time, urllib.request
+import numpy as np
+port, clients, inp, out, nodelay = int(sys.argv[1]), int(sys.argv[2]), \
+    sys.argv[3], sys.argv[4], sys.argv[5] == "1"
+with np.load(inp) as f:
+    bursts = [f[f"arr_{i}"] for i in range(len(f.files))]
+res = [None] * len(bursts)
+def post(body):
+    if not nodelay:
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                     data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.read()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    conn.connect()
+    conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+    conn.request("POST", "/predict", body)
+    r = conn.getresponse()
+    assert r.status == 200, r.status
+    raw = r.read()
+    conn.close()
+    return raw
+def client(c):
+    for i in range(c, len(bursts), clients):
+        buf = io.BytesIO()
+        np.save(buf, bursts[i])
+        res[i] = np.load(io.BytesIO(post(buf.getvalue())))
+threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+wall = time.perf_counter() - t0
+np.save(out, np.stack(res))
+print(wall)
+"""
+
+
+def _client_process(port, sent, workdir, nodelay=False):
+    """``(seconds, responses)`` of ``sent`` posted by CLIENT_CODE's
+    process."""
+    inp = os.path.join(workdir, "daemon_in.npz")
+    out = os.path.join(workdir, "daemon_out.npy")
+    np.savez(inp, *sent)
+    r = subprocess.run([sys.executable, "-c", CLIENT_CODE, str(port),
+                        str(DAEMON_CLIENTS), inp, out, str(int(nodelay))],
+                       capture_output=True, text=True, timeout=300,
+                       check=True)
+    return float(r.stdout.strip().splitlines()[-1]), np.load(out)
+
+
+class _FailOnce:
+    """The daemon's predictor, made to raise on its next call once."""
+
+    def __init__(self, pred):
+        self.pred, self.armed, self.failed_batch = pred, True, None
+
+    def __getattr__(self, name):
+        return getattr(self.pred, name)
+
+    def __call__(self, burst):
+        if self.armed:
+            self.armed, self.failed_batch = False, len(burst)
+            raise RuntimeError("injected device failure")
+        return self.pred(burst)
+
+
+def daemon_phase(dev, requests, workdir):
+    """Phase 17a: ``make_server`` on the banked flagship at batch 8 in bf16
+    (its default, the s2d conv kernel) on loopback: 64 bursts of a fixed
+    seed (a quarter as uint16 at 2^14) from 8 client threads, each response
+    against a direct ``Predictor`` call on the same burst (DAEMON_TOL; the
+    bit-equal share reported), the launches exactly 14b's per device call;
+    400, 404, and 503 for every request of a batch whose device call fails,
+    the daemon serving on after it; ``/healthz``'s keys, ``/stats``'s counts,
+    mean occupancy above 1; request ms (p50, p95), bursts/s through HTTP
+    beside the direct forward's (14b's measurement, ``serve``). Then, to
+    tell what sets the gap, the same 64 bursts from a client process of
+    their own (CLIENT_CODE: the daemon's process then holds only its
+    handler threads and the batcher) at the same linger and at 4x it."""
+    import threading
+
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, load_predictor
+    from dbsr_tpu_torch.serving_daemon import make_server
+
+    pred = load_predictor(FLAGSHIP_CHECKPOINT, batch_size=B, burst_size=N,
+                          burst_hw=(HW, HW), device="cuda")
+    direct = serve("phase 17a, the daemon's predictor called directly", pred,
+                   requests, LAUNCHES_PER_S2D_FORWARD)
+    direct_launches = direct.pop("launches")
+    rng = np.random.RandomState(DAEMON_SEED)
+    bursts = rng.rand(DAEMON_BURSTS, N, HW, HW, 4).astype(np.float32)
+    u16 = np.zeros(DAEMON_BURSTS, bool)
+    u16[::4] = True  # a quarter go as uint16 at 2^14
+    sent = [np.rint(b * 2 ** 14).astype(np.uint16) if q else b
+            for b, q in zip(bursts, u16)]
+    seen = np.stack([s.astype(np.float32) / 2 ** 14 if q else s
+                     for s, q in zip(sent, u16)])
+    want = np.concatenate([pred(seen[i:i + B])
+                           for i in range(0, DAEMON_BURSTS, B)])
+    server = make_server(pred, port=0, linger_ms=DAEMON_LINGER_MS)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        outs, lat = [None] * DAEMON_BURSTS, [None] * DAEMON_BURSTS
+
+        def client(c):
+            for i in range(c, DAEMON_BURSTS, DAEMON_CLIENTS):
+                t0 = time.perf_counter()
+                code, raw = _http(port, "/predict", _npy(sent[i]))
+                lat[i] = time.perf_counter() - t0
+                outs[i] = (code, raw)
+
+        torch.cuda.synchronize()
+        reset_counts()
+        calls0 = len(server.batcher.batch_occupancies)
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(DAEMON_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = read_counts()
+        occ = list(server.batcher.batch_occupancies)[calls0:]
+        if any(t.is_alive() for t in clients):
+            raise AssertionError("17a: a client did not finish")
+        bad = [i for i, (code, _) in enumerate(outs) if code != 200]
+        if bad:
+            raise AssertionError(f"17a: requests {bad} got "
+                                 f"{[outs[i][0] for i in bad]}")
+        got = np.stack([_from_npy(raw) for _, raw in outs])
+        if got.shape != (DAEMON_BURSTS, HW * 8, HW * 8, 3) \
+                or not np.isfinite(got).all():
+            raise AssertionError(f"17a: responses of shape {got.shape}")
+        diff = np.abs(got - want).reshape(DAEMON_BURSTS, -1).max(1)
+        bit_equal = float(np.mean([np.array_equal(a, b)
+                                   for a, b in zip(got, want)]))
+        per_call = {k: v // len(occ) for k, v in launches.items()}
+        want_per_call = {k: LAUNCHES_PER_S2D_FORWARD.get(k, 0)
+                         for k in launches}
+        log(f"17a: {DAEMON_BURSTS} bursts from {DAEMON_CLIENTS} clients in "
+            f"{wall:.3f} s ({DAEMON_BURSTS / wall:.2f} bursts/s through "
+            f"HTTP); {len(occ)} device calls, occupancies {occ}; launches "
+            f"{launches}; max |HTTP - direct| {diff.max():.3e} (limit "
+            f"{DAEMON_TOL}), bit-equal {100 * bit_equal:.1f}% of responses")
+        if diff.max() > DAEMON_TOL:
+            raise AssertionError(f"17a: HTTP vs direct {diff.max()}")
+        if any(launches[k] != want_per_call[k] * len(occ) for k in launches):
+            raise AssertionError(f"17a: launches {launches} over {len(occ)} "
+                                 f"device calls, expected {want_per_call} "
+                                 "each (14b's per forward)")
+        if sum(occ) != DAEMON_BURSTS or not np.mean(occ) > 1:
+            raise AssertionError(f"17a: occupancies {occ}")
+
+        # the client's faults, an unknown route, a failed device call
+        codes = {"wrong_shape": _http(port, "/predict",
+                                      _npy(bursts[0][:, :8]))[0],
+                 "not_npy": _http(port, "/predict", b"not an npy")[0],
+                 "unknown_get": _http(port, "/nowhere")[0],
+                 "unknown_post": _http(port, "/other", _npy(sent[1]))[0]}
+        failing = _FailOnce(pred)
+        server.batcher.predictor = failing
+        fail_codes = [None] * 4
+
+        def fail_client(j):
+            fail_codes[j] = _http(port, "/predict", _npy(sent[j + 1]))[0]
+
+        fails = [threading.Thread(target=fail_client, args=(j,))
+                 for j in range(4)]
+        for t in fails:
+            t.start()
+        for t in fails:
+            t.join(timeout=120)
+        server.batcher.predictor = pred
+        code, raw = _http(port, "/predict", _npy(sent[5]))
+        after = np.abs(_from_npy(raw) - want[5]).max() if code == 200 \
+            else None
+        n503 = fail_codes.count(503)
+        log(f"17a: wrong shape {codes['wrong_shape']}, not .npy "
+            f"{codes['not_npy']}, unknown routes {codes['unknown_get']} / "
+            f"{codes['unknown_post']}; a failed device call of "
+            f"{failing.failed_batch} bursts: codes {fail_codes}; next request "
+            f"{code} (max |diff| {after})")
+        if codes != {"wrong_shape": 400, "not_npy": 400, "unknown_get": 404,
+                     "unknown_post": 404} or n503 != failing.failed_batch \
+                or fail_codes.count(200) != 4 - n503 or code != 200 \
+                or after > DAEMON_TOL:
+            raise AssertionError(f"17a: codes {codes}, {fail_codes} (failed "
+                                 f"batch {failing.failed_batch}), then "
+                                 f"{code}")
+        code, raw = _http(port, "/healthz")
+        health = json.loads(raw)
+        code_s, raw_s = _http(port, "/stats")
+        stats = json.loads(raw_s)
+        # the gap's diagnosis: clients outside the daemon's process, at the
+        # same linger, at 4x it, and with TCP_NODELAY on both ends
+        apart = {}
+        for name, linger, nodelay in (
+                ("linger_5ms", DAEMON_LINGER_MS, False),
+                ("linger_20ms", 4 * DAEMON_LINGER_MS, False),
+                ("linger_5ms_nodelay", DAEMON_LINGER_MS, True)):
+            srv = server if name == "linger_5ms" else make_server(
+                pred, port=0, linger_ms=linger)
+            # StreamRequestHandler's switch for TCP_NODELAY, on this
+            # server's handler class alone
+            srv.RequestHandlerClass.disable_nagle_algorithm = nodelay
+            th = None
+            if srv is not server:
+                th = threading.Thread(target=srv.serve_forever, daemon=True)
+                th.start()
+            try:
+                n0 = len(srv.batcher.batch_occupancies)
+                secs, resp = _client_process(srv.server_address[1], sent,
+                                             workdir, nodelay)
+                o = list(srv.batcher.batch_occupancies)[n0:]
+            finally:
+                if th is not None:
+                    srv.shutdown()
+                    srv.server_close()
+                    srv.batcher.close()
+                    th.join(timeout=30)
+            d = float(np.abs(resp - want).max())
+            apart[name] = dict(bursts_per_s=DAEMON_BURSTS / secs,
+                               occupancies=o, mean_occupancy=float(
+                                   np.mean(o)), max_abs_vs_direct=d)
+            log(f"17a, clients in a process of their own, linger {linger} "
+                f"ms, TCP_NODELAY {nodelay}: {DAEMON_BURSTS / secs:.2f} "
+                f"bursts/s, {len(o)} device calls, occupancies {o}, max "
+                f"|diff| {d:.3e}")
+            if d > DAEMON_TOL or sum(o) != DAEMON_BURSTS:
+                raise AssertionError(f"17a, clients apart: {apart}")
+        n_ok = DAEMON_BURSTS + fail_codes.count(200) + 1
+        n_err = 2 + n503
+        log(f"17a: /healthz {health}; /stats {stats}")
+        if code != 200 or set(health) != HEALTHZ_KEYS \
+                or health["input_shape"] != [B, N, HW, HW, 4] \
+                or not health["compile_seconds"] > 0 \
+                or not health["flops_per_batch"] > 0:
+            raise AssertionError(f"17a: /healthz {code} {health}")
+        if code_s != 200 or stats["requests"] != n_ok \
+                or stats["errors"] != n_err \
+                or not stats["mean_batch_occupancy"] > 1:
+            raise AssertionError(f"17a: /stats {stats}, expected {n_ok} "
+                                 f"requests and {n_err} errors")
+    finally:
+        server.shutdown()
+        server.server_close()
+        server.batcher.close()
+        thread.join(timeout=30)
+    lat_ms = sorted(1e3 * v for v in lat)
+    res = dict(bursts_per_s_http=DAEMON_BURSTS / wall,
+               bursts_per_s_direct=direct["bursts_per_s"],
+               direct=direct, request_ms_p50=stats["latency_p50_ms"],
+               request_ms_p95=stats["latency_p95_ms"],
+               client_ms_p50=lat_ms[len(lat_ms) // 2],
+               client_ms_p95=lat_ms[min(len(lat_ms) - 1,
+                                        int(0.95 * len(lat_ms)))],
+               device_calls=len(occ), occupancies=occ,
+               mean_occupancy=float(np.mean(occ)),
+               launches_per_device_call=per_call,
+               max_abs_vs_direct=float(diff.max()),
+               bit_equal_share=bit_equal, codes=codes,
+               failed_batch=failing.failed_batch, fail_codes=fail_codes,
+               healthz=health, stats=stats, clients_apart=apart,
+               compile_seconds=pred.compile_seconds,
+               flops_per_batch=pred.flops_per_batch)
+    log(f"17a: request ms p50 {res['request_ms_p50']:.2f}, p95 "
+        f"{res['request_ms_p95']:.2f} (the daemon's /stats; at the client "
+        f"{res['client_ms_p50']:.2f}, {res['client_ms_p95']:.2f}); "
+        f"{res['bursts_per_s_http']:.2f} bursts/s through HTTP against "
+        f"{res['bursts_per_s_direct']:.2f} direct at batch {B}; "
+        f"{len(occ)} device calls, {per_call} launches each; warm-up "
+        f"{pred.compile_seconds:.3f} s, {pred.flops_per_batch / 1e9:.1f} "
+        "GFLOP/batch (convs)")
+    if direct_launches != {k: 3 * v for k, v in want_per_call.items()}:
+        raise AssertionError(f"17a: direct launches {direct_launches}")
+    del pred
+    torch.cuda.empty_cache()
+    return res, launches, want[:1], seen[:1]
+
+
+def cli_serving_phase(burst, want):
+    """Phase 17b: ``python -m dbsr_tpu_torch.run_serving --checkpoint
+    <flagship> --port <free>`` as a subprocess: its two lines, one request
+    (against 17a's direct prediction of the burst, DAEMON_TOL) and
+    ``/healthz``, then SIGINT: it must exit with 0."""
+    import queue
+    import signal
+    import socket
+    import threading
+
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dbsr_tpu_torch.run_serving", "--checkpoint",
+         FLAGSHIP_CHECKPOINT, "--port", str(port)], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(line) for line in
+                                              proc.stdout], daemon=True)
+    reader.start()
+    text = []
+    try:
+        while not any(line.startswith("serving on") for line in text):
+            try:
+                text.append(lines.get(timeout=max(
+                    1.0, CLI_TIMEOUT_S - (time.perf_counter() - t0))))
+            except queue.Empty:
+                raise AssertionError(f"17b: no 'serving on' line in "
+                                     f"{CLI_TIMEOUT_S} s: {text}") from None
+            log(f"  | {text[-1].rstrip()}")
+            if proc.poll() is not None and lines.empty():
+                raise AssertionError(f"17b: run_serving exited with "
+                                     f"{proc.returncode}: {text}")
+        start_s = time.perf_counter() - t0
+        code, raw = _http(port, "/predict", _npy(burst))
+        out = _from_npy(raw) if code == 200 else None
+        hcode, hraw = _http(port, "/healthz")
+        health = json.loads(hraw)
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    while not lines.empty():
+        log(f"  | {lines.get().rstrip()}")
+    diff = float(np.abs(out - want).max()) if out is not None else None
+    res = dict(start_s=start_s, returncode=rc, max_abs_vs_direct=diff,
+               compile_seconds=health.get("compile_seconds"),
+               flops_per_batch=health.get("flops_per_batch"),
+               lines=[line.rstrip() for line in text])
+    log(f"17b: run_serving served in {start_s:.1f} s (process start, load, "
+        f"warm-up); request {code}, max |diff| vs 17a's direct {diff}; "
+        f"/healthz compile_seconds {res['compile_seconds']}, "
+        f"flops_per_batch {res['flops_per_batch']}; SIGINT -> exit {rc}")
+    if code != 200 or out.shape != (HW * 8, HW * 8, 3) or diff > DAEMON_TOL \
+            or hcode != 200 or set(health) != HEALTHZ_KEYS or rc != 0 \
+            or not any(line.startswith("compiled") for line in text):
+        raise AssertionError(f"17b: {res}")
+    return res
+
+
+def _service_trainer(dev, steps, **kwargs):
+    """``default_synthetic``'s trainer (bf16, the banked AlignLite frozen,
+    15b's pool and batch) in the workspace of ``DBSR_TPU_WORKSPACE_DIR``."""
+    from dbsr_tpu_torch.configs.dbsr.default_synthetic import make_trainer
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer, _ = make_trainer(_settings(
+            steps_per_epoch=steps, pool_size=128, print_interval=steps,
+            pwc_checkpoint=ALIGN_LITE, **kwargs), dev)
+    return trainer
+
+
+def _leaf_bytes(tree, prefix=""):
+    """``{path: bytes}`` of the arrays of a flax tree."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_leaf_bytes(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v).tobytes()
+    return out
+
+
+def _timed_steps(trainer):
+    """Record CUDA events around each of ``trainer``'s train steps:
+    ``{epoch: [(start, end), ...]}``."""
+    events = defaultdict(list)
+    step = trainer.train_step
+
+    def timed(state, g, data):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(state, g, data)
+        end.record()
+        events[trainer.epoch].append((start, end))
+        return out
+
+    trainer.train_step = timed
+    return events
+
+
+def _step_ms(events):
+    """Median ms of an epoch's steps after its first, which waits for the
+    pool's rendering (once an epoch)."""
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in events[1:])
+
+
+def resume_phase(dev, workdir):
+    """Phase 17c: ``run_training dbsr default_synthetic`` for one epoch of
+    5 steps (bf16, AlignLite frozen, 15b's pool and batch), a params-only
+    artifact of its epoch-1 checkpoint written by ``save_params_artifact``
+    into a fresh workspace, and the trainer resumed from it there: the
+    parameters bit-equal to the artifact's, Adam's moments zero and its
+    count 0, ``step == 5`` at the resume, the learning rate the schedule's
+    at ``step``; the second epoch timed (exact launches per step), ``step
+    == 10`` at its end, ``..._ep0002.ckpt`` written."""
+    from dbsr_tpu_torch.training.checkpoint import (read_checkpoint,
+                                                    resolve_checkpoint,
+                                                    save_params_artifact)
+    from dbsr_tpu_torch.utils.convert import params_to_flax
+
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = os.path.join(workdir, "svc_full")
+    entry_phase("dbsr", "default_synthetic",
+                dict(steps_per_epoch=SERVICE_STEPS, pool_size=128,
+                     print_interval=SERVICE_STEPS, pwc_checkpoint=ALIGN_LITE),
+                (1,), LAUNCHES_PER_BF16_STEP, "dbsr_synthetic")
+    src = resolve_checkpoint(os.path.join(workdir, "svc_full", "dbsr",
+                                          "default_synthetic"),
+                             "dbsr_synthetic", 1)
+    header, tree = read_checkpoint(src)
+    ws = os.path.join(workdir, "svc_resume")
+    art = save_params_artifact(
+        os.path.join(ws, "dbsr", "default_synthetic",
+                     "dbsr_synthetic_ep0001.ckpt"), header,
+        {"params": tree["params"]})
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = ws
+    trainer = _service_trainer(dev, SERVICE_STEPS)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state = trainer._load_latest(trainer.init_state())
+    log(f"  | {buf.getvalue().strip()}")
+    got = _leaf_bytes(params_to_flax(state.net.state_dict()))
+    want = _leaf_bytes(read_checkpoint(art)[1]["params"]["params"])
+    opt = state.opt_state()
+    zero = all(not v.any() for d in (opt["mu"], opt["nu"])
+               for v in d.values())
+    lr = trainer.tx.schedule(state.step)
+    log(f"17c: resumed at epoch {trainer.epoch}, step {state.step}, Adam "
+        f"count {opt['count']}, moments zero {zero}, parameters bit-equal "
+        f"{got == want} ({len(want)} arrays), lr {lr}")
+    if not ("resumed PARAMS-ONLY" in buf.getvalue() and trainer.epoch == 1
+            and state.step == SERVICE_STEPS and opt["count"] == 0 and zero
+            and not state.optimizer.state and got == want):
+        raise AssertionError("17c: the params-only resume")
+    events = _timed_steps(trainer)
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = trainer.train(2)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("17c, the resumed epoch (epoch 2)", counts, SERVICE_STEPS,
+                 LAUNCHES_PER_BF16_STEP)
+    per_step = {k: v // SERVICE_STEPS for k, v in counts.items()}
+    last_lr = state.optimizer.param_groups[0]["lr"]
+    ep2 = resolve_checkpoint(os.path.join(ws, "dbsr", "default_synthetic"),
+                             "dbsr_synthetic")
+    res = dict(_feed(trainer, SERVICE_STEPS), resumed_step=SERVICE_STEPS,
+               resumed_lr=lr, last_lr=last_lr, end_step=state.step)
+    res["step_ms"] = _step_ms(events[2])
+    log(f"17c: epoch 2 {res['ms_per_step']:.2f} ms per step through the "
+        f"prefetcher, {res['wait_ms_per_step']:.2f} of it waiting on the "
+        f"queue (the pool's rendering, once an epoch, over {SERVICE_STEPS} "
+        f"steps); a step {res['step_ms']:.2f} ms (CUDA events, steps 2-"
+        f"{SERVICE_STEPS}); step {state.step} at its end, the last update's "
+        f"lr "
+        f"{last_lr} (schedule at step {state.step - 1}: "
+        f"{trainer.tx.schedule(state.step - 1)}); latest {ep2}")
+    if state.step != 2 * SERVICE_STEPS or not ep2.endswith("_ep0002.ckpt") \
+            or last_lr != trainer.tx.schedule(state.step - 1):
+        raise AssertionError(f"17c: {res}, latest {ep2}")
+    del trainer, state
+    return res, per_step
+
+
+def async_phase(dev, workdir):
+    """Phase 17d: the 17c trainer with the asynchronous writer for two
+    epochs in a fresh workspace; each save also written synchronously to
+    another directory at the same moment; epoch 1's write held until epoch
+    2 has stepped (updating the parameters and Adam's moments in place);
+    each async file byte-equal to its synchronous copy; the ms the loop
+    paid at each save, synchronously and through the writer, and the
+    snapshot's bytes and ms."""
+    import threading
+
+    from dbsr_tpu_torch.training import checkpoint as ckpt
+
+    ws = os.path.join(workdir, "svc_async")
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = ws
+    trainer = _service_trainer(dev, SERVICE_STEPS)
+    trainer._ckpt_writer = ckpt.AsyncCheckpointWriter()
+    copy_dir = os.path.join(workdir, "svc_sync_copy")
+    gate, saves = threading.Event(), []
+    submit, step, save = (trainer._ckpt_writer.submit, trainer.train_step,
+                          trainer._save)
+
+    def held_submit(fn):
+        def late():
+            if not gate.wait(300):
+                raise TimeoutError("epoch 2 never stepped")
+            fn()
+        submit(late)
+
+    def train_step(state, g, data):
+        out = step(state, g, data)
+        if trainer.epoch == 2:
+            gate.set()
+        return out
+
+    def timed_save(state):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(copy_dir, trainer.net_name, trainer.epoch, state,
+                             stats={n: s.averages()
+                                    for n, s in trainer.stats.items()},
+                             settings=trainer.header_settings)
+        t1 = time.perf_counter()
+        save(state)
+        saves.append(dict(sync_ms=(t1 - t0) * 1e3,
+                          async_ms=(time.perf_counter() - t1) * 1e3))
+
+    trainer._ckpt_writer.submit, trainer.train_step = held_submit, train_step
+    trainer._save = timed_save
+    events = _timed_steps(trainer)
+    torch.cuda.synchronize()
+    reset_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        state = trainer.train(2)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check_counts("17d, two epochs with the async writer", counts,
+                 2 * SERVICE_STEPS, LAUNCHES_PER_BF16_STEP)
+    per_step = {k: v // (2 * SERVICE_STEPS) for k, v in counts.items()}
+    equal = {}
+    for e in (1, 2):
+        name = f"dbsr_synthetic_ep{e:04d}.ckpt"
+        with open(os.path.join(ws, "dbsr", "default_synthetic", name),
+                  "rb") as f_async, open(os.path.join(copy_dir, name),
+                                         "rb") as f_sync:
+            a, s = f_async.read(), f_sync.read()
+        equal[e] = a == s
+        if e == 1:
+            first = a
+    differ = first != a
+    # the snapshot alone: what the loop pays before handing a save over
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        contents = ckpt.snapshot_train_state(state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    nbytes = sum(t.numel() * t.element_size() for k in ("params", "mu", "nu")
+                 for t in contents[k].values())
+    del contents
+    res = dict(_feed(trainer, SERVICE_STEPS), saves=saves,
+               async_equals_sync=equal, epochs_differ=differ,
+               snapshot_ms=statistics.median(times), snapshot_bytes=nbytes,
+               file_bytes=len(a), step=state.step)
+    res["step_ms_by_epoch"] = {e: _step_ms(events[e]) for e in (1, 2)}
+    log(f"17d: saves (ms the epoch loop paid: synchronous copy, then "
+        f"through the writer): {saves}; snapshot {res['snapshot_ms']:.2f} ms "
+        f"for {nbytes / 2 ** 20:.1f} MiB of device clones (median of 3); "
+        f"checkpoint {len(a) / 2 ** 20:.1f} MiB; async == sync byte for "
+        f"byte {equal}, epochs 1 and 2 differ {differ}; a step (CUDA "
+        f"events, steps 2-{SERVICE_STEPS}) {res['step_ms_by_epoch'][1]:.2f} "
+        f"ms in epoch 1, {res['step_ms_by_epoch'][2]:.2f} in epoch 2 with "
+        f"epoch 1's write beside it; epoch 2 {res['ms_per_step']:.2f} ms per "
+        f"step through the prefetcher")
+    if not (all(equal.values()) and differ and state.step
+            == 2 * SERVICE_STEPS):
+        raise AssertionError(f"17d: {res}")
+    del trainer, state
+    torch.cuda.empty_cache()
+    return res, per_step
+
+
+def trace_phase(dev, workdir):
+    """Phase 17e: with ``DBSR_TPU_TRACE_DIR`` set, one more epoch (the
+    third, 10 steps) of the 17c workspace: ``maybe_trace``'s steps 5-9
+    leave a Chrome trace that names the port's kernels; whether
+    ``tensorboard`` imports here, and what ``TensorboardWriter`` wrote."""
+    trace_dir = os.path.join(workdir, "traces")
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = os.path.join(workdir, "svc_resume")
+    trainer = _service_trainer(dev, TRACE_STEPS)
+    os.environ["DBSR_TPU_TRACE_DIR"] = trace_dir
+    try:
+        reset_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            trainer.train(3)
+        torch.cuda.synchronize()
+    finally:
+        os.environ.pop("DBSR_TPU_TRACE_DIR")
+    check_counts("17e, a traced epoch", read_counts(), TRACE_STEPS,
+                 LAUNCHES_PER_BF16_STEP)
+    files = sorted(os.listdir(trace_dir))
+    if len(files) != 1 or not files[0].startswith("trace_steps5-9_"):
+        raise AssertionError(f"17e: trace files {files}")
+    path = os.path.join(trace_dir, files[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(bool(re.search(p, n)) for n in names for p in pats)
+             for k, pats in KERNEL_NAMES.items()}
+    wanted = [k for k, v in LAUNCHES_PER_BF16_STEP.items() if v]
+    tb = trainer.tb
+    tb_files = sorted(os.path.relpath(os.path.join(d, f), tb.directory)
+                      for d, _, fs in os.walk(tb.directory) for f in fs) \
+        if tb and os.path.isdir(tb.directory) else []
+    res = dict(trace_mib=os.path.getsize(path) / 2 ** 20,
+               kernel_events=len(names), port_kernels_in_trace=found,
+               tensorboard_imports=bool(tb and tb.available),
+               tensorboard_files=tb_files)
+    log(f"17e: trace {files[0]} ({res['trace_mib']:.1f} MiB, "
+        f"{len(names)} kernel events); the port's kernels in it: {found}; "
+        f"tensorboard imports here: {res['tensorboard_imports']}; "
+        f"TensorboardWriter wrote {tb_files or 'nothing (a no-op)'}")
+    if any(found[k] < 5 * LAUNCHES_PER_BF16_STEP[k] for k in wanted):
+        raise AssertionError(f"17e: kernels in the trace {found}, expected "
+                             f"5 steps of {LAUNCHES_PER_BF16_STEP}")
+    del trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def service_phase(dev, workdir, requests):
+    """Phase 17 a-e. Returns the numbers and the launches of each path."""
+    out, paths = {}, {}
+    log("phase 17a, the serving daemon:")
+    out["daemon"], paths["serving_daemon_bf16"], want, burst = daemon_phase(
+        dev, requests, workdir)
+    log("phase 17b, run_serving:")
+    out["cli"] = cli_serving_phase(burst[0], want[0])
+    log("phase 17c, params-only resume:")
+    out["resume"], paths["resume_params_only_step_bf16"] = resume_phase(
+        dev, workdir)
+    torch.cuda.empty_cache()
+    log("phase 17d, the async checkpoint writer:")
+    out["async"], paths["async_ckpt_step_bf16"] = async_phase(dev, workdir)
+    log("phase 17e, step tracing and TensorBoard:")
+    out["trace"] = trace_phase(dev, workdir)
+    return out, paths
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing to measure")
@@ -5106,6 +5836,14 @@ def main():
             dev, workdir, bf16_training["realworld"]["step"]["step_ms"])
         data["phase_s"] = time.perf_counter() - t0
         log(f"phase 16: {data['phase_s']:.1f} s")
+        torch.cuda.empty_cache()
+
+        # 17. the serving daemon and run_serving; the trainer's service
+        # layer (params-only resume, the async writer, tracing)
+        t0 = time.perf_counter()
+        service, service_paths = service_phase(dev, workdir, requests)
+        service["phase_s"] = time.perf_counter() - t0
+        log(f"phase 17: {service['phase_s']:.1f} s")
     paths = {"train_step": per_step, "pretrain_step": pre_per_step,
              "train_alignment_step":
                  closing["train_alignment"]["launches_per_step"],
@@ -5114,7 +5852,10 @@ def main():
              "realworld_step": rw_paths["realworld_step"],
              **bf16_train_paths,
              **{k: v for k, v in data_paths.items()
-                if k != "val_source_dir"}}
+                if k != "val_source_dir"},
+             "resume_params_only_step_bf16":
+                 service_paths["resume_params_only_step_bf16"],
+             "async_ckpt_step_bf16": service_paths["async_ckpt_step_bf16"]}
     serving_launches = {"serving_3_requests": launches,
                         "serving_s2d_3_requests": s2d.pop("launches"),
                         "serving_r3d_3_requests":
@@ -5130,7 +5871,9 @@ def main():
                             "dbsr_campaign_r5"]["launches"],
                         "burstsr_eval_bf16": bf16_paths["burstsr_eval"],
                         "val_source_dir": data_paths["val_source_dir"],
-                        "warp_affine": warp_affine_counts}
+                        "warp_affine": warp_affine_counts,
+                        "serving_daemon_bf16":
+                            service_paths["serving_daemon_bf16"]}
     for e in results:
         # launches on each driven path: the three serving requests through
         # each decoder and of r3d, the eval protocol (the val set's
@@ -5183,7 +5926,7 @@ def main():
                    closing_the_loop=closing, s2d_decoder=s2d,
                    eval=evaluation, pwc=pwc, realworld=realworld, bf16=bf16,
                    bf16_training=bf16_training,
-                   training_data=data,
+                   training_data=data, service=service,
                    odd_shapes=odd_shapes, build_s=secs,
                    total_s=time.perf_counter() - t_start, card=smi)
     log("summary " + json.dumps(summary))

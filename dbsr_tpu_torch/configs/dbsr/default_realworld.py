@@ -126,7 +126,12 @@ def make_trainer(settings, device="cuda"):
                       seed=getattr(settings, "seed", 0),
                       header_settings={"masked_adam":
                                        not net.encoder.train_alignment},
-                      device=dev)
+                      device=dev,
+                      tensorboard_dir=os.path.join(
+                          settings.env.tensorboard_dir, "dbsr",
+                          "default_realworld"),
+                      description="Fine-tune DBSR on real-world BurstSR "
+                      "bursts with spatial-color-aligned supervision")
     return trainer, restored
 
 

@@ -274,7 +274,13 @@ def make_trainer(settings, device="cuda"):
                       print_interval=settings.print_interval,
                       seed=getattr(settings, "seed", 0),
                       header_settings={"masked_adam": masked}, device=dev,
-                      device_put=device_put)
+                      device_put=device_put,
+                      tensorboard_dir=os.path.join(
+                          settings.env.tensorboard_dir, "dbsr",
+                          "default_synthetic")
+                      if settings.env.tensorboard_dir else None,
+                      description="Default settings for training DBSR "
+                      "models on synthetic bursts (on-device synthesis)")
     return trainer, flow_ckpt
 
 

@@ -63,7 +63,13 @@ def make_trainer(settings, device="cuda"):
     return Trainer(net, actor, tx, loaders, prepare_fn, workspace,
                    net_name=NET_NAME, print_interval=settings.print_interval,
                    seed=getattr(settings, "seed", 0), device=dev,
-                   device_put=device_put)
+                   device_put=device_put,
+                   tensorboard_dir=os.path.join(
+                       settings.env.tensorboard_dir, "pwcnet",
+                       "pretrain_synthetic")
+                   if settings.env.tensorboard_dir else None,
+                   description="PWC-Net pretraining on exact synthetic "
+                   "burst flow labels (EPE loss)")
 
 
 def run(settings, device="cuda"):

@@ -18,17 +18,27 @@ card through the fine-patch conv kernel unless ``DBSR_FINE_PATCH_S2D=0``).
 Its forward turns
 TF32 off for cuDNN convs and matmuls, which PyTorch otherwise lets cuDNN
 use, so that what runs in float32 is float32, and restores the caller's
-settings afterwards.
+settings afterwards; those flags are the process's, so a predictor runs one
+forward at a time. ``Predictor.warm_up()`` runs one forward at the
+serving shape (the kernels' builds at first use, cuDNN's choice of
+algorithms: the counterpart of the JAX package's ahead-of-time compile)
+and records ``compile_seconds`` and ``flops_per_batch``; the serving
+daemon and ``run_serving`` call it before the first request.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
+import time
+from typing import Optional
 
 import numpy as np
 import torch
 
+from dbsr_tpu_torch.models.layers import (ConvBlock, PixShuffleUpsampler,
+                                          TorchConvTranspose)
 from dbsr_tpu_torch.training.checkpoint import load_network
 
 # the banked flagship checkpoint of the JAX package (epoch 60)
@@ -50,9 +60,30 @@ def float32_math():
         cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
+def _conv_macs(module: torch.nn.Module, x: torch.Tensor,
+               y: torch.Tensor) -> int:
+    """Multiply-adds of one call of a conv module: ``ConvBlock`` (fine or
+    s2d: the fine conv's, whatever route computes it), the
+    ``PixShuffleUpsampler``'s 1x1 conv and its depthwise blur, a
+    ``TorchConvTranspose``."""
+    if isinstance(module, ConvBlock):
+        # y has the fine conv's output elements in both layouts
+        w = module.Conv_0.weight
+        return y.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+    if isinstance(module, PixShuffleUpsampler):
+        macs = x[..., :1].numel() * module.Conv_0.weight.shape[0] * \
+            module.Conv_0.weight.shape[1]
+        if module.blur is not None:
+            macs += y.numel() * module.blur[0, 0].numel()
+        return macs
+    w = module.weight  # TorchConvTranspose: [in, out, k, k]
+    return x.numel() * w.shape[1] * w.shape[2] * w.shape[3]
+
+
 class Predictor:
     """Fixed-shape burst-SR predictor: partial batches are padded to
-    ``batch_size``, so every forward runs at one shape."""
+    ``batch_size``, so every forward runs at one shape. One forward runs at
+    a time (a lock), whatever thread calls."""
 
     def __init__(self, net: torch.nn.Module, batch_size: int, burst_size: int,
                  burst_hw, device: torch.device):
@@ -60,14 +91,46 @@ class Predictor:
         self.batch_size = batch_size
         self.in_shape = (batch_size, burst_size) + tuple(burst_hw) + (4,)
         self.device = device
+        # set by warm_up: the wall seconds of one forward at in_shape (the
+        # first, with the kernels' builds and cuDNN's set-up), and
+        # 2 x the multiply-adds of one batch's convs and transposed convs
+        # (the correlation, warp, merge and elementwise work not counted;
+        # the JAX package's figure is XLA's cost analysis of the whole
+        # program, another count)
+        self.compile_seconds: Optional[float] = None
+        self.flops_per_batch: Optional[float] = None
+        self._lock = threading.Lock()
 
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The network's prediction for a burst tensor already on the
         predictor's device, float32 (its float32 math with TF32 off), not
         clipped."""
-        with float32_math():
+        with self._lock, float32_math():
             return self.net(x)[0]
+
+    def warm_up(self) -> "Predictor":
+        """One forward of zeros at ``in_shape``, synchronised: sets
+        ``compile_seconds`` to its wall time and ``flops_per_batch`` to the
+        convs' count, taken by forward hooks on the conv modules."""
+        macs = []
+        hooks = [m.register_forward_hook(
+            lambda m, args, y: macs.append(_conv_macs(m, args[0], y)))
+            for m in self.net.modules()
+            if isinstance(m, (ConvBlock, PixShuffleUpsampler,
+                              TorchConvTranspose))]
+        x = torch.zeros(self.in_shape, device=self.device)
+        try:
+            t0 = time.perf_counter()
+            self.forward(x)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.compile_seconds = time.perf_counter() - t0
+        finally:
+            for h in hooks:
+                h.remove()
+        self.flops_per_batch = 2.0 * sum(macs)
+        return self
 
     @torch.inference_mode()
     def __call__(self, burst) -> np.ndarray:

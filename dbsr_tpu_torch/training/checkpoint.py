@@ -1,5 +1,5 @@
 """Checkpoints of the JAX package's format, read and written by the port
-(port of ``dbsr_tpu/training/checkpoint.py:77-101,198-299``).
+(port of ``dbsr_tpu/training/checkpoint.py:77-299``).
 
 A checkpoint is ``b"DBSRTPU1"``, a little-endian ``uint64`` header length,
 a JSON header (epoch, net_name, stats, settings, ``net_spec``), then a flax
@@ -15,7 +15,11 @@ The port writes ``{"params": {"params": <flax tree>}, "opt_state": {"count",
 "mu", "nu"}, "step"}``: the parameters in the JAX package's layout (its
 ``load_network`` rebuilds and runs a port-trained net from the ``net_spec``),
 and the port's own Adam moments under the same flax paths (the trainable
-parameters only).
+parameters only). A params-only artifact (:func:`save_params_artifact`) is
+the same container with ``params_only`` in its header and the parameters
+alone: graft and eval material, from which a trainer resumes with a fresh
+Adam. :class:`AsyncCheckpointWriter` writes checkpoints on a thread of its
+own.
 """
 
 from __future__ import annotations
@@ -23,8 +27,10 @@ from __future__ import annotations
 import glob
 import json
 import os
+import queue
 import re
 import struct
+import threading
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -286,23 +292,122 @@ def network_spec(net) -> Dict[str, Any]:
     return {"module": module, "cls": cls, "kwargs": kwargs}
 
 
+def snapshot_train_state(state) -> Dict[str, Any]:
+    """What :func:`write_train_state` writes of a ``training.state.TrainState``:
+    the network's spec, its parameters, Adam's moments and count, and the
+    step, the tensors cloned on their device in stream order now: a write
+    that runs later reads these, not the live tensors, which the next steps
+    update in place."""
+    opt = state.opt_state()
+    params, mu, nu = ({k: v.detach().clone() for k, v in d.items()}
+                      for d in (state.net.state_dict(), opt["mu"], opt["nu"]))
+    return {"net_spec": network_spec(state.net), "params": params, "mu": mu,
+            "nu": nu, "count": int(opt["count"]), "step": int(state.step)}
+
+
+def write_train_state(directory: str, net_name: str, epoch: int,
+                      contents: Dict[str, Any], stats: Optional[dict] = None,
+                      settings: Optional[dict] = None) -> str:
+    """Atomically write ``<directory>/<net_name>_ep{epoch:04d}.ckpt`` from
+    :func:`snapshot_train_state`."""
+    header = {"epoch": int(epoch), "net_name": net_name,
+              "stats": stats or {}, "settings": settings or {},
+              "net_spec": contents["net_spec"]}
+    tree = {"params": {"params": params_to_flax(contents["params"])},
+            "opt_state": {"count": contents["count"],
+                          "mu": params_to_flax(contents["mu"]),
+                          "nu": params_to_flax(contents["nu"])},
+            "step": contents["step"]}
+    return write_checkpoint(
+        os.path.join(directory, f"{net_name}_ep{epoch:04d}.ckpt"), header,
+        tree)
+
+
 def save_checkpoint(directory: str, net_name: str, epoch: int, state,
                     stats: Optional[dict] = None,
                     settings: Optional[dict] = None) -> str:
     """Atomically write ``<directory>/<net_name>_ep{epoch:04d}.ckpt`` from a
     ``training.state.TrainState``: parameters, Adam moments and step."""
-    header = {"epoch": int(epoch), "net_name": net_name,
-              "stats": stats or {}, "settings": settings or {},
-              "net_spec": network_spec(state.net)}
-    opt = state.opt_state()
-    tree = {"params": {"params": params_to_flax(state.net.state_dict())},
-            "opt_state": {"count": int(opt["count"]),
-                          "mu": params_to_flax(opt["mu"]),
-                          "nu": params_to_flax(opt["nu"])},
-            "step": int(state.step)}
-    return write_checkpoint(
-        os.path.join(directory, f"{net_name}_ep{epoch:04d}.ckpt"), header,
-        tree)
+    return write_train_state(directory, net_name, epoch,
+                             snapshot_train_state(state), stats, settings)
+
+
+def save_params_artifact(path: str, src_header: dict, tree: Any) -> str:
+    """Write a params-only checkpoint (the JAX package's
+    ``save_params_artifact``): the same container, the header's epoch,
+    net_name, stats, settings and net_spec with ``params_only: true``, and
+    ``tree`` (``{"params": <flax parameter tree>}``) as the blob. Small
+    enough to keep in git; a trainer resumes from it with a fresh Adam
+    (``Trainer._resume_params_only``), :func:`load_train_state` refuses
+    it."""
+    header = {k: src_header[k] for k in
+              ("epoch", "net_name", "stats", "settings", "net_spec")
+              if k in src_header}
+    header["params_only"] = True
+    return write_checkpoint(path, header, tree)
+
+
+class AsyncCheckpointWriter:
+    """Checkpoint writes on a thread of their own (the JAX package's writer):
+    the epoch loop hands a save over and trains on while the state's copy
+    to the host, its encoding and the disk write run here.
+
+    A save must carry its own copy of the state
+    (:func:`snapshot_train_state`): the port's Adam updates
+    the parameters and moments in place, so a write that read ``state``
+    when it ran would save a later epoch's values. Every reader of the
+    checkpoints in the trainer (resume, rollback) calls :meth:`flush`
+    first. A write's error surfaces at the next :meth:`submit` or
+    :meth:`flush`. Depth-1 queue: at most one save waits behind the one
+    being written."""
+
+    def __init__(self):
+        self._q: "queue.Queue" = queue.Queue(maxsize=1)
+        self._err: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="ckpt-writer")
+        self._thread.start()
+
+    def _run(self):
+        while True:
+            fn = self._q.get()
+            if fn is None:
+                self._q.task_done()
+                return
+            try:
+                fn()
+            except Exception as e:  # surfaced on the training thread
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def _raise_if_failed(self):
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise RuntimeError("async checkpoint write failed") from err
+
+    def submit(self, fn) -> None:
+        self._raise_if_failed()
+        self._q.put(fn)
+
+    def flush(self, raise_on_error: bool = True) -> None:
+        """Block until every submitted save is on disk or has failed.
+        ``raise_on_error=False`` logs a failed write instead of raising: the
+        rollbacks call it so, and then resume from the last epoch that did
+        land."""
+        self._q.join()
+        if raise_on_error:
+            self._raise_if_failed()
+        elif self._err is not None:
+            err, self._err = self._err, None
+            print(f"WARNING: async checkpoint write failed ({err!r}); "
+                  "resuming from the last successfully written epoch",
+                  flush=True)
+
+    def close(self) -> None:
+        self.flush()
+        self._q.put(None)
+        self._thread.join()
 
 
 def list_checkpoints(directory: str, net_name: str) -> List[Tuple[int, str]]:
@@ -334,8 +439,15 @@ def resolve_checkpoint(directory: str, net_name: str,
 def load_train_state(path: str, state) -> dict:
     """Restore ``state`` (a ``training.state.TrainState``) in place from a
     checkpoint that :func:`save_checkpoint` wrote: parameters, Adam moments
-    and the step. Returns the header."""
+    and the step. Returns the header. A params-only artifact raises
+    ``ValueError``, as the JAX package's ``load_checkpoint`` with a
+    template does."""
     header, tree = read_checkpoint(path)
+    if header.get("params_only"):
+        raise ValueError(
+            f"{path} is a params-only artifact (graft/eval material, no "
+            "optimizer state): cannot restore a train state from it; the "
+            "trainer resumes from it with a fresh Adam")
     state.net.load_state_dict(params_from_flax(tree["params"]), strict=True)
     opt = tree["opt_state"]
     state.load_opt_state({"mu": params_from_flax(opt["mu"]),

@@ -58,7 +58,11 @@ def make_optimizer(base_lr: float = 1e-4, step_size_epochs: int = 40,
 
 
 class TrainState:
-    """The network, its Adam and ``step``, the number of updates applied."""
+    """The network, its Adam, ``step`` (the updates applied; the learning
+    rate's schedule reads it) and ``count`` (the updates Adam's moments have
+    seen, optax's ``count``). The two differ after a resume from a
+    params-only checkpoint, which fast-forwards ``step`` and starts a fresh
+    Adam."""
 
     def __init__(self, net: torch.nn.Module, optimizer: torch.optim.Adam,
                  tx: Adam):
@@ -66,6 +70,7 @@ class TrainState:
         self.optimizer = optimizer
         self.tx = tx
         self.step = 0
+        self.count = 0
 
     def trainable(self) -> Dict[str, torch.nn.Parameter]:
         return {k: p for k, p in self.net.named_parameters()
@@ -86,6 +91,7 @@ class TrainState:
             group["lr"] = lr
         self.optimizer.step()
         self.step += 1
+        self.count += 1
 
     def opt_state(self) -> Dict[str, object]:
         """Adam's moments by parameter name (zeros before the first update)
@@ -95,10 +101,11 @@ class TrainState:
             st = self.optimizer.state.get(p, {})
             mu[k] = st.get("exp_avg", torch.zeros_like(p))
             nu[k] = st.get("exp_avg_sq", torch.zeros_like(p))
-        return {"mu": mu, "nu": nu, "count": self.step}
+        return {"mu": mu, "nu": nu, "count": self.count}
 
     def load_opt_state(self, opt: Dict[str, object], step: int) -> None:
-        """Restore the moments of :meth:`opt_state` and the step."""
+        """Restore the moments and count of :meth:`opt_state` and the
+        step."""
         self.optimizer.state.clear()
         if opt["count"] > 0:
             for k, p in self.trainable().items():
@@ -106,4 +113,5 @@ class TrainState:
                     "step": torch.tensor(float(opt["count"])),
                     "exp_avg": opt["mu"][k].to(p.device, p.dtype).clone(),
                     "exp_avg_sq": opt["nu"][k].to(p.device, p.dtype).clone()}
+        self.count = int(opt["count"])
         self.step = int(step)

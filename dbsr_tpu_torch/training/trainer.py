@@ -1,7 +1,9 @@
 """Trainer: train and eval steps with on-device synthesis, the epoch loop
-with divergence guards and fail-safe restart, per-epoch checkpoints and
-resume (port of ``dbsr_tpu/training/trainer.py:71-541``; no mesh, no
-asynchronous checkpoint writer, no TensorBoard).
+with divergence guards and fail-safe restart, per-epoch checkpoints
+(written on a thread of their own with ``async_checkpoint``), resume (also
+from a params-only checkpoint), TensorBoard scalars per epoch and
+``DBSR_TPU_TRACE_DIR`` step traces (port of
+``dbsr_tpu/training/trainer.py:71-541``; no mesh).
 
 One train step is: prepare (the loader's pool -> crop draw and burst
 synthesis on the device) -> forward -> loss -> ``backward`` -> Adam, under
@@ -30,8 +32,11 @@ from dbsr_tpu_torch.data.procedural import make_generator
 from dbsr_tpu_torch.models.layers import init_params
 from dbsr_tpu_torch.serving import float32_math
 from dbsr_tpu_torch.training import checkpoint as ckpt
+from dbsr_tpu_torch.training.profiling import maybe_trace
 from dbsr_tpu_torch.training.state import Adam, TrainState
 from dbsr_tpu_torch.training.stats import StatsDict
+from dbsr_tpu_torch.training.tblogger import TensorboardWriter
+from dbsr_tpu_torch.utils.convert import params_from_flax
 
 
 def is_divergent(loss_avg: Optional[float], best: Optional[float],
@@ -78,20 +83,25 @@ class Trainer:
     # or one print interval's above 3x, rolls back (None turns one off)
     divergence_factor: Optional[float] = 1.4
     intra_divergence_factor: Optional[float] = 3.0
-    max_failures = 10  # rollbacks and crash restarts before giving up
 
     def __init__(self, net: torch.nn.Module, actor_fn: Callable, tx: Adam,
                  loaders: List[LoaderSpec], prepare_fn: Callable,
                  workspace_dir: str, net_name: str = "dbsr",
                  print_interval: int = 50, seed: int = 0,
                  header_settings: Optional[dict] = None, device="cuda",
-                 device_put: Optional[Callable] = None):
+                 device_put: Optional[Callable] = None,
+                 async_checkpoint: bool = False,
+                 tensorboard_dir: Optional[str] = None,
+                 description: str = ""):
         """``prepare_fn(generator, loader_output) -> batch`` maps a loader's
         output to the training batch on the device (crop draw and burst
         synthesis). ``actor_fn(batch) -> (loss, stats)`` is bound to
         ``net``. ``device_put`` (on the prefetch worker) moves a host
         batch to the device; None for loaders whose batches are device
-        tensors already or that ``prepare_fn`` transfers."""
+        tensors already or that ``prepare_fn`` transfers.
+        ``async_checkpoint`` writes each epoch's checkpoint on a thread
+        of its own while the next epoch trains; ``tensorboard_dir`` logs
+        each epoch's averages there (a no-op without ``tensorboard``)."""
         self.device = resolve_device(device)
         self.net = net.to(self.device)
         self.actor_fn = actor_fn
@@ -113,6 +123,13 @@ class Trainer:
         # the prefetch queue, seconds the worker made batches, the cycle's
         # seconds from its start to its last stats fetched, batches
         self.feed: Dict[str, Dict[str, float]] = {}
+        self._ckpt_writer = ckpt.AsyncCheckpointWriter() \
+            if async_checkpoint else None
+        self.tb = TensorboardWriter(tensorboard_dir,
+                                    [l.name for l in loaders]) \
+            if tensorboard_dir else None
+        if self.tb:
+            self.tb.write_info(net_name, description)
 
     # ------------------------------------------------------------------
     def init_state(self) -> TrainState:
@@ -181,10 +198,11 @@ class Trainer:
                                     self.device_put)
         try:
             for i, data in enumerate(prefetch):
-                if loader.training:
-                    step_stats = self.train_step(state, g, data)
-                else:
-                    step_stats = self.eval_step(g, data)
+                with maybe_trace(i):
+                    if loader.training:
+                        step_stats = self.train_step(state, g, data)
+                    else:
+                        step_stats = self.eval_step(g, data)
                 bs = getattr(loader.batcher, "batch_size", None) \
                     or data.shape[0]
                 samples_done += bs
@@ -217,27 +235,70 @@ class Trainer:
             return float(self.stats[loader.name]["Loss/total"].avg)
         return None
 
-    def save(self, state: TrainState) -> str:
+    def _save(self, state: TrainState) -> None:
         stats = {name: s.averages() for name, s in self.stats.items()}
-        return ckpt.save_checkpoint(self.workspace_dir, self.net_name,
-                                    self.epoch, state, stats=stats,
-                                    settings=self.header_settings)
+        epoch, settings = self.epoch, dict(self.header_settings)
+        # a write on the writer's thread runs while the next steps update
+        # the parameters and Adam's moments in place: it gets copies taken
+        # now, in stream order after this epoch's last step
+        contents = ckpt.snapshot_train_state(state)
+
+        def write():
+            ckpt.write_train_state(self.workspace_dir, self.net_name, epoch,
+                                   contents, stats=stats, settings=settings)
+
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.submit(write)
+        else:
+            write()
 
     def _load_latest(self, state: TrainState) -> TrainState:
+        if self._ckpt_writer is not None:
+            # never resolve a half-landed epoch; a failed write is logged,
+            # not raised: this runs inside the fail-safe's handlers, and
+            # the rollback resumes from the last epoch that did land
+            self._ckpt_writer.flush(raise_on_error=False)
         path = ckpt.resolve_checkpoint(self.workspace_dir, self.net_name)
         if path is None:
             return state
+        if ckpt.read_header(path).get("params_only"):
+            return self._resume_params_only(path, state)
         header = ckpt.load_train_state(path, state)
         self.epoch = int(header["epoch"])
         print(f"resumed from {path} (epoch {self.epoch}, step {state.step})",
               flush=True)
         return state
 
+    def _resume_params_only(self, path: str, state: TrainState) -> TrainState:
+        """Resume from a params-only checkpoint dropped into the workspace
+        (a banked best seeded back after the full checkpoints were lost):
+        the parameters grafted at their recorded epoch, a fresh Adam (zero
+        moments, count 0), and ``step`` fast-forwarded to ``epoch x`` the
+        training loaders' most batches, so that the StepLR schedule, which
+        reads ``step`` here, resumes on its rung. (The JAX package's
+        schedule is optax's and reads Adam's count, which such a resume
+        restarts at 0.)"""
+        header, tree = ckpt.read_checkpoint(path)
+        state.net.load_state_dict(params_from_flax(tree["params"]),
+                                  strict=True)
+        self.epoch = int(header["epoch"])
+        steps_per_epoch = max(
+            (l.num_batches() for l in self.loaders if l.training), default=0)
+        state.step = self.epoch * steps_per_epoch
+        print(f"resumed PARAMS-ONLY from {path} (epoch {self.epoch}, fresh "
+              f"optimizer state, step fast-forwarded to {state.step})",
+              flush=True)
+        return state
+
     # ------------------------------------------------------------------
-    def train(self, max_epochs: int) -> TrainState:
-        """Epoch loop from the latest checkpoint, with checkpoints,
-        divergence rollback and crash restart."""
-        state = self._load_latest(self.init_state())
+    def train(self, max_epochs: int, load_latest: bool = True,
+              fail_safe: bool = True, max_failures: int = 10) -> TrainState:
+        """Epoch loop from the latest checkpoint (unless ``load_latest`` is
+        False), with checkpoints, divergence rollback and crash restart
+        (``fail_safe``; at most ``max_failures`` rollbacks and restarts)."""
+        state = self.init_state()
+        if load_latest:
+            state = self._load_latest(state)
 
         failures = 0
         while self.epoch < max_epochs:
@@ -250,7 +311,7 @@ class Trainer:
                 if is_divergent(loss_avg, self._best_train_loss,
                                 self.divergence_factor):
                     failures += 1
-                    if failures > self.max_failures:
+                    if failures > max_failures:
                         raise RuntimeError(
                             f"diverged at epoch {self.epoch} (train loss "
                             f"{loss_avg} vs best {self._best_train_loss}) "
@@ -261,7 +322,7 @@ class Trainer:
                           f"{self.divergence_factor}); NOT checkpointing -- "
                           "rolling back to the last good checkpoint with a "
                           f"reseeded stream (failure {failures}/"
-                          f"{self.max_failures})", flush=True)
+                          f"{max_failures})", flush=True)
                     self._retry_salt += 1
                     self.epoch -= 1
                     state = self._load_latest(self.init_state())
@@ -270,27 +331,40 @@ class Trainer:
                     self._best_train_loss = loss_avg \
                         if self._best_train_loss is None \
                         else min(self._best_train_loss, loss_avg)
-                self.save(state)
+                self._save(state)
+                if self.tb:
+                    for loader in self.loaders:
+                        if self.epoch % loader.epoch_interval == 0:
+                            self.tb.write_epoch(
+                                loader.name,
+                                self.stats[loader.name].averages(),
+                                self.epoch)
             except MidEpochDivergence as e:
+                if not fail_safe:
+                    raise
                 failures += 1
-                if failures > self.max_failures:
+                if failures > max_failures:
                     raise
                 print(f"Mid-epoch divergence at epoch {self.epoch}: {e}; "
                       "aborting the cycle -- rolling back to the last good "
                       "checkpoint with a reseeded stream (failure "
-                      f"{failures}/{self.max_failures})", flush=True)
+                      f"{failures}/{max_failures})", flush=True)
                 self._retry_salt += 1
                 self.epoch -= 1
                 state = self._load_latest(self.init_state())
             except Exception:
+                if not fail_safe:
+                    raise
                 failures += 1
-                if failures > self.max_failures:
+                if failures > max_failures:
                     raise
                 print(f"Training crashed at epoch {self.epoch}; restarting "
                       f"from the last checkpoint (failure {failures}/"
-                      f"{self.max_failures})", flush=True)
+                      f"{max_failures})", flush=True)
                 print(traceback.format_exc(), flush=True)
                 self.epoch -= 1
                 state = self._load_latest(self.init_state())
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.flush()
         print("Finished training!", flush=True)
         return state
