@@ -307,11 +307,32 @@ the eval entries, ``default_realworld``) or its bf16 default
     kernels (at least five steps' launches of each); whether
     ``tensorboard`` imports, and what ``TensorboardWriter`` wrote.
 
+18. data parallelism, multi-device serving, frame sharding, the PNG
+    loaders: (a) two ranks on ``cuda:0`` over gloo (NCCL refuses two ranks
+    on one card), spawned, each holding 8 rows of the node's B=16: one
+    float32 ``default_synthetic`` step (the banked AlignLite frozen, the
+    s2d decoder) against the same step in this process (loss within 1e-5
+    relative, the all-reduced gradients within 1e-3 of their norm), five
+    bf16 steps (losses within 2e-2, both ranks' parameters bit-equal after
+    them, each rank's launches 15b's per step), ms a step a rank (two
+    processes sharing one card: not a speed claim); (b) ``DBSR_TPU_DIST=1
+    python -m torch.distributed.run --standalone --nproc_per_node=1 -m
+    dbsr_tpu_torch.run_training dbsr smoke_tiny``: exit 0, the group on
+    ``nccl``, rank 0's checkpoints of both epochs; (c)
+    ``load_predictor(flagship, devices=["cuda:0", "cuda:0"])``, bf16,
+    batch 8: within relative L2 2e-2 of one device, twice 14b's launches
+    a call; (d) on (a)'s ranks, the flagship's forward with its 14 frames
+    sharded over the two (``dbsr_apply_frame_sharded``), float32, against
+    the dense forward (1e-3); (e) the native IO library built here (or
+    why not), the path ``read_png`` takes, ``load_burst`` of 14 png16
+    frames bit-equal to png16 and ms a burst by each path, BurstSR's
+    reader ms a burst through ``read_png`` and through png16.
+
 The second-to-last line is ``{"kernels": [...]}`` (all ten kernels;
 ``launches`` is the count on the entry's own ``path``, whose shapes its
 times are summed over, except the s2d conv's, whose times are one launch's
 and whose path launches it 8 times per forward; ``launches_by_path`` has
-the counts on all thirty-two paths (``eval``: phase 11's generation and
+the counts on all thirty-five paths (``eval``: phase 11's generation and
 flagship scoring; ``eval_r3d``, ``serving_r3d_3_requests`` and the
 ``pwc_*_step`` paths: PWC-Net's; ``burstsr_eval`` and
 ``burstsr_eval_r3d``: phase 13c's scoring of 3 bursts; ``realworld_step``:
@@ -322,7 +343,9 @@ serving and scoring and phase 15's training steps; phase 16's:
 bursts, ``warp_affine`` one call, whose row is the resample's last
 ``other_shapes`` entry; phase 17's: ``serving_daemon_bf16`` over its 64
 posted bursts, ``resume_params_only_step_bf16`` and
-``async_ckpt_step_bf16`` per step);
+``async_ckpt_step_bf16`` per step; phase 18's: ``dp_step_bf16_rank`` per
+step of one rank, ``serving_2_replicas_bf16`` one call of two replicas,
+``frame_sharded_forward_rank`` one rank's forward);
 ``device_ms``, ``kernel_device_ms`` and ``library_device_ms`` beside
 ``ms`` and ``library_ms``; the s2d conv's ``bound_ms`` is that of its own
 math, 3xTF32 on the tensor cores, also given as ``tc_bound_ms``, and
@@ -4890,20 +4913,26 @@ def prefetched_finetune_phase(dev, step_ms):
 
 
 def native_io_facts():
-    """Whether this machine has what the port's JPEG binding builds with:
-    ``g++``, libjpeg's header and library (nothing is built or decoded)."""
+    """Whether this machine has what the port's native IO library builds
+    with: ``g++``, zlib's and libjpeg's headers and libraries (nothing is
+    built or decoded here; phase 18e builds it)."""
     import ctypes.util
     import shutil
 
-    heads = [p for p in ("/usr/include/jpeglib.h",
-                         "/usr/local/include/jpeglib.h",
-                         "/usr/include/x86_64-linux-gnu/jpeglib.h")
-             if os.path.exists(p)]
+    def found(header):
+        return [p for p in (f"/usr/include/{header}",
+                            f"/usr/local/include/{header}",
+                            f"/usr/include/x86_64-linux-gnu/{header}")
+                if os.path.exists(p)]
+
+    heads, zheads = found("jpeglib.h"), found("zlib.h")
     facts = dict(gxx=shutil.which("g++"), jpeglib_h=heads,
-                 libjpeg=ctypes.util.find_library("jpeg"))
-    log(f"native JPEG build prerequisites on this machine: g++ "
+                 libjpeg=ctypes.util.find_library("jpeg"), zlib_h=zheads,
+                 libz=ctypes.util.find_library("z"))
+    log(f"native IO build prerequisites on this machine: g++ "
         f"{facts['gxx'] or 'absent'}; jpeglib.h {heads or 'absent'}; "
-        f"libjpeg {facts['libjpeg'] or 'absent'}")
+        f"libjpeg {facts['libjpeg'] or 'absent'}; zlib.h "
+        f"{zheads or 'absent'}; libz {facts['libz'] or 'absent'}")
     return facts
 
 
@@ -5630,6 +5659,376 @@ def service_phase(dev, workdir, requests):
     return out, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 18: data parallelism, multi-device serving, frame sharding, the PNG
+# loaders
+
+DP_RANKS = 2          # gloo ranks on cuda:0: NCCL refuses two ranks on a card
+DP_STEPS = 5          # bf16 steps of 18a
+DP_LOSS_RTOL = LOSS_RTOL              # float32: 2 ranks vs 1 process, 1e-5
+FS_B = 2              # bursts of the frame-sharded forward (18d)
+FS_TOL = CARD_VS_CPU_TOL              # frame-sharded vs dense forward, 1e-3
+PNG_SHAPES = ((N, HW, HW, 4), (N, 256, 256, 4))  # 18e's png16 bursts
+PNG_REPS = 5
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_trainer(dev, compute_dtype):
+    """``default_synthetic``'s trainer at full width with its s2d decoder,
+    the banked AlignLite grafted and frozen, a pool of one node batch
+    (B=16), in ``compute_dtype``."""
+    from dbsr_tpu_torch.configs.dbsr.default_synthetic import (
+        graft_alignment_params, make_trainer)
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        trainer, flow = make_trainer(_settings(
+            steps_per_epoch=DP_STEPS, pool_size=TRAIN_B, batch_size=TRAIN_B,
+            print_interval=DP_STEPS, pwc_checkpoint=ALIGN_LITE,
+            compute_dtype=compute_dtype), dev)
+    state = trainer.init_state()
+    graft_alignment_params(trainer.net, flow)
+    return trainer, state
+
+
+def _dp_steps(trainer, state, n):
+    """``n`` train steps on the trainer's first pool batch and cycle stream:
+    the losses (the ranks' mean, as the trainer reduces its stats) and the
+    CUDA events of each step."""
+    from dbsr_tpu_torch.parallel import multihost
+
+    g = trainer.cycle_generator(trainer.loaders[0])
+    pool = trainer.loaders[0].batcher.next_batch()
+    losses, events = [], []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        stats = trainer.train_step(state, g, pool)
+        end.record()
+        loss = stats["Loss/total"].float().reshape(1).clone()
+        multihost.all_reduce_mean_([loss])
+        losses.append(loss.item())
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return losses, [s.elapsed_time(e) for s, e in events]
+
+
+def _dp_rank(rank, port, workdir):
+    """One of 18a's and 18d's two gloo ranks on ``cuda:0`` (spawned): a
+    float32 step and five bf16 steps of ``default_synthetic`` at the node's
+    B=16 (8 rows here), then the flagship's frame-sharded forward; what it
+    saw goes to ``workdir``."""
+    import torch.distributed as dist
+    from dbsr_tpu_torch.parallel import multihost
+    from dbsr_tpu_torch.parallel.frame_sharding import \
+        dbsr_apply_frame_sharded
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, float32_math
+    from dbsr_tpu_torch.training.checkpoint import load_network
+
+    multihost.maybe_initialize_distributed(
+        init_method=f"tcp://127.0.0.1:{port}", world_size=DP_RANKS,
+        rank=rank, backend="gloo", local_rank=0, device_type="cuda",
+        timeout_s=300)
+    dev = torch.device("cuda", 0)
+    out = {"backend": dist.get_backend(),
+           "slice": multihost.process_local_batch_slice(TRAIN_B)}
+    trainer, state = _dp_trainer(dev, "float32")
+    out["f32_loss"], _ = _dp_steps(trainer, state, 1)
+    if rank == 0:
+        torch.save({k: p.grad.cpu() for k, p in state.trainable().items()},
+                   os.path.join(workdir, "dp_f32_grads.pt"))
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    trainer, state = _dp_trainer(dev, "bfloat16")
+    reset_counts()
+    out["bf16_losses"], out["bf16_step_ms"] = _dp_steps(trainer, state,
+                                                        DP_STEPS)
+    out["counts"] = read_counts()
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.save({k: v.cpu() for k, v in trainer.net.state_dict().items()},
+               os.path.join(workdir, f"dp_bf16_params{rank}.pt"))
+    del trainer, state
+    torch.cuda.empty_cache()
+
+    net, _ = load_network(FLAGSHIP_CHECKPOINT, device=dev, dtype=None)
+    burst = torch.from_numpy(np.random.RandomState(18).rand(
+        FS_B, N, HW, HW, 4).astype(np.float32)).to(dev)
+    with float32_math():
+        reset_counts()
+        pred = dbsr_apply_frame_sharded(net, burst)
+        torch.cuda.synchronize()
+        out["fs_counts"] = read_counts()
+        out["fs_ms"] = cuda_ms(lambda: dbsr_apply_frame_sharded(net, burst),
+                               1, 5)
+    if rank == 0:
+        torch.save(pred.cpu(), os.path.join(workdir, "fs_pred.pt"))
+    torch.save(out, os.path.join(workdir, f"dp_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _grad_gap(got, want):
+    """``||got - want|| / ||want||`` over all the gradients, and the worst
+    tensor's own."""
+    num = sum(float((got[k].double() - want[k].double()).pow(2).sum())
+              for k in want)
+    den = sum(float(want[k].double().pow(2).sum()) for k in want)
+    worst = max(want, key=lambda k: float(
+        (got[k].double() - want[k].double()).norm()
+        / (want[k].double().norm() + 1e-30)))
+    rel = float((got[worst].double() - want[worst].double()).norm()
+                / (want[worst].double().norm() + 1e-30))
+    return math.sqrt(num / den), worst, rel
+
+
+def dp_phase(dev, workdir):
+    """18a and 18d: two gloo ranks on ``cuda:0``, spawned, against the same
+    work in this process. 18a: one float32 ``default_synthetic`` step at
+    B=16 (the loss within 1e-5 relative, the reduced gradients within 1e-3
+    of their norm), five bf16 steps (the losses within 2e-2, both ranks'
+    parameters bit-equal, each rank's launches 15b's per step), the ms of a
+    step on each rank (two processes sharing one card: not a speed claim).
+    18d: the flagship's forward with its 14 frames over the 2 ranks,
+    float32, against the dense forward (1e-3)."""
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, float32_math
+    from dbsr_tpu_torch.training.checkpoint import load_network
+
+    root = os.path.join(workdir, "dp")
+    os.makedirs(root, exist_ok=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    torch.multiprocessing.spawn(_dp_rank, args=(_free_port(), root),
+                                nprocs=DP_RANKS, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(root, f"dp_rank{r}.pt"))
+             for r in range(DP_RANKS)]
+    log(f"18a: {DP_RANKS} ranks ({ranks[0]['backend']}, slices "
+        f"{[r['slice'] for r in ranks]}) ran in {spawn_s:.1f} s")
+
+    out = {"spawn_s": spawn_s, "backend": ranks[0]["backend"]}
+    trainer, state = _dp_trainer(dev, "float32")
+    (loss1,), _ = _dp_steps(trainer, state, 1)
+    grads1 = {k: p.grad.cpu() for k, p in state.trainable().items()}
+    del trainer, state
+    torch.cuda.empty_cache()
+    grads2 = torch.load(os.path.join(root, "dp_f32_grads.pt"))
+    loss2 = ranks[0]["f32_loss"][0]
+    gap, worst, worst_rel = _grad_gap(grads2, grads1)
+    log(f"18a float32 step, B={TRAIN_B}: loss {loss2:.8f} on {DP_RANKS} "
+        f"ranks vs {loss1:.8f} in one process; gradients {gap:.3e} of their "
+        f"norm apart (worst tensor {worst}: {worst_rel:.3e})")
+    if abs(loss2 - loss1) > DP_LOSS_RTOL * abs(loss1) or gap > GRAD_TOL \
+            or ranks[1]["f32_loss"] != ranks[0]["f32_loss"]:
+        raise AssertionError("18a: the data-parallel float32 step departs")
+    out["f32"] = dict(loss_ranks=loss2, loss_one=loss1, grad_rel=gap,
+                      worst=worst, worst_rel=worst_rel)
+
+    trainer, state = _dp_trainer(dev, "bfloat16")
+    losses1, ms1 = _dp_steps(trainer, state, DP_STEPS)
+    del trainer, state
+    torch.cuda.empty_cache()
+    p0, p1 = (torch.load(os.path.join(root, f"dp_bf16_params{r}.pt"))
+              for r in range(DP_RANKS))
+    unequal = [k for k in p0 if not torch.equal(p0[k], p1[k])]
+    losses2 = ranks[0]["bf16_losses"]
+    log(f"18a bf16, {DP_STEPS} steps: losses {losses2} on {DP_RANKS} ranks "
+        f"vs {losses1} in one process; the ranks' parameters bit-equal: "
+        f"{not unequal} ({len(p0)} tensors)")
+    if unequal or any(abs(a - b) > BF16_STEP_LOSS_RTOL * abs(b)
+                      for a, b in zip(losses2, losses1)):
+        raise AssertionError(f"18a bf16: losses {losses2} vs {losses1}; "
+                             f"unequal tensors {unequal[:5]}")
+    for r, res in enumerate(ranks):
+        check_counts(f"18a rank {r}", res["counts"], DP_STEPS,
+                     LAUNCHES_PER_BF16_STEP)
+    step_ms = [statistics.median(r["bf16_step_ms"][1:]) for r in ranks]
+    one_ms = statistics.median(ms1[1:])
+    log(f"18a bf16 step, ms a step a rank (CUDA events, steps 2-{DP_STEPS}, "
+        f"two processes sharing one card over gloo: not a speed claim): "
+        f"{step_ms}; one process at B={TRAIN_B}: {one_ms:.2f}")
+    out["bf16"] = dict(losses_ranks=losses2, losses_one=losses1,
+                       step_ms_by_rank=step_ms, step_ms_one=one_ms,
+                       peak_gib_by_rank=[r["peak_gib"] for r in ranks],
+                       params_bit_equal=True)
+
+    net, _ = load_network(FLAGSHIP_CHECKPOINT, device=dev, dtype=None)
+    burst = torch.from_numpy(np.random.RandomState(18).rand(
+        FS_B, N, HW, HW, 4).astype(np.float32)).to(dev)
+    with float32_math(), torch.no_grad():
+        dense = net(burst)[0]
+        dense_ms = cuda_ms(lambda: net(burst), 1, 5)
+    sharded = torch.load(os.path.join(root, "fs_pred.pt"))
+    err = float((sharded - dense.cpu()).abs().max())
+    log(f"18d frame-sharded forward, {N} frames over {DP_RANKS} ranks, "
+        f"B={FS_B}, float32: max |sharded - dense| {err:.3e}; "
+        f"{[r['fs_ms'] for r in ranks]} ms a forward a rank (two processes "
+        f"on one card, three gloo all-reduces) vs {dense_ms:.2f} dense; "
+        f"launches a rank {ranks[0]['fs_counts']}")
+    if not err <= FS_TOL or sharded.shape != dense.shape:
+        raise AssertionError(f"18d: frame-sharded vs dense {err}")
+    out["frame_sharded"] = dict(max_abs=err, ms_by_rank=[
+        r["fs_ms"] for r in ranks], dense_ms=dense_ms)
+    del net
+    torch.cuda.empty_cache()
+    paths = {"dp_step_bf16_rank": {k: v // DP_STEPS for k, v in
+                                   ranks[0]["counts"].items()},
+             "frame_sharded_forward_rank": ranks[0]["fs_counts"]}
+    return out, paths
+
+
+def nccl_cli_phase(workdir):
+    """18b: ``DBSR_TPU_DIST=1 python -m torch.distributed.run --standalone
+    --nproc_per_node=1 -m dbsr_tpu_torch.run_training dbsr smoke_tiny``:
+    exit 0, the group on ``nccl``, rank 0's checkpoints written."""
+    from dbsr_tpu_torch.training.checkpoint import list_checkpoints
+
+    ws = os.path.join(workdir, "nccl_cli")
+    env = dict(os.environ, DBSR_TPU_DIST="1", DBSR_TPU_WORKSPACE_DIR=ws)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node=1", "-m", "dbsr_tpu_torch.run_training", "dbsr",
+         "smoke_tiny"], env=env, capture_output=True, text=True,
+        timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in res.stdout.splitlines():
+        log(f"  | {line}")
+    ckpts = [e for e, _ in list_checkpoints(
+        os.path.join(ws, "dbsr", "smoke_tiny"), "smoke")]
+    log(f"18b: rc {res.returncode} in {wall:.1f} s; checkpoints {ckpts}")
+    if res.returncode != 0 or "process group: backend nccl, rank 0 of 1" \
+            not in res.stdout or ckpts != [1, 2]:
+        raise AssertionError(f"18b: rc {res.returncode}, checkpoints "
+                             f"{ckpts}: {res.stderr[-2000:]}")
+    return dict(rc=res.returncode, wall_s=wall, checkpoints=ckpts)
+
+
+def multi_device_serving_phase(requests):
+    """18c: ``load_predictor(flagship, devices=["cuda:0", "cuda:0"])`` in
+    bf16 at batch 8 (two replicas of 4 bursts each) against the one-device
+    predictor (relative L2 within bf16's 2e-2); each call twice 14b's
+    launches per forward; bursts/s of both."""
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, load_predictor
+
+    kw = dict(batch_size=B, burst_size=N, burst_hw=(HW, HW))
+    one = load_predictor(FLAGSHIP_CHECKPOINT, device="cuda", **kw)
+    two = load_predictor(FLAGSHIP_CHECKPOINT, devices=["cuda:0", "cuda:0"],
+                         **kw)
+    want = one(requests[0])
+    reset_counts()
+    got = two(requests[0])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rel = _rel_l2(torch.from_numpy(got), torch.from_numpy(want))
+    expect = {k: 2 * LAUNCHES_PER_S2D_FORWARD.get(k, 0) for k in counts}
+    times = {}
+    for name, pred in (("one", one), ("two", two)):
+        pred(requests[0])
+        t = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            pred(requests[0])
+            t.append(time.perf_counter() - t0)
+        times[name] = B / statistics.median(t)
+    log(f"18c: 2 replicas on cuda:0, bf16, batch {B}: relative L2 {rel:.3e} "
+        f"against one device; launches {counts}; bursts/s {times['two']:.2f} "
+        f"(one device {times['one']:.2f})")
+    if rel > BF16_REL_L2 or counts != expect or got.shape != want.shape:
+        raise AssertionError(f"18c: rel L2 {rel}, launches {counts} vs "
+                             f"{expect}")
+    del one, two
+    torch.cuda.empty_cache()
+    return dict(rel_l2=rel, bursts_per_s=times["two"],
+                bursts_per_s_one=times["one"]), counts
+
+
+def png_phase(workdir):
+    """18e: the native IO library built on this machine (or why not), the
+    path ``read_png`` takes; ``load_burst`` of 14 png16 frames (the val
+    set's [48, 48, 4] and [256, 256, 4], uint16) bit-equal to png16, ms a
+    burst by each path; BurstSR's reader (phase 13's tree) ms a burst
+    through ``read_png`` and through png16."""
+    from dbsr_tpu_torch.data.burstsr import get_burstsr_val_set
+    from dbsr_tpu_torch.utils import native_io, png16
+
+    facts = dict(native=native_io.native_available(),
+                 jpeg=native_io.jpeg_available(),
+                 png_path=native_io.png_path(), error=native_io._error,
+                 jpeg_error=(native_io._jpeg_error or "")[:300] or None)
+    log(f"18e: native IO library {'built' if facts['native'] else 'absent'}"
+        f" (JPEG half {'built' if facts['jpeg'] else 'absent'}); read_png "
+        f"takes {facts['png_path']}; {facts['error'] or ''}"
+        f"{facts['jpeg_error'] or ''}")
+    out = dict(facts=facts, bursts={})
+    rng = np.random.RandomState(18)
+    for shape in PNG_SHAPES:
+        d = os.path.join(workdir, "png18", f"{shape[1]}")
+        os.makedirs(d, exist_ok=True)
+        frames = rng.randint(0, 2 ** 14, shape).astype(np.uint16)
+        paths = [os.path.join(d, f"im_raw_{i:02d}.png") for i in range(N)]
+        for p, f in zip(paths, frames):
+            png16.write_png(p, f)
+        got = native_io.load_burst(paths)
+        py = np.stack([png16.read_png(p) for p in paths])
+        if not (np.array_equal(got, frames) and np.array_equal(py, frames)):
+            raise AssertionError(f"18e: load_burst {shape} not bit-equal")
+
+        def ms(fn):
+            t = []
+            for _ in range(PNG_REPS):
+                t0 = time.perf_counter()
+                fn()
+                t.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(t)
+
+        row = dict(load_burst_ms=ms(lambda: native_io.load_burst(paths)),
+                   png16_ms=ms(lambda: [png16.read_png(p) for p in paths]))
+        log(f"18e: {N} png16 frames of {list(shape[1:])}: load_burst "
+            f"({facts['png_path']}) {row['load_burst_ms']:.2f} ms a burst, "
+            f"png16 {row['png16_ms']:.2f} ms")
+        out["bursts"][str(list(shape[1:]))] = row
+    val = get_burstsr_val_set(os.environ["DBSR_TPU_BURSTSR_DIR"])
+
+    def reader_ms():
+        t = []
+        for i in range(len(val)):
+            t0 = time.perf_counter()
+            val[i]
+            t.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(t)
+
+    out["burstsr_reader_ms"] = reader_ms()
+    saved = native_io._lib, native_io._error
+    native_io._lib, native_io._error = None, "forced png16 (18e)"
+    try:
+        out["burstsr_reader_png16_ms"] = reader_ms()
+    finally:
+        native_io._lib, native_io._error = saved
+    log(f"18e: BurstSR's reader, {len(val)} val bursts of phase 13's tree: "
+        f"{out['burstsr_reader_ms']:.2f} ms a burst through read_png "
+        f"({facts['png_path']}), {out['burstsr_reader_png16_ms']:.2f} "
+        f"through png16")
+    return out
+
+
+def parallel_phase(dev, workdir, requests):
+    """Phase 18: 18a and 18d (``dp_phase``), 18b, 18c, 18e."""
+    t0 = time.perf_counter()
+    out, paths = dp_phase(dev, workdir)
+    out["nccl_cli"] = nccl_cli_phase(workdir)
+    out["serving_2_replicas"], paths["serving_2_replicas_bf16"] = \
+        multi_device_serving_phase(requests)
+    out["png"] = png_phase(workdir)
+    out["phase_s"] = time.perf_counter() - t0
+    return out, paths
+
+
 def main():
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing to measure")
@@ -5844,6 +6243,11 @@ def main():
         service, service_paths = service_phase(dev, workdir, requests)
         service["phase_s"] = time.perf_counter() - t0
         log(f"phase 17: {service['phase_s']:.1f} s")
+
+        # 18. data parallelism (two gloo ranks on the card; the CLI under
+        # NCCL), multi-device serving, frame sharding, the PNG loaders
+        parallel, parallel_paths = parallel_phase(dev, workdir, requests)
+        log(f"phase 18: {parallel['phase_s']:.1f} s")
     paths = {"train_step": per_step, "pretrain_step": pre_per_step,
              "train_alignment_step":
                  closing["train_alignment"]["launches_per_step"],
@@ -5855,7 +6259,8 @@ def main():
                 if k != "val_source_dir"},
              "resume_params_only_step_bf16":
                  service_paths["resume_params_only_step_bf16"],
-             "async_ckpt_step_bf16": service_paths["async_ckpt_step_bf16"]}
+             "async_ckpt_step_bf16": service_paths["async_ckpt_step_bf16"],
+             "dp_step_bf16_rank": parallel_paths["dp_step_bf16_rank"]}
     serving_launches = {"serving_3_requests": launches,
                         "serving_s2d_3_requests": s2d.pop("launches"),
                         "serving_r3d_3_requests":
@@ -5873,7 +6278,11 @@ def main():
                         "val_source_dir": data_paths["val_source_dir"],
                         "warp_affine": warp_affine_counts,
                         "serving_daemon_bf16":
-                            service_paths["serving_daemon_bf16"]}
+                            service_paths["serving_daemon_bf16"],
+                        "serving_2_replicas_bf16":
+                            parallel_paths["serving_2_replicas_bf16"],
+                        "frame_sharded_forward_rank":
+                            parallel_paths["frame_sharded_forward_rank"]}
     for e in results:
         # launches on each driven path: the three serving requests through
         # each decoder and of r3d, the eval protocol (the val set's
@@ -5927,6 +6336,7 @@ def main():
                    eval=evaluation, pwc=pwc, realworld=realworld, bf16=bf16,
                    bf16_training=bf16_training,
                    training_data=data, service=service,
+                   parallel=parallel,
                    odd_shapes=odd_shapes, build_s=secs,
                    total_s=time.perf_counter() - t_start, card=smi)
     log("summary " + json.dumps(summary))

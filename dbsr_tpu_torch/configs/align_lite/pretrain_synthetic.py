@@ -40,6 +40,7 @@ def make_trainer(settings, device="cuda"):
     from dbsr_tpu_torch.training.trainer import Trainer
 
     settings.batch_size = getattr(settings, "batch_size", None) or 16
+    settings.multi_device = getattr(settings, "multi_device", True)
     settings.print_interval = getattr(settings, "print_interval", 100)
     steps_per_epoch = getattr(settings, "steps_per_epoch", 1000)
 
@@ -63,6 +64,7 @@ def make_trainer(settings, device="cuda"):
     return Trainer(net, actor, tx, loaders, prepare_fn, workspace,
                    net_name=NET_NAME, print_interval=settings.print_interval,
                    seed=getattr(settings, "seed", 0), device=dev,
+                   data_parallel=settings.multi_device,
                    device_put=device_put,
                    tensorboard_dir=os.path.join(
                        settings.env.tensorboard_dir, "align_lite",

@@ -18,7 +18,12 @@ restored parameters); a val pass on the val split every 4 epochs. A fresh
 of the restored parameters.
 
 The batches are made on the host (``BurstBatcher``, numpy); ``prepare_fn``
-only copies them to the device. Settings read (``--set K=V``):
+only copies them to the device. Under data parallelism each rank reads its
+rows of the node's batch and the gradients are averaged over the ranks: the
+loss's gradient is then the mean of the ranks' masked means, each over its
+own valid pixels, where the JAX package's data mesh takes one masked mean
+over the whole batch (the two differ as far as the ranks' valid shares
+differ). Settings read (``--set K=V``):
 ``batch_size``, ``crop_sz``, ``burst_sz``, ``sr_factor`` (4: the ground
 truth is 4x the flat RAW), ``steps_per_epoch``, ``epochs``,
 ``print_interval``, ``seed``.
@@ -36,7 +41,9 @@ import torch
 class BurstBatcher:
     """Stacks ``batch_size`` consecutive samples of a burst sampler into a
     batch ``{"burst": [B, N, h, w, 4], "frame_gt": [B, H, W, 3]}`` of
-    numpy arrays."""
+    numpy arrays. Under data parallelism every rank of a node advances the
+    sampler's stream over the whole batch and reads only its own rows
+    (the sampler's ``skip`` for the others)."""
 
     def __init__(self, sampler, batch_size: int):
         self.sampler = sampler
@@ -47,9 +54,16 @@ class BurstBatcher:
         return max(1, len(self.sampler) // self.batch_size)
 
     def next_batch(self):
+        from dbsr_tpu_torch.parallel.multihost import \
+            process_local_batch_slice
+        lo, n = process_local_batch_slice(self.batch_size)
         samples = []
-        for _ in range(self.batch_size):
-            samples.append(self.sampler[self._idx % len(self.sampler)])
+        for j in range(self.batch_size):
+            idx = self._idx % len(self.sampler)
+            if lo <= j < lo + n:
+                samples.append(self.sampler[idx])
+            else:
+                self.sampler.skip(idx)
             self._idx += 1
         return {"burst": np.stack([s["burst"] for s in samples]),
                 "frame_gt": np.stack([s["frame_gt"] for s in samples])}
@@ -127,6 +141,7 @@ def make_trainer(settings, device="cuda"):
                       header_settings={"masked_adam":
                                        not net.encoder.train_alignment},
                       device=dev,
+                      data_parallel=getattr(settings, "multi_device", True),
                       tensorboard_dir=os.path.join(
                           settings.env.tensorboard_dir, "dbsr",
                           "default_realworld"),
@@ -142,12 +157,18 @@ def run(settings, device="cuda"):
     from dbsr_tpu_torch.training.checkpoint import (resolve_checkpoint,
                                                     save_checkpoint)
 
+    from dbsr_tpu_torch.parallel.multihost import barrier
+
     trainer, restored = make_trainer(settings, device)
-    if resolve_checkpoint(trainer.workspace_dir, trainer.net_name) is None:
+    fresh = resolve_checkpoint(trainer.workspace_dir,
+                               trainer.net_name) is None
+    barrier()  # every rank has looked before rank 0 writes
+    if fresh:
         state = trainer.init_state()
         trainer.net.load_state_dict(restored, strict=True)
-        save_checkpoint(trainer.workspace_dir, trainer.net_name, 0, state,
-                        settings=trainer.header_settings)
+        if trainer.is_main:
+            save_checkpoint(trainer.workspace_dir, trainer.net_name, 0, state,
+                            settings=trainer.header_settings)
         print("warm start: the restored parameters saved as the epoch-0 "
               "checkpoint", flush=True)
     return trainer.train(getattr(settings, "epochs", 40))

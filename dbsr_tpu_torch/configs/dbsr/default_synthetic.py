@@ -41,21 +41,31 @@ Settings read (``--set K=V``): ``batch_size``, ``epochs``,
 from __future__ import annotations
 
 import os
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 
-def make_crop_prepare_fn(cfg) -> Callable:
+def make_crop_prepare_fn(cfg, batch_size: Optional[int] = None) -> Callable:
     """``prepare(generator, crops) -> batch`` for host-made source crops
     already on the device: uint8 -> float32 / 255 (float crops as they
-    are), then burst synthesis (``synthesize_batch`` with ``cfg``)."""
-    from dbsr_tpu_torch.data.synthetic import synthesize_batch
+    are), then burst synthesis (``synthesize_batch`` with ``cfg``). With
+    ``batch_size`` (the node's batch) the synthesis draws are those of the
+    whole batch, cut to this rank's rows (the loader made its crops
+    only)."""
+    from dbsr_tpu_torch.data.synthetic import (rgb2rawburst_from_draws,
+                                               sample_draws,
+                                               synthesize_batch)
+    from dbsr_tpu_torch.parallel.multihost import local_rows
 
     def prepare(generator, crops):
         crops = crops.float() / 255.0 if crops.dtype == torch.uint8 \
             else crops.float()
-        return synthesize_batch(generator, crops, cfg)
+        if batch_size is None:
+            return synthesize_batch(generator, crops, cfg)
+        draws = local_rows(sample_draws(generator, batch_size, cfg),
+                           batch_size)
+        return rgb2rawburst_from_draws(crops, draws, cfg)
 
     return prepare
 
@@ -95,7 +105,8 @@ def make_data(settings, cfg, steps_per_epoch: int, device,
             LoaderSpec("val", batcher("test", val_batches, seed + 1),
                        training=False, epoch_interval=val_interval),
         ]
-        return loaders, make_crop_prepare_fn(cfg), pinned_device_put(device)
+        return loaders, make_crop_prepare_fn(cfg, B), \
+            pinned_device_put(device)
 
     from dbsr_tpu_torch.data.procedural import (ProceduralImagePool,
                                                 ProceduralPoolBatcher,
@@ -213,6 +224,7 @@ def make_trainer(settings, device="cuda"):
     from dbsr_tpu_torch.training.trainer import Trainer
 
     settings.batch_size = getattr(settings, "batch_size", None) or 16
+    settings.multi_device = getattr(settings, "multi_device", True)
     settings.print_interval = getattr(settings, "print_interval", 50)
     steps_per_epoch = getattr(settings, "steps_per_epoch", 1000)
 
@@ -274,6 +286,7 @@ def make_trainer(settings, device="cuda"):
                       print_interval=settings.print_interval,
                       seed=getattr(settings, "seed", 0),
                       header_settings={"masked_adam": masked}, device=dev,
+                      data_parallel=settings.multi_device,
                       device_put=device_put,
                       tensorboard_dir=os.path.join(
                           settings.env.tensorboard_dir, "dbsr",
@@ -292,13 +305,18 @@ def run(settings, device="cuda"):
     from dbsr_tpu_torch.training.checkpoint import (resolve_checkpoint,
                                                     save_checkpoint)
 
+    from dbsr_tpu_torch.parallel.multihost import barrier
+
     trainer, flow_ckpt = make_trainer(settings, device)
-    if flow_ckpt is not None and resolve_checkpoint(
-            trainer.workspace_dir, trainer.net_name) is None:
+    fresh = flow_ckpt is not None and resolve_checkpoint(
+        trainer.workspace_dir, trainer.net_name) is None
+    barrier()  # every rank has looked before rank 0 writes
+    if fresh:
         state = trainer.init_state()
         graft_alignment_params(trainer.net, flow_ckpt)
-        save_checkpoint(trainer.workspace_dir, trainer.net_name, 0, state,
-                        settings=trainer.header_settings)
+        if trainer.is_main:
+            save_checkpoint(trainer.workspace_dir, trainer.net_name, 0, state,
+                            settings=trainer.header_settings)
         print("grafted pretrained flow weights into encoder/alignment_net "
               "(saved as epoch-0 checkpoint)", flush=True)
     return trainer.train(getattr(settings, "epochs", 100))

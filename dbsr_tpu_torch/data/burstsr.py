@@ -16,7 +16,9 @@ channels-last outputs).
   scaled by the exposure ratio (exposure x ISO / F^2), optional noise.
 * ``IndexedBurstSampler``, ``RandomBurstSampler``, ``get_burstsr_val_set``.
 
-PNGs are read with the port's ``utils/png16.py``. The samplers draw from
+PNGs are read with ``utils/native_io.read_png`` (the native decoder, else
+the port's pure-Python ``utils/png16.py``), as the JAX package reads them.
+The samplers draw from
 ``np.random.default_rng(seed)`` in the JAX package's order (frame ids,
 then the crop, then the flips), so the same seed gives the same samples,
 bit for bit. EXIF is read from plain dicts (``{"exposure", "f_number",
@@ -33,7 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from dbsr_tpu_torch.ops.raw import flatten_raw_image, pack_raw_image
-from dbsr_tpu_torch.utils.png16 import read_png
+from dbsr_tpu_torch.utils.native_io import read_png
 
 _SPEC_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data_specs")
@@ -274,6 +276,12 @@ class BurstSRDataset:
     def _burst_dir(self, burst_id: int) -> str:
         return os.path.join(self.root, self.split, self.burst_list[burst_id])
 
+    def get_frame_shape(self, burst_id: int, im_id: int) -> Tuple[int, int]:
+        """``(h, w)`` of a burst frame from its PNG's header alone."""
+        from dbsr_tpu_torch.data.datasets import image_size
+        return image_size(os.path.join(self._burst_dir(burst_id),
+                                       f"samsung_{im_id:02d}", "im_raw.png"))
+
     def get_burst(self, burst_id: int, im_ids: Sequence[int],
                   info: Optional[dict] = None):
         d = self._burst_dir(burst_id)
@@ -382,6 +390,25 @@ class BurstSRProcessing:
                 "meta_info_burst": burst_meta, "meta_info_gt": gt_meta,
                 "exp_scale_factor": exp_scale}
 
+    def skip(self, frame_hw: Tuple[int, int], n_frames: int,
+             rng: np.random.Generator) -> None:
+        """:meth:`__call__`'s draws, in its order, for ``n_frames`` frames of
+        ``frame_hw``, without the images."""
+        H, W = frame_hw
+        if W != self.crop_sz:
+            if self.random_crop:
+                rng.integers(0, H - self.crop_sz + 1)
+                rng.integers(0, W - self.crop_sz + 1)
+            H = W = self.crop_sz
+        if self.random_flip:
+            rng.random()
+            rng.random()
+        if self.noise_level is not None:
+            rng.uniform(np.log(self.noise_level[0]),
+                        np.log(self.noise_level[1]))
+            rng.normal(0, 0.26)
+            rng.normal(size=(n_frames, H, W, 4))
+
 
 class IndexedBurstSampler:
     """Bursts in order, with frame-id selection: frame 0 is the reference
@@ -419,6 +446,15 @@ class IndexedBurstSampler:
         out["burst_name"] = info["burst_name"]
         return out
 
+    def skip(self, index: int) -> None:
+        """:meth:`__getitem__`'s draws without reading the burst (a
+        data-parallel rank's other rows): the frame ids, then the
+        processing's draws, on the size in the first frame's header."""
+        info = self.dataset.get_burst_info(index)
+        ids = self._select_ids(info["burst_size"])
+        self.processing.skip(self.dataset.get_frame_shape(index, ids[0]),
+                             len(ids), self.rng)
+
 
 class RandomBurstSampler(IndexedBurstSampler):
     """Random bursts for training: each item draws its burst, then as
@@ -436,6 +472,9 @@ class RandomBurstSampler(IndexedBurstSampler):
     def __getitem__(self, index: int) -> dict:
         idx = int(self.rng.integers(0, len(self.dataset)))
         return super().__getitem__(idx)
+
+    def skip(self, index: int) -> None:
+        super().skip(int(self.rng.integers(0, len(self.dataset))))
 
 
 def get_burstsr_val_set(root: str) -> IndexedBurstSampler:

@@ -2,13 +2,15 @@
 channels-last numpy arrays: the single-image datasets that synthetic
 training and val-set generation draw source images from (``ZurichRAW2RGB``,
 ``ImageFolder``), and the SyntheticBurstVal reader and writer, the
-pre-generated validation set of the synthetic protocol, PNGs through the
-port's ``utils/png16.py``.
+pre-generated validation set of the synthetic protocol, PNGs through
+``utils/native_io.read_png`` (the native decoder, else the port's
+``utils/png16.py``), as the JAX package reads them.
 
 Source images load as uint8 RGB ``[H, W, 3]``: JPEGs through the native
 libjpeg decoder (``utils/native_io.py``), else PIL where it is installed;
-PNGs through ``png16``; anything else through PIL. A file nothing here can
-decode raises an error that names what is missing.
+PNGs through ``native_io.read_png`` (png16 for what the native decoder
+refuses, a palette or interlaced file); anything else through PIL. A file
+nothing here can decode raises an error that names what is missing.
 
 Sets this writer (or the JAX package's) made carry a ``format.json``
 marker and hold RGB channel order; sets without it were written by OpenCV,
@@ -25,7 +27,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from dbsr_tpu_torch.utils.png16 import read_png, write_png
+from dbsr_tpu_torch.utils.native_io import read_png
+from dbsr_tpu_torch.utils.png16 import write_png
 
 _SCALE = 2 ** 14  # uint16 PNGs hold values in [0, 1] at this scale
 
@@ -43,7 +46,11 @@ def _pil_rgb(path: str, why: str) -> np.ndarray:
 def _png_rgb(path: str) -> np.ndarray:
     """An 8-bit PNG as RGB, as PIL's ``convert("RGB")`` gives it: grey
     repeated, alpha dropped."""
-    im = read_png(path)
+    try:
+        im = read_png(path)
+    except ValueError:  # the native decoder's refusal: png16 says why
+        from dbsr_tpu_torch.utils.png16 import read_png as py_read
+        im = py_read(path)
     if im.dtype != np.uint8:
         raise ValueError(f"{path}: a {im.dtype.itemsize * 8}-bit PNG; source "
                          "images are 8-bit")
@@ -71,6 +78,35 @@ def _load_image(path: str) -> np.ndarray:
             return _pil_rgb(path, str(e))
     return _pil_rgb(path, f"no decoder of the port reads "
                           f"{os.path.splitext(path)[1] or 'this file'}")
+
+
+def image_size(path: str):
+    """``(H, W)`` of a PNG, JPEG or BMP from its header alone (the draws of
+    a data-parallel rank's other rows need the size, not the pixels);
+    another file is decoded."""
+    with open(path, "rb") as f:
+        head = f.read(26)
+        if head[:8] == b"\x89PNG\r\n\x1a\n":
+            return (int.from_bytes(head[20:24], "big"),
+                    int.from_bytes(head[16:20], "big"))
+        if head[:2] == b"BM":
+            return (abs(int.from_bytes(head[22:26], "little", signed=True)),
+                    int.from_bytes(head[18:22], "little", signed=True))
+        if head[:2] == b"\xff\xd8":
+            f.seek(2)
+            while True:
+                marker = f.read(2)
+                if len(marker) < 2 or marker[0] != 0xFF:
+                    break
+                seg = int.from_bytes(f.read(2), "big")
+                # SOF0-SOF15, but DHT (C4), JPG (C8) and DAC (CC)
+                if 0xC0 <= marker[1] <= 0xCF and marker[1] not in (
+                        0xC4, 0xC8, 0xCC):
+                    sof = f.read(5)
+                    return (int.from_bytes(sof[1:3], "big"),
+                            int.from_bytes(sof[3:5], "big"))
+                f.seek(seg - 2, 1)
+    return _load_image(path).shape[:2]
 
 
 class BaseImageDataset:
@@ -124,6 +160,9 @@ class ZurichRAW2RGB(BaseImageDataset):
         frame = _load_image(os.path.join(self.img_pth, self.image_list[im_id]))
         return frame, info if info is not None else {}
 
+    def get_image_shape(self, im_id: int):
+        return image_size(os.path.join(self.img_pth, self.image_list[im_id]))
+
 
 class ImageFolder(BaseImageDataset):
     """A folder of images (``.jpg``, ``.jpeg``, ``.png``, ``.bmp``), sorted
@@ -142,6 +181,9 @@ class ImageFolder(BaseImageDataset):
     def get_image(self, im_id: int, info: Optional[dict] = None):
         frame = _load_image(os.path.join(self.root, self.image_list[im_id]))
         return frame, info if info is not None else {}
+
+    def get_image_shape(self, im_id: int):
+        return image_size(os.path.join(self.root, self.image_list[im_id]))
 
 
 class SyntheticBurstVal:

@@ -18,16 +18,14 @@ import numpy as np
 import torch
 
 
-def random_resized_crop(rng: np.random.Generator, frame: np.ndarray,
-                        crop_sz: Tuple[int, int],
-                        scale_range: Optional[Tuple[float, float]] = None,
-                        ar_range: Optional[Tuple[float, float]] = None,
-                        ) -> np.ndarray:
-    """Random crop with optional scale/aspect jitter, resized to
-    ``crop_sz``: a crop of size ``crop_sz * scale * (1, ar)`` is taken at a
-    random position and bilinearly resized to ``crop_sz``. ``frame`` is
-    ``[H, W, 3]`` uint8 or float."""
-    H, W = frame.shape[:2]
+def crop_window(rng: np.random.Generator, hw: Tuple[int, int],
+                crop_sz: Tuple[int, int],
+                scale_range: Optional[Tuple[float, float]] = None,
+                ar_range: Optional[Tuple[float, float]] = None,
+                ) -> Tuple[int, int, int, int]:
+    """The draws of :func:`random_resized_crop` on a frame of size ``hw``:
+    ``(row, col, height, width)`` of the window it takes."""
+    H, W = hw
     ch, cw = crop_sz
 
     ar = 1.0 if ar_range is None else rng.uniform(*ar_range)
@@ -44,9 +42,23 @@ def random_resized_crop(rng: np.random.Generator, frame: np.ndarray,
     oh, ow = min(oh, H), min(ow, W)
     r = rng.integers(0, H - oh + 1)
     c = rng.integers(0, W - ow + 1)
+    return r, c, oh, ow
+
+
+def random_resized_crop(rng: np.random.Generator, frame: np.ndarray,
+                        crop_sz: Tuple[int, int],
+                        scale_range: Optional[Tuple[float, float]] = None,
+                        ar_range: Optional[Tuple[float, float]] = None,
+                        ) -> np.ndarray:
+    """Random crop with optional scale/aspect jitter, resized to
+    ``crop_sz``: a crop of size ``crop_sz * scale * (1, ar)`` is taken at a
+    random position and bilinearly resized to ``crop_sz``. ``frame`` is
+    ``[H, W, 3]`` uint8 or float."""
+    r, c, oh, ow = crop_window(rng, frame.shape[:2], crop_sz, scale_range,
+                               ar_range)
     crop = frame[r:r + oh, c:c + ow]
-    if (oh, ow) != (ch, cw):
-        crop = _resize_bilinear_np(crop, (ch, cw))
+    if (oh, ow) != tuple(crop_sz):
+        crop = _resize_bilinear_np(crop, crop_sz)
     return crop
 
 
@@ -95,12 +107,26 @@ class RandomImageSampler:
         return self.samples_per_epoch
 
     def sample(self, rng: np.random.Generator) -> np.ndarray:
+        return self._draw(rng, lambda d, idx: d.get_image(idx)[0])
+
+    def sample_shape(self, rng: np.random.Generator) -> Tuple[int, int]:
+        """The draws of :meth:`sample`, and the drawn image's ``(H, W)``
+        only: from the file's header where the dataset reads it
+        (``get_image_shape``), else from the decoded image."""
+
+        def shape(d, idx):
+            if hasattr(d, "get_image_shape"):
+                return tuple(d.get_image_shape(idx)[:2])
+            return np.asarray(d.get_image(idx)[0]).shape[:2]
+
+        return self._draw(rng, shape)
+
+    def _draw(self, rng: np.random.Generator, read):
         for _ in range(self.max_retries):
             try:
                 d = self.datasets[rng.choice(len(self.datasets), p=self.p)]
                 idx = int(rng.integers(0, d.get_num_images()))
-                frame, _ = d.get_image(idx)
-                return frame
+                return read(d, idx)
             except Exception:
                 continue
         raise RuntimeError(
@@ -127,7 +153,10 @@ class CropBatcher:
     uint8 by default (``transfer_dtype``; the card casts back to
     float32 / 255) or float32. The host half of synthetic training; with the
     same seed and datasets the batches equal the JAX package's bit for
-    bit."""
+    bit. Under data parallelism every rank of a node draws the randomness
+    of the whole batch and decodes and crops only its own rows
+    (``multihost.process_local_batch_slice``): the other rows' draws need
+    only the image's size (``RandomImageSampler.sample_shape``)."""
 
     def __init__(self, sampler, batch_size: int, crop_sz: Tuple[int, int],
                  scale_range=None, ar_range=None, random_flip: bool = True,
@@ -154,30 +183,46 @@ class CropBatcher:
         return max(1, len(self.sampler) // self.batch_size)
 
     def next_batch(self) -> np.ndarray:
-        crops = []
-        for _ in range(self.batch_size):
-            frame = np.asarray(self.sampler.sample(self.rng))
-            if frame.dtype == np.uint8:
-                frame = frame.astype(np.float32) / 255.0
-            if self.brightness_jitter > 0.0:
-                factor = np.exp(self.rng.uniform(-self.brightness_jitter,
-                                                 self.brightness_jitter))
-                frame = np.clip(frame * factor, 0.0, 1.0)
-            if self.random_flip and self.rng.random() < 0.5:
-                frame = frame[:, ::-1]
-            if self.random_crop:
-                crop = random_resized_crop(self.rng, frame, self.crop_sz,
-                                           self.scale_range, self.ar_range)
-            else:
-                crop = center_crop(frame, self.crop_sz)
-            crops.append(np.ascontiguousarray(crop, np.float32))
-        batch = np.stack(crops)
+        from dbsr_tpu_torch.parallel.multihost import \
+            process_local_batch_slice
+        lo, n = process_local_batch_slice(self.batch_size)
+        crops = [self._crop() if lo <= j < lo + n else self._skip()
+                 for j in range(self.batch_size)]
+        batch = np.stack(crops[lo:lo + n])
         if self.transfer_dtype == "uint8":
             # 8-bit sRGB, the source JPEGs' own precision: 4x fewer bytes
             # to the card
             return (np.clip(batch, 0.0, 1.0) * 255.0 + 0.5).astype(
                 np.uint8)
         return batch
+
+    def _crop(self) -> np.ndarray:
+        frame = np.asarray(self.sampler.sample(self.rng))
+        if frame.dtype == np.uint8:
+            frame = frame.astype(np.float32) / 255.0
+        if self.brightness_jitter > 0.0:
+            factor = np.exp(self.rng.uniform(-self.brightness_jitter,
+                                             self.brightness_jitter))
+            frame = np.clip(frame * factor, 0.0, 1.0)
+        if self.random_flip and self.rng.random() < 0.5:
+            frame = frame[:, ::-1]
+        if self.random_crop:
+            crop = random_resized_crop(self.rng, frame, self.crop_sz,
+                                       self.scale_range, self.ar_range)
+        else:
+            crop = center_crop(frame, self.crop_sz)
+        return np.ascontiguousarray(crop, np.float32)
+
+    def _skip(self) -> None:
+        """:meth:`_crop`'s draws, in its order, without the image."""
+        hw = self.sampler.sample_shape(self.rng)
+        if self.brightness_jitter > 0.0:
+            self.rng.uniform(-self.brightness_jitter, self.brightness_jitter)
+        if self.random_flip:
+            self.rng.random()
+        if self.random_crop:
+            crop_window(self.rng, hw, self.crop_sz, self.scale_range,
+                        self.ar_range)
 
 
 def pinned_device_put(device) -> Callable:

@@ -400,6 +400,12 @@ class ProceduralImagePool:
         self._round = None
         self.pool: Optional[torch.Tensor] = None
 
+    def fold_in_process(self, process_index: int) -> None:
+        """Decorrelate the pools of data-parallel nodes: the JAX package's
+        seed arithmetic (``CropBatcher.fold_in_process``'s contract)."""
+        self.seed = self.seed * 1000003 + 7919 * (process_index + 1)
+        self._round = None
+
     def plan(self, round_idx: int):
         """The generator of each chunk of round ``round_idx``."""
         n_chunks = -(-self.pool_size // self.chunk)
@@ -447,6 +453,9 @@ class ProceduralPoolBatcher:
     def __len__(self):
         return self.num_batches
 
+    def fold_in_process(self, process_index: int) -> None:
+        self.pool.fold_in_process(process_index)
+
     def next_batch(self) -> torch.Tensor:
         epoch_round = self._calls // self.num_batches
         self._calls += 1
@@ -475,12 +484,19 @@ def crops_from_draws(pool: torch.Tensor,
 def make_pool_prepare_fn(cfg, batch_size: int) -> Callable:
     """``prepare(generator, pool) -> batch``: ``batch_size`` random pool
     crops (uint8 -> f32/255), a random horizontal flip, then burst synthesis
-    (``synthesize_batch`` with ``cfg``)."""
-    from dbsr_tpu_torch.data.synthetic import synthesize_batch
+    (``synthesize_batch`` with ``cfg``). Under data parallelism every rank
+    draws the crops and the synthesis of the whole ``batch_size`` and makes
+    its rows only (``multihost.local_rows``)."""
+    from dbsr_tpu_torch.data.synthetic import (rgb2rawburst_from_draws,
+                                               sample_draws)
+    from dbsr_tpu_torch.parallel.multihost import local_rows
 
     def prepare(generator, pool):
-        draws = draw_crops(generator, batch_size, pool.shape[0])
-        return synthesize_batch(generator, crops_from_draws(pool, draws), cfg)
+        crops = draw_crops(generator, batch_size, pool.shape[0])
+        draws = sample_draws(generator, batch_size, cfg)
+        crops, draws = local_rows((crops, draws), batch_size)
+        return rgb2rawburst_from_draws(crops_from_draws(pool, crops), draws,
+                                       cfg)
 
     return prepare
 

@@ -150,7 +150,11 @@ class WeightedSumMerge(nn.Module):
                                     activation="none")
 
     def forward(self, enc, return_fusion_weights: bool = False,
-                ref_offsets: Optional[torch.Tensor] = None):
+                ref_offsets: Optional[torch.Tensor] = None,
+                return_logits: bool = False):
+        """``{"fused_enc"}`` (and ``"fusion_weights"`` when asked); with
+        ``return_logits``, ``{"all_feat", "logits"}`` before the fusion, for
+        the frame-sharded fusion (``parallel/frame_sharding.py``)."""
         ref_feat, oth_feat, offsets = (enc["ref_feat"], enc["oth_feat"],
                                        enc["offsets"])
         B = ref_feat.shape[0]
@@ -186,6 +190,8 @@ class WeightedSumMerge(nn.Module):
             x = getattr(self, f"weight_res{i}")(x)
         logits = self.weight_out(x)
         logits = logits.reshape((B, N) + logits.shape[-3:])
+        if return_logits:
+            return {"all_feat": all_feat, "logits": logits}
 
         if not self.softmax:
             w = torch.relu(logits)

@@ -24,11 +24,19 @@ serving shape (the kernels' builds at first use, cuDNN's choice of
 algorithms: the counterpart of the JAX package's ahead-of-time compile)
 and records ``compile_seconds`` and ``flops_per_batch``; the serving
 daemon and ``run_serving`` call it before the first request.
+
+Several devices (``load_predictor(..., devices=["cuda:0", "cuda:1"])``, the
+counterpart of the JAX package's ``mesh=``): one replica of the network per
+device, the batch split over them in order (``batch_size`` must divide by
+their number) and the outputs gathered in order on the first. The serving
+daemon and ``run_serving`` take no device list, as the JAX package's take
+no mesh.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import os
 import threading
 import time
@@ -37,8 +45,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from dbsr_tpu_torch import resolve_device
 from dbsr_tpu_torch.models.layers import (ConvBlock, PixShuffleUpsampler,
                                           TorchConvTranspose)
+from dbsr_tpu_torch.parallel.mesh import shard_batch
 from dbsr_tpu_torch.training.checkpoint import load_network
 
 # the banked flagship checkpoint of the JAX package (epoch 60)
@@ -83,14 +93,23 @@ def _conv_macs(module: torch.nn.Module, x: torch.Tensor,
 class Predictor:
     """Fixed-shape burst-SR predictor: partial batches are padded to
     ``batch_size``, so every forward runs at one shape. One forward runs at
-    a time (a lock), whatever thread calls."""
+    a time (a lock), whatever thread calls. With ``devices``, one replica of
+    ``net`` per device, each running its slice of the batch in order."""
 
     def __init__(self, net: torch.nn.Module, batch_size: int, burst_size: int,
-                 burst_hw, device: torch.device):
-        self.net = net
+                 burst_hw, device: torch.device, devices=None):
+        devices = [resolve_device(d) for d in (devices or [device])]
+        if batch_size % len(devices):
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by the mesh 'data' "
+                f"axis ({len(devices)} devices)")
+        self.nets = [net.to(devices[0])] + [copy.deepcopy(net).to(d)
+                                            for d in devices[1:]]
+        self.net = self.nets[0]
+        self.devices = devices
         self.batch_size = batch_size
         self.in_shape = (batch_size, burst_size) + tuple(burst_hw) + (4,)
-        self.device = device
+        self.device = devices[0]
         # set by warm_up: the wall seconds of one forward at in_shape (the
         # first, with the kernels' builds and cuDNN's set-up), and
         # 2 x the multiply-adds of one batch's convs and transposed convs
@@ -104,10 +123,15 @@ class Predictor:
     @torch.inference_mode()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The network's prediction for a burst tensor already on the
-        predictor's device, float32 (its float32 math with TF32 off), not
-        clipped."""
+        predictor's (first) device, float32 (its float32 math with TF32
+        off), not clipped; with several devices, each replica's slice of
+        the batch on its device, gathered in order."""
         with self._lock, float32_math():
-            return self.net(x)[0]
+            if len(self.nets) == 1:
+                return self.net(x)[0]
+            outs = [net(part)[0] for net, part in
+                    zip(self.nets, shard_batch(self.devices, x))]
+            return torch.cat([o.to(self.device) for o in outs])
 
     def warm_up(self) -> "Predictor":
         """One forward of zeros at ``in_shape``, synchronised: sets
@@ -116,15 +140,16 @@ class Predictor:
         macs = []
         hooks = [m.register_forward_hook(
             lambda m, args, y: macs.append(_conv_macs(m, args[0], y)))
-            for m in self.net.modules()
+            for net in self.nets for m in net.modules()
             if isinstance(m, (ConvBlock, PixShuffleUpsampler,
                               TorchConvTranspose))]
         x = torch.zeros(self.in_shape, device=self.device)
         try:
             t0 = time.perf_counter()
             self.forward(x)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            for d in self.devices:
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
             self.compile_seconds = time.perf_counter() - t0
         finally:
             for h in hooks:
@@ -155,13 +180,16 @@ class Predictor:
 def load_predictor(checkpoint_path: str, batch_size: int = 8,
                    burst_size: int = 14, burst_hw=(48, 48), device="cuda",
                    dtype="bfloat16", fused_s2d: bool = True,
-                   **net_overrides) -> Predictor:
+                   devices=None, **net_overrides) -> Predictor:
     """Rebuild the network from a checkpoint in ``dtype`` (bfloat16, the
     JAX package's serving default; None or ``"float32"`` for float32), with
     the s2d decoder unless ``fused_s2d=False``, and wrap it in a
-    :class:`Predictor` on ``device``."""
+    :class:`Predictor` on ``device``, or with one replica on each of
+    ``devices`` (the JAX package's ``mesh=``)."""
+    if devices:
+        device = devices[0]
     overrides = {"dtype": dtype, "fused_s2d_decoder": fused_s2d,
                  **net_overrides}
     net, _ = load_network(checkpoint_path, device=device, **overrides)
     return Predictor(net, batch_size, burst_size, burst_hw,
-                     next(net.parameters()).device)
+                     next(net.parameters()).device, devices=devices)

@@ -339,7 +339,11 @@ def save_params_artifact(path: str, src_header: dict, tree: Any) -> str:
     ``tree`` (``{"params": <flax parameter tree>}``) as the blob. Small
     enough to keep in git; a trainer resumes from it with a fresh Adam
     (``Trainer._resume_params_only``), :func:`load_train_state` refuses
-    it."""
+    it. Under data parallelism only rank 0 writes; every rank gets the
+    path."""
+    from dbsr_tpu_torch.parallel.multihost import is_main_process
+    if not is_main_process():
+        return path
     header = {k: src_header[k] for k in
               ("epoch", "net_name", "stats", "settings", "net_spec")
               if k in src_header}

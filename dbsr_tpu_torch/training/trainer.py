@@ -2,8 +2,9 @@
 with divergence guards and fail-safe restart, per-epoch checkpoints
 (written on a thread of their own with ``async_checkpoint``), resume (also
 from a params-only checkpoint), TensorBoard scalars per epoch and
-``DBSR_TPU_TRACE_DIR`` step traces (port of
-``dbsr_tpu/training/trainer.py:71-541``; no mesh).
+``DBSR_TPU_TRACE_DIR`` step traces, and data parallelism over a
+``torch.distributed`` process group (port of
+``dbsr_tpu/training/trainer.py:71-541``).
 
 One train step is: prepare (the loader's pool -> crop draw and burst
 synthesis on the device) -> forward -> loss -> ``backward`` -> Adam, under
@@ -14,6 +15,22 @@ steps. Per-step stats stay on the device and are fetched in one copy at
 ``print_interval``. Every cycle
 draws from its own ``torch.Generator`` on the device, seeded from
 ``(seed, epoch, training, retry_salt)`` as the JAX trainer folds its key.
+
+Under a process group of W > 1 ranks (``parallel/multihost.py``), the port
+of the JAX trainer's ``data`` mesh: every rank runs the same streams and
+draws the node's whole batch, and the loaders and prepare functions keep
+the rank's rows (``multihost.local_rows``); the gradients are averaged by
+one all-reduce per dtype after ``backward`` and before Adam (so gradient
+clipping reads the reduced norm), the per-step stats likewise before they
+are printed or read by the divergence guards, so every rank takes the
+same rollback decisions; the parameters are broadcast from rank 0 after
+every init and load, and every rank applies the same reduced bits.
+Checkpoints and TensorBoard are rank 0's; a barrier precedes every load.
+Across nodes each loader's ``fold_in_process(node_index)`` decorrelates
+the nodes' streams, as the JAX trainer folds its process index. A crash
+under W > 1 re-raises instead of restarting: the other ranks would wait
+in the next collective for one that retried alone (the group's timeout
+ends them).
 """
 
 from __future__ import annotations
@@ -30,6 +47,7 @@ from dbsr_tpu_torch import resolve_device
 from dbsr_tpu_torch.data.pipeline import DevicePrefetcher
 from dbsr_tpu_torch.data.procedural import make_generator
 from dbsr_tpu_torch.models.layers import init_params
+from dbsr_tpu_torch.parallel import multihost
 from dbsr_tpu_torch.serving import float32_math
 from dbsr_tpu_torch.training import checkpoint as ckpt
 from dbsr_tpu_torch.training.profiling import maybe_trace
@@ -92,7 +110,7 @@ class Trainer:
                  device_put: Optional[Callable] = None,
                  async_checkpoint: bool = False,
                  tensorboard_dir: Optional[str] = None,
-                 description: str = ""):
+                 description: str = "", data_parallel: bool = True):
         """``prepare_fn(generator, loader_output) -> batch`` maps a loader's
         output to the training batch on the device (crop draw and burst
         synthesis). ``actor_fn(batch) -> (loss, stats)`` is bound to
@@ -101,7 +119,28 @@ class Trainer:
         tensors already or that ``prepare_fn`` transfers.
         ``async_checkpoint`` writes each epoch's checkpoint on a thread
         of its own while the next epoch trains; ``tensorboard_dir`` logs
-        each epoch's averages there (a no-op without ``tensorboard``)."""
+        each epoch's averages there (a no-op without ``tensorboard``).
+        ``data_parallel`` (a config's ``multi_device``) False refuses a
+        process group of more than one rank."""
+        self.world = multihost.world_size()
+        if self.world > 1 and not data_parallel:
+            raise ValueError(
+                f"multi_device=False (--single_device) under a process group "
+                f"of {self.world} ranks: launch a single process instead")
+        self.is_main = multihost.is_main_process()
+        if multihost.node_count() > 1:
+            # every node runs this constructor with the same config seed:
+            # fold the node's index into every loader's stream (the ranks of
+            # one node share theirs and each keeps its rows)
+            node = multihost.node_index()
+            for l in loaders:
+                fold = getattr(l.batcher, "fold_in_process", None)
+                if fold is not None:
+                    fold(node)
+                else:
+                    print(f"WARNING: loader '{l.name}' batcher has no "
+                          "fold_in_process(); multi-host processes may feed "
+                          "duplicate data", flush=True)
         self.device = resolve_device(device)
         self.net = net.to(self.device)
         self.actor_fn = actor_fn
@@ -124,10 +163,10 @@ class Trainer:
         # seconds from its start to its last stats fetched, batches
         self.feed: Dict[str, Dict[str, float]] = {}
         self._ckpt_writer = ckpt.AsyncCheckpointWriter() \
-            if async_checkpoint else None
+            if async_checkpoint and self.is_main else None
         self.tb = TensorboardWriter(tensorboard_dir,
                                     [l.name for l in loaders]) \
-            if tensorboard_dir else None
+            if tensorboard_dir and self.is_main else None
         if self.tb:
             self.tb.write_info(net_name, description)
 
@@ -136,7 +175,12 @@ class Trainer:
         """Fresh parameters (the JAX package's initialisers, drawn from
         ``seed``) and a fresh Adam."""
         init_params(self.net, make_generator(self.device, self.seed))
+        self._broadcast_params()
         return self.tx.init(self.net)
+
+    def _broadcast_params(self) -> None:
+        """Rank 0's parameters and buffers on every rank."""
+        multihost.broadcast_(list(self.net.state_dict().values()))
 
     def train_step(self, state: TrainState, generator: torch.Generator,
                    data) -> Dict[str, torch.Tensor]:
@@ -145,6 +189,10 @@ class Trainer:
             state.optimizer.zero_grad(set_to_none=True)
             loss, stats = self.actor_fn(batch)
             loss.backward()
+            if self.world > 1:
+                multihost.all_reduce_mean_(
+                    [p.grad for p in state.trainable().values()
+                     if p.grad is not None])
             state.apply_gradients()
         return stats
 
@@ -178,8 +226,11 @@ class Trainer:
             if not pending:
                 return
             keys = list(pending[0][0])
-            host = torch.stack([torch.stack([s[k].float() for k in keys])
-                                for s, _ in pending]).cpu().tolist()
+            rows = torch.stack([torch.stack([s[k].float() for k in keys])
+                                for s, _ in pending])
+            # the ranks' means of equal slices: the node batch's means
+            multihost.all_reduce_mean_([rows])
+            host = rows.cpu().tolist()
             loss_sum = loss_n = 0.0
             for vals, (_, b) in zip(host, pending):
                 row = dict(zip(keys, vals))
@@ -210,10 +261,11 @@ class Trainer:
                 if (i + 1) % self.print_interval == 0 or (i + 1) == n:
                     flush(i + 1)
                     fps = samples_done / (time.perf_counter() - t0)
-                    print(f"[{loader.name}: {self.epoch}, {i + 1}/{n}] "
-                          f"FPS: {fps:.1f}, " + ", ".join(
-                              f"{k}: {m.avg:.5f}" for k, m in stats.items()),
-                          flush=True)
+                    if self.is_main:
+                        print(f"[{loader.name}: {self.epoch}, {i + 1}/{n}] "
+                              f"FPS: {fps:.1f}, " + ", ".join(
+                                  f"{k}: {m.avg:.5f}"
+                                  for k, m in stats.items()), flush=True)
             flush(n)
         finally:
             # an abandoned cycle (divergence abort, crash) releases the
@@ -236,6 +288,8 @@ class Trainer:
         return None
 
     def _save(self, state: TrainState) -> None:
+        if not self.is_main:
+            return
         stats = {name: s.averages() for name, s in self.stats.items()}
         epoch, settings = self.epoch, dict(self.header_settings)
         # a write on the writer's thread runs while the next steps update
@@ -258,12 +312,17 @@ class Trainer:
             # not raised: this runs inside the fail-safe's handlers, and
             # the rollback resumes from the last epoch that did land
             self._ckpt_writer.flush(raise_on_error=False)
+        # rank 0's writes have landed before any rank resolves the latest
+        multihost.barrier()
         path = ckpt.resolve_checkpoint(self.workspace_dir, self.net_name)
         if path is None:
             return state
         if ckpt.read_header(path).get("params_only"):
-            return self._resume_params_only(path, state)
+            state = self._resume_params_only(path, state)
+            self._broadcast_params()
+            return state
         header = ckpt.load_train_state(path, state)
+        self._broadcast_params()
         self.epoch = int(header["epoch"])
         print(f"resumed from {path} (epoch {self.epoch}, step {state.step})",
               flush=True)
@@ -353,7 +412,9 @@ class Trainer:
                 self.epoch -= 1
                 state = self._load_latest(self.init_state())
             except Exception:
-                if not fail_safe:
+                # under W > 1 ranks a restart of this rank alone would leave
+                # the others waiting in a collective: re-raise
+                if not fail_safe or self.world > 1:
                     raise
                 failures += 1
                 if failures > max_failures:
