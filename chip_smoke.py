@@ -1,6 +1,11 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA card (H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --nccl-ranks N     # a host of N >= 2 cards
+
+The second form runs only phase 1, the build and phase 18's collectives
+on NCCL, one rank a card: (a) and (d) with N ranks against one process,
+and (b) with ``--nproc_per_node=N`` (batch 2N).
 
 Phases (any failure raises and the script exits non-zero, printing no
 result line):
@@ -5719,11 +5724,12 @@ def _dp_steps(trainer, state, n):
     return losses, [s.elapsed_time(e) for s, e in events]
 
 
-def _dp_rank(rank, port, workdir):
-    """One of 18a's and 18d's two gloo ranks on ``cuda:0`` (spawned): a
-    float32 step and five bf16 steps of ``default_synthetic`` at the node's
-    B=16 (8 rows here), then the flagship's frame-sharded forward; what it
-    saw goes to ``workdir``."""
+def _dp_rank(rank, port, workdir, world, backend):
+    """One of 18a's and 18d's ``world`` ranks (spawned; over gloo all on
+    ``cuda:0``, over NCCL one a card): a float32 step and five bf16 steps
+    of ``default_synthetic`` at the node's B=16 (16 / ``world`` rows here),
+    then the flagship's frame-sharded forward; what it saw goes to
+    ``workdir``."""
     import torch.distributed as dist
     from dbsr_tpu_torch.parallel import multihost
     from dbsr_tpu_torch.parallel.frame_sharding import \
@@ -5731,11 +5737,11 @@ def _dp_rank(rank, port, workdir):
     from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, float32_math
     from dbsr_tpu_torch.training.checkpoint import load_network
 
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
     multihost.maybe_initialize_distributed(
-        init_method=f"tcp://127.0.0.1:{port}", world_size=DP_RANKS,
-        rank=rank, backend="gloo", local_rank=0, device_type="cuda",
+        init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+        rank=rank, backend=backend, local_rank=dev.index, device_type="cuda",
         timeout_s=300)
-    dev = torch.device("cuda", 0)
     out = {"backend": dist.get_backend(),
            "slice": multihost.process_local_batch_slice(TRAIN_B)}
     trainer, state = _dp_trainer(dev, "float32")
@@ -5787,9 +5793,9 @@ def _grad_gap(got, want):
     return math.sqrt(num / den), worst, rel
 
 
-def dp_phase(dev, workdir):
-    """18a and 18d: two gloo ranks on ``cuda:0``, spawned, against the same
-    work in this process. 18a: one float32 ``default_synthetic`` step at
+def dp_phase(dev, workdir, world=DP_RANKS, backend="gloo"):
+    """18a and 18d: two gloo ranks on ``cuda:0`` (or ``world`` NCCL ranks,
+    one a card), spawned, against the same work in this process. 18a: one float32 ``default_synthetic`` step at
     B=16 (the loss within 1e-5 relative, the reduced gradients within 1e-3
     of their norm), five bf16 steps (the losses within 2e-2, both ranks'
     parameters bit-equal, each rank's launches 15b's per step), the ms of a
@@ -5803,12 +5809,15 @@ def dp_phase(dev, workdir):
     os.makedirs(root, exist_ok=True)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    torch.multiprocessing.spawn(_dp_rank, args=(_free_port(), root),
-                                nprocs=DP_RANKS, join=True)
+    torch.multiprocessing.spawn(_dp_rank, args=(_free_port(), root, world,
+                                                backend),
+                                nprocs=world, join=True)
     spawn_s = time.perf_counter() - t0
     ranks = [torch.load(os.path.join(root, f"dp_rank{r}.pt"))
-             for r in range(DP_RANKS)]
-    log(f"18a: {DP_RANKS} ranks ({ranks[0]['backend']}, slices "
+             for r in range(world)]
+    shared = "two processes sharing one card over gloo" \
+        if backend == "gloo" else "one card a rank over NCCL"
+    log(f"18a: {world} ranks ({ranks[0]['backend']}, slices "
         f"{[r['slice'] for r in ranks]}) ran in {spawn_s:.1f} s")
 
     out = {"spawn_s": spawn_s, "backend": ranks[0]["backend"]}
@@ -5820,11 +5829,11 @@ def dp_phase(dev, workdir):
     grads2 = torch.load(os.path.join(root, "dp_f32_grads.pt"))
     loss2 = ranks[0]["f32_loss"][0]
     gap, worst, worst_rel = _grad_gap(grads2, grads1)
-    log(f"18a float32 step, B={TRAIN_B}: loss {loss2:.8f} on {DP_RANKS} "
+    log(f"18a float32 step, B={TRAIN_B}: loss {loss2:.8f} on {world} "
         f"ranks vs {loss1:.8f} in one process; gradients {gap:.3e} of their "
         f"norm apart (worst tensor {worst}: {worst_rel:.3e})")
     if abs(loss2 - loss1) > DP_LOSS_RTOL * abs(loss1) or gap > GRAD_TOL \
-            or ranks[1]["f32_loss"] != ranks[0]["f32_loss"]:
+            or any(r["f32_loss"] != ranks[0]["f32_loss"] for r in ranks):
         raise AssertionError("18a: the data-parallel float32 step departs")
     out["f32"] = dict(loss_ranks=loss2, loss_one=loss1, grad_rel=gap,
                       worst=worst, worst_rel=worst_rel)
@@ -5833,11 +5842,12 @@ def dp_phase(dev, workdir):
     losses1, ms1 = _dp_steps(trainer, state, DP_STEPS)
     del trainer, state
     torch.cuda.empty_cache()
-    p0, p1 = (torch.load(os.path.join(root, f"dp_bf16_params{r}.pt"))
-              for r in range(DP_RANKS))
-    unequal = [k for k in p0 if not torch.equal(p0[k], p1[k])]
+    p0, *others = (torch.load(os.path.join(root, f"dp_bf16_params{r}.pt"))
+                   for r in range(world))
+    unequal = [k for k in p0 if any(not torch.equal(p0[k], p[k])
+                                    for p in others)]
     losses2 = ranks[0]["bf16_losses"]
-    log(f"18a bf16, {DP_STEPS} steps: losses {losses2} on {DP_RANKS} ranks "
+    log(f"18a bf16, {DP_STEPS} steps: losses {losses2} on {world} ranks "
         f"vs {losses1} in one process; the ranks' parameters bit-equal: "
         f"{not unequal} ({len(p0)} tensors)")
     if unequal or any(abs(a - b) > BF16_STEP_LOSS_RTOL * abs(b)
@@ -5850,7 +5860,7 @@ def dp_phase(dev, workdir):
     step_ms = [statistics.median(r["bf16_step_ms"][1:]) for r in ranks]
     one_ms = statistics.median(ms1[1:])
     log(f"18a bf16 step, ms a step a rank (CUDA events, steps 2-{DP_STEPS}, "
-        f"two processes sharing one card over gloo: not a speed claim): "
+        f"{shared}: not a speed claim): "
         f"{step_ms}; one process at B={TRAIN_B}: {one_ms:.2f}")
     out["bf16"] = dict(losses_ranks=losses2, losses_one=losses1,
                        step_ms_by_rank=step_ms, step_ms_one=one_ms,
@@ -5865,10 +5875,10 @@ def dp_phase(dev, workdir):
         dense_ms = cuda_ms(lambda: net(burst), 1, 5)
     sharded = torch.load(os.path.join(root, "fs_pred.pt"))
     err = float((sharded - dense.cpu()).abs().max())
-    log(f"18d frame-sharded forward, {N} frames over {DP_RANKS} ranks, "
+    log(f"18d frame-sharded forward, {N} frames over {world} ranks, "
         f"B={FS_B}, float32: max |sharded - dense| {err:.3e}; "
-        f"{[r['fs_ms'] for r in ranks]} ms a forward a rank (two processes "
-        f"on one card, three gloo all-reduces) vs {dense_ms:.2f} dense; "
+        f"{[r['fs_ms'] for r in ranks]} ms a forward a rank ({shared}, "
+        f"three all-reduces) vs {dense_ms:.2f} dense; "
         f"launches a rank {ranks[0]['fs_counts']}")
     if not err <= FS_TOL or sharded.shape != dense.shape:
         raise AssertionError(f"18d: frame-sharded vs dense {err}")
@@ -5882,10 +5892,11 @@ def dp_phase(dev, workdir):
     return out, paths
 
 
-def nccl_cli_phase(workdir):
+def nccl_cli_phase(workdir, nproc=1):
     """18b: ``DBSR_TPU_DIST=1 python -m torch.distributed.run --standalone
-    --nproc_per_node=1 -m dbsr_tpu_torch.run_training dbsr smoke_tiny``:
-    exit 0, the group on ``nccl``, rank 0's checkpoints written."""
+    --nproc_per_node=1 -m dbsr_tpu_torch.run_training dbsr smoke_tiny``
+    (with ``nproc`` ranks, ``--batch_size 2*nproc``): exit 0, the group on
+    ``nccl``, rank 0's checkpoints written."""
     from dbsr_tpu_torch.training.checkpoint import list_checkpoints
 
     ws = os.path.join(workdir, "nccl_cli")
@@ -5893,8 +5904,9 @@ def nccl_cli_phase(workdir):
     t0 = time.perf_counter()
     res = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc_per_node=1", "-m", "dbsr_tpu_torch.run_training", "dbsr",
-         "smoke_tiny"], env=env, capture_output=True, text=True,
+         f"--nproc_per_node={nproc}", "-m", "dbsr_tpu_torch.run_training",
+         "dbsr", "smoke_tiny", "--batch_size", str(2 * nproc)], env=env,
+        capture_output=True, text=True,
         timeout=CLI_TIMEOUT_S)
     wall = time.perf_counter() - t0
     for line in res.stdout.splitlines():
@@ -5902,8 +5914,8 @@ def nccl_cli_phase(workdir):
     ckpts = [e for e, _ in list_checkpoints(
         os.path.join(ws, "dbsr", "smoke_tiny"), "smoke")]
     log(f"18b: rc {res.returncode} in {wall:.1f} s; checkpoints {ckpts}")
-    if res.returncode != 0 or "process group: backend nccl, rank 0 of 1" \
-            not in res.stdout or ckpts != [1, 2]:
+    if res.returncode != 0 or f"process group: backend nccl, rank 0 of " \
+            f"{nproc}" not in res.stdout or ckpts != [1, 2]:
         raise AssertionError(f"18b: rc {res.returncode}, checkpoints "
                              f"{ckpts}: {res.stderr[-2000:]}")
     return dict(rc=res.returncode, wall_s=wall, checkpoints=ckpts)
@@ -6029,7 +6041,41 @@ def parallel_phase(dev, workdir, requests):
     return out, paths
 
 
+def nccl_ranks_arg(argv):
+    """N of ``--nccl-ranks N``; None without arguments."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--nccl-ranks" or not argv[1].isdigit() \
+            or int(argv[1]) < 2:
+        raise SystemExit("usage: python3 chip_smoke.py [--nccl-ranks N], "
+                         "N >= 2 cards")
+    return int(argv[1])
+
+
+def nccl_main(dev, n, smi, t_start):
+    """Phase 18's collectives on NCCL, one rank a card over ``n`` cards:
+    18a and 18d against one process, 18b through ``torch.distributed.run``
+    with ``n`` ranks."""
+    if torch.cuda.device_count() < n:
+        raise AssertionError(f"--nccl-ranks {n} on "
+                             f"{torch.cuda.device_count()} cards")
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        out, _ = dp_phase(dev, workdir, n, "nccl")
+        out["nccl_cli"] = nccl_cli_phase(workdir, n)
+        out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 18 on NCCL over {n} cards: {out['phase_s']:.1f} s")
+    out.update(total_s=time.perf_counter() - t_start, card=smi)
+    log("summary " + json.dumps(out))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main():
+    nccl_ranks = nccl_ranks_arg(sys.argv[1:])
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing to measure")
         return 2
@@ -6060,6 +6106,8 @@ def main():
         for line in kernels.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    if nccl_ranks:
+        return nccl_main(dev, nccl_ranks, smi, t_start)
 
     # 3. kernels against their plain versions
     g = torch.Generator(device=dev)

@@ -19,11 +19,10 @@ of the restored parameters.
 
 The batches are made on the host (``BurstBatcher``, numpy); ``prepare_fn``
 only copies them to the device. Under data parallelism each rank reads its
-rows of the node's batch and the gradients are averaged over the ranks: the
-loss's gradient is then the mean of the ranks' masked means, each over its
-own valid pixels, where the JAX package's data mesh takes one masked mean
-over the whole batch (the two differ as far as the ranks' valid shares
-differ). Settings read (``--set K=V``):
+rows of the node's batch, and the loss is the one masked mean over the
+whole batch that the JAX package's data mesh takes (the actor weights each
+rank's mean by its share of the valid pixels). Settings read
+(``--set K=V``):
 ``batch_size``, ``crop_sz``, ``burst_sz``, ``sr_factor`` (4: the ground
 truth is 4x the flat RAW), ``steps_per_epoch``, ``epochs``,
 ``print_interval``, ``seed``.

@@ -41,30 +41,29 @@ Settings read (``--set K=V``): ``batch_size``, ``epochs``,
 from __future__ import annotations
 
 import os
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 
 
-def make_crop_prepare_fn(cfg, batch_size: Optional[int] = None) -> Callable:
+def make_crop_prepare_fn(cfg) -> Callable:
     """``prepare(generator, crops) -> batch`` for host-made source crops
     already on the device: uint8 -> float32 / 255 (float crops as they
-    are), then burst synthesis (``synthesize_batch`` with ``cfg``). With
-    ``batch_size`` (the node's batch) the synthesis draws are those of the
-    whole batch, cut to this rank's rows (the loader made its crops
-    only)."""
+    are), then burst synthesis (``synthesize_batch`` with ``cfg``). Under
+    data parallelism the loader made this rank's rows only: the synthesis
+    draws are those of the node's whole batch (``crops`` rows x the node's
+    ranks), cut to this rank's rows."""
     from dbsr_tpu_torch.data.synthetic import (rgb2rawburst_from_draws,
-                                               sample_draws,
-                                               synthesize_batch)
-    from dbsr_tpu_torch.parallel.multihost import local_rows
+                                               sample_draws)
+    from dbsr_tpu_torch.parallel.multihost import (local_rows,
+                                                   local_world_size)
 
     def prepare(generator, crops):
         crops = crops.float() / 255.0 if crops.dtype == torch.uint8 \
             else crops.float()
-        if batch_size is None:
-            return synthesize_batch(generator, crops, cfg)
-        draws = local_rows(sample_draws(generator, batch_size, cfg),
-                           batch_size)
+        node_batch = crops.shape[0] * local_world_size()
+        draws = local_rows(sample_draws(generator, node_batch, cfg),
+                           node_batch)
         return rgb2rawburst_from_draws(crops, draws, cfg)
 
     return prepare
@@ -105,8 +104,7 @@ def make_data(settings, cfg, steps_per_epoch: int, device,
             LoaderSpec("val", batcher("test", val_batches, seed + 1),
                        training=False, epoch_interval=val_interval),
         ]
-        return loaders, make_crop_prepare_fn(cfg, B), \
-            pinned_device_put(device)
+        return loaders, make_crop_prepare_fn(cfg), pinned_device_put(device)
 
     from dbsr_tpu_torch.data.procedural import (ProceduralImagePool,
                                                 ProceduralPoolBatcher,

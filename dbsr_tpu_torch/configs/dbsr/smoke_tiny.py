@@ -66,7 +66,7 @@ def make_trainer(settings, device="cuda"):
         batch_size, cfg.pre_crop_sz)
     workspace = os.path.join(settings.env.workspace_dir, "dbsr", "smoke_tiny")
     return Trainer(net, actor, tx, [LoaderSpec("train", batcher)],
-                   make_crop_prepare_fn(cfg, batch_size), workspace, net_name="smoke",
+                   make_crop_prepare_fn(cfg), workspace, net_name="smoke",
                    print_interval=2, device=dev,
                    data_parallel=getattr(settings, "multi_device", True),
                    device_put=pinned_device_put(dev))

@@ -310,16 +310,12 @@ class BurstSRProcessing:
     def __call__(self, frames: List[SamsungRAWImage], gt: CanonImage,
                  rng: Optional[np.random.Generator] = None) -> dict:
         rng = rng or np.random.default_rng()
-        if frames[0].shape()[1] != self.crop_sz:
-            H, W = frames[0].shape()[:2]
-            if self.random_crop:
-                r1 = int(rng.integers(0, H - self.crop_sz + 1))
-                c1 = int(rng.integers(0, W - self.crop_sz + 1))
-            else:
-                r1 = (H - self.crop_sz) // 2
-                c1 = (W - self.crop_sz) // 2
+        window, flips, noise = self.draws(frames[0].shape()[:2], len(frames),
+                                          rng)
+        if window is not None:
+            r1, c1 = window
             r2, c2 = r1 + self.crop_sz, c1 + self.crop_sz
-            scale = gt.shape()[1] // W
+            scale = gt.shape()[1] // frames[0].shape()[1]
             frames = [f.get_crop(r1, r2, c1, c2) for f in frames]
             gt = gt.get_crop(scale * r1, scale * r2, scale * c1, scale * c2)
 
@@ -335,11 +331,11 @@ class BurstSRProcessing:
         if self.random_flip:
             flat = flatten_raw_image(burst)
             pad = [0, 0]  # (left/right, top/bottom) replicate pad after crop
-            if rng.random() > 0.5:
+            if flips[0]:
                 flat = flat[..., :, ::-1][..., :, 1:-1]
                 gt_im = gt_im[:, ::-1][:, 2:-2]
                 pad[0] = 1
-            if rng.random() > 0.5:
+            if flips[1]:
                 flat = flat[..., ::-1, :][..., 1:-1, :]
                 gt_im = gt_im[::-1, :][2:-2, :]
                 pad[1] = 1
@@ -359,15 +355,13 @@ class BurstSRProcessing:
         burst_meta["norm_factor"] = frames[0].norm_factor
         gt_meta = gt.get_all_meta_data()
 
-        if self.noise_level is not None:
-            log_shot = rng.uniform(np.log(self.noise_level[0]),
-                                   np.log(self.noise_level[1]))
+        if noise is not None:
+            log_shot, read_jitter, gauss = noise
             shot = np.exp(log_shot)
-            read = np.exp(2.18 * log_shot + 1.20 + rng.normal(0, 0.26))
+            read = np.exp(2.18 * log_shot + 1.20 + read_jitter)
             var = burst * shot + read
-            burst = np.clip(
-                burst + rng.normal(size=burst.shape) * np.sqrt(var),
-                0.0, 1.0).astype(np.float32)
+            burst = np.clip(burst + gauss * np.sqrt(var),
+                            0.0, 1.0).astype(np.float32)
 
         light_burst = frames[0].get_exposure_time() * frames[0].get_iso() / (
             frames[0].get_f_number() ** 2)
@@ -390,24 +384,32 @@ class BurstSRProcessing:
                 "meta_info_burst": burst_meta, "meta_info_gt": gt_meta,
                 "exp_scale_factor": exp_scale}
 
-    def skip(self, frame_hw: Tuple[int, int], n_frames: int,
-             rng: np.random.Generator) -> None:
-        """:meth:`__call__`'s draws, in its order, for ``n_frames`` frames of
-        ``frame_hw``, without the images."""
+    def draws(self, frame_hw: Tuple[int, int], n_frames: int,
+              rng: np.random.Generator):
+        """:meth:`__call__`'s draws, in its order, for ``n_frames`` frames
+        of ``frame_hw``: the crop window's ``(row, col)`` (None where the
+        frames are ``crop_sz`` wide already), the two flips (None without
+        ``random_flip``) and the noise (None without ``noise_level``: else
+        the log shot noise, the read noise's jitter and the per-pixel
+        Gaussians). A data-parallel rank takes them for another rank's row
+        on the size in its first frame's header alone."""
         H, W = frame_hw
+        window = None
         if W != self.crop_sz:
             if self.random_crop:
-                rng.integers(0, H - self.crop_sz + 1)
-                rng.integers(0, W - self.crop_sz + 1)
+                window = (int(rng.integers(0, H - self.crop_sz + 1)),
+                          int(rng.integers(0, W - self.crop_sz + 1)))
+            else:
+                window = ((H - self.crop_sz) // 2, (W - self.crop_sz) // 2)
             H = W = self.crop_sz
-        if self.random_flip:
-            rng.random()
-            rng.random()
+        flips = (rng.random() > 0.5, rng.random() > 0.5) \
+            if self.random_flip else None
+        noise = None
         if self.noise_level is not None:
-            rng.uniform(np.log(self.noise_level[0]),
-                        np.log(self.noise_level[1]))
-            rng.normal(0, 0.26)
-            rng.normal(size=(n_frames, H, W, 4))
+            noise = (rng.uniform(np.log(self.noise_level[0]),
+                                 np.log(self.noise_level[1])),
+                     rng.normal(0, 0.26), rng.normal(size=(n_frames, H, W, 4)))
+        return window, flips, noise
 
 
 class IndexedBurstSampler:
@@ -452,8 +454,8 @@ class IndexedBurstSampler:
         processing's draws, on the size in the first frame's header."""
         info = self.dataset.get_burst_info(index)
         ids = self._select_ids(info["burst_size"])
-        self.processing.skip(self.dataset.get_frame_shape(index, ids[0]),
-                             len(ids), self.rng)
+        self.processing.draws(self.dataset.get_frame_shape(index, ids[0]),
+                              len(ids), self.rng)
 
 
 class RandomBurstSampler(IndexedBurstSampler):

@@ -54,8 +54,15 @@ def random_resized_crop(rng: np.random.Generator, frame: np.ndarray,
     ``crop_sz``: a crop of size ``crop_sz * scale * (1, ar)`` is taken at a
     random position and bilinearly resized to ``crop_sz``. ``frame`` is
     ``[H, W, 3]`` uint8 or float."""
-    r, c, oh, ow = crop_window(rng, frame.shape[:2], crop_sz, scale_range,
-                               ar_range)
+    return take_window(frame, crop_window(rng, frame.shape[:2], crop_sz,
+                                          scale_range, ar_range), crop_sz)
+
+
+def take_window(frame: np.ndarray, window: Tuple[int, int, int, int],
+                crop_sz: Tuple[int, int]) -> np.ndarray:
+    """The ``(row, col, height, width)`` window of ``frame``, bilinearly
+    resized to ``crop_sz`` where it is another size."""
+    r, c, oh, ow = window
     crop = frame[r:r + oh, c:c + ow]
     if (oh, ow) != tuple(crop_sz):
         crop = _resize_bilinear_np(crop, crop_sz)
@@ -107,19 +114,13 @@ class RandomImageSampler:
         return self.samples_per_epoch
 
     def sample(self, rng: np.random.Generator) -> np.ndarray:
-        return self._draw(rng, lambda d, idx: d.get_image(idx)[0])
+        return self._draw(rng, _decode)
 
     def sample_shape(self, rng: np.random.Generator) -> Tuple[int, int]:
         """The draws of :meth:`sample`, and the drawn image's ``(H, W)``
         only: from the file's header where the dataset reads it
         (``get_image_shape``), else from the decoded image."""
-
-        def shape(d, idx):
-            if hasattr(d, "get_image_shape"):
-                return tuple(d.get_image_shape(idx)[:2])
-            return np.asarray(d.get_image(idx)[0]).shape[:2]
-
-        return self._draw(rng, shape)
+        return self._draw(rng, _image_shape)
 
     def _draw(self, rng: np.random.Generator, read):
         for _ in range(self.max_retries):
@@ -127,10 +128,47 @@ class RandomImageSampler:
                 d = self.datasets[rng.choice(len(self.datasets), p=self.p)]
                 idx = int(rng.integers(0, d.get_num_images()))
                 return read(d, idx)
+            except OutOfStep:
+                raise
             except Exception:
                 continue
         raise RuntimeError(
             f"failed to sample an image after {self.max_retries} retries")
+
+
+class OutOfStep(RuntimeError):
+    """A row's image failed in a way the node's other ranks cannot see, so
+    they could not follow its retry."""
+
+
+def _image_shape(d, idx: int) -> Tuple[int, int]:
+    if hasattr(d, "get_image_shape"):
+        return tuple(d.get_image_shape(idx)[:2])
+    return np.asarray(d.get_image(idx)[0]).shape[:2]
+
+
+def _decode(d, idx: int) -> np.ndarray:
+    """Image ``idx`` of ``d``. One rank a node retries any failure on a
+    fresh draw, as the JAX package's sampler does. Several ranks draw every
+    row and the others read only its header (:func:`_image_shape`), so they
+    retry alike only what the header read meets: the header is read first,
+    and a decode that fails after it, or gives another size, raises
+    :class:`OutOfStep` instead of drifting the ranks' streams apart."""
+    from dbsr_tpu_torch.parallel.multihost import local_world_size
+    if local_world_size() == 1 or not hasattr(d, "get_image_shape"):
+        return d.get_image(idx)[0]
+    hw = _image_shape(d, idx)
+    try:
+        frame = np.asarray(d.get_image(idx)[0])
+    except Exception as e:
+        raise OutOfStep(
+            f"image {idx} of {type(d).__name__}: its header reads but it "
+            f"does not decode ({e}); the other ranks of the node cannot "
+            "skip it in step: remove it from the dataset") from e
+    if tuple(frame.shape[:2]) != hw:
+        raise OutOfStep(f"image {idx} of {type(d).__name__} decodes to "
+                        f"{frame.shape[:2]}, its header says {hw}")
+    return frame
 
 
 class IndexedImageSampler:
@@ -155,8 +193,9 @@ class CropBatcher:
     same seed and datasets the batches equal the JAX package's bit for
     bit. Under data parallelism every rank of a node draws the randomness
     of the whole batch and decodes and crops only its own rows
-    (``multihost.process_local_batch_slice``): the other rows' draws need
-    only the image's size (``RandomImageSampler.sample_shape``)."""
+    (``multihost.process_local_batch_slice``): the other rows take the same
+    draws (``_draws``, shared by both) on the image's size alone
+    (``RandomImageSampler.sample_shape``)."""
 
     def __init__(self, sampler, batch_size: int, crop_sz: Tuple[int, int],
                  scale_range=None, ar_range=None, random_flip: bool = True,
@@ -186,9 +225,13 @@ class CropBatcher:
         from dbsr_tpu_torch.parallel.multihost import \
             process_local_batch_slice
         lo, n = process_local_batch_slice(self.batch_size)
-        crops = [self._crop() if lo <= j < lo + n else self._skip()
-                 for j in range(self.batch_size)]
-        batch = np.stack(crops[lo:lo + n])
+        crops = []
+        for j in range(self.batch_size):
+            if lo <= j < lo + n:
+                crops.append(self._crop())
+            else:  # another rank's row: its draws, on its image's size
+                self._draws(self.sampler.sample_shape(self.rng))
+        batch = np.stack(crops)
         if self.transfer_dtype == "uint8":
             # 8-bit sRGB, the source JPEGs' own precision: 4x fewer bytes
             # to the card
@@ -196,33 +239,30 @@ class CropBatcher:
                 np.uint8)
         return batch
 
+    def _draws(self, hw: Tuple[int, int]):
+        """A row's draws after its image, in the JAX package's order, on an
+        image of size ``hw``: the brightness factor (None without jitter),
+        the flip, the crop window (None: the centre crop)."""
+        factor = np.exp(self.rng.uniform(-self.brightness_jitter,
+                                         self.brightness_jitter)) \
+            if self.brightness_jitter > 0.0 else None
+        flip = self.random_flip and self.rng.random() < 0.5
+        window = crop_window(self.rng, hw, self.crop_sz, self.scale_range,
+                             self.ar_range) if self.random_crop else None
+        return factor, flip, window
+
     def _crop(self) -> np.ndarray:
         frame = np.asarray(self.sampler.sample(self.rng))
+        factor, flip, window = self._draws(frame.shape[:2])
         if frame.dtype == np.uint8:
             frame = frame.astype(np.float32) / 255.0
-        if self.brightness_jitter > 0.0:
-            factor = np.exp(self.rng.uniform(-self.brightness_jitter,
-                                             self.brightness_jitter))
+        if factor is not None:
             frame = np.clip(frame * factor, 0.0, 1.0)
-        if self.random_flip and self.rng.random() < 0.5:
+        if flip:
             frame = frame[:, ::-1]
-        if self.random_crop:
-            crop = random_resized_crop(self.rng, frame, self.crop_sz,
-                                       self.scale_range, self.ar_range)
-        else:
-            crop = center_crop(frame, self.crop_sz)
+        crop = center_crop(frame, self.crop_sz) if window is None \
+            else take_window(frame, window, self.crop_sz)
         return np.ascontiguousarray(crop, np.float32)
-
-    def _skip(self) -> None:
-        """:meth:`_crop`'s draws, in its order, without the image."""
-        hw = self.sampler.sample_shape(self.rng)
-        if self.brightness_jitter > 0.0:
-            self.rng.uniform(-self.brightness_jitter, self.brightness_jitter)
-        if self.random_flip:
-            self.rng.random()
-        if self.random_crop:
-            crop_window(self.rng, hw, self.crop_sz, self.scale_range,
-                        self.ar_range)
 
 
 def pinned_device_put(device) -> Callable:

@@ -177,6 +177,20 @@ def local_rows(tree, global_batch: int):
     return cut(tree)
 
 
+def global_mean_weight(count: torch.Tensor) -> torch.Tensor:
+    """``W * count / (count summed over the W ranks)``, 1 single-process: a
+    rank's mean over its ``count`` items times this, averaged over the ranks
+    (as the trainer averages gradients and stats), is one mean over every
+    rank's items."""
+    W = world_size()
+    count = count.detach().float()
+    if W == 1:
+        return torch.ones_like(count)
+    total = count.clone()
+    dist.all_reduce(total)
+    return W * count / total.clamp_min(1e-12)
+
+
 def barrier() -> None:
     if world_size() > 1:
         dist.barrier()

@@ -9,6 +9,7 @@ import torch
 
 from dbsr_tpu_torch.ops import metrics
 from dbsr_tpu_torch.ops.interp import resize_bilinear
+from dbsr_tpu_torch.parallel import multihost
 
 
 def make_synthetic_actor(net: torch.nn.Module, loss_weight: float = 1.0,
@@ -139,7 +140,13 @@ def make_realworld_actor(net: torch.nn.Module, sca_apply: Callable,
     (``sca_apply(pred, gt, burst) -> (pred_warped, valid)``,
     ``models/sca.py``), then ``loss = loss_weight * pixel_error`` masked by
     ``valid``; stats ``Loss/total``, ``Loss/rgb`` and the masked
-    ``Stat/psnr``."""
+    ``Stat/psnr``. Under data parallelism the masked mean is one over every
+    rank's rows, as the JAX package's data mesh takes it: each rank's mean
+    is weighted by its share of the valid pixels
+    (``multihost.global_mean_weight``) before the trainer averages the
+    ranks' gradients and stats. ``Stat/psnr`` is the ranks' mean of their
+    per-sample means, which is the batch's wherever every sample's PSNR is
+    finite."""
 
     def actor(batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         pred, _ = net(batch["burst"])
@@ -148,6 +155,10 @@ def make_realworld_actor(net: torch.nn.Module, sca_apply: Callable,
         loss_rgb = metrics.pixel_error(pred_warped, gt, metric,
                                        boundary_ignore=boundary_ignore,
                                        valid=valid)
+        if valid is not None and multihost.world_size() > 1:
+            b = boundary_ignore
+            counted = valid[..., b:-b, b:-b, :] if b else valid
+            loss_rgb = loss_rgb * multihost.global_mean_weight(counted.sum())
         loss = loss_weight * loss_rgb
         with torch.no_grad():
             psnr = metrics.psnr(pred_warped, gt,

@@ -91,6 +91,37 @@ def _dp_step(root):
             "params": {k: v.clone() for k, v in net.state_dict().items()}}
 
 
+def _realworld_sca(pred, gt, burst):
+    """A stand-in for SCA's alignment: the prediction as it is, valid where
+    the ground truth's red exceeds 0.25."""
+    return pred, (gt[..., :1] > 0.25).float()
+
+
+def _realworld_step(root):
+    """One realworld-actor step (its masked mean, here of the L2 error: the
+    L1's gradient jumps where a pixel's error changes sign, so the float32
+    rounding of 1 rank and 2 ranks would part there) through
+    ``Trainer.train_step`` on this rank's rows of the fixed batch, whose
+    last two rows are dimmed so that far fewer of their pixels are valid:
+    the reduced loss, gradients and updated parameters."""
+    from dbsr_tpu_torch.training.actors import make_realworld_actor
+    net, batch = _step_problem(root)
+    batch["frame_gt"][2:] *= 0.3
+    trainer = Trainer(net, make_realworld_actor(net, _realworld_sca,
+                                                boundary_ignore=8,
+                                                metric="l2"),
+                      make_optimizer(base_lr=1e-4, steps_per_epoch=2), [],
+                      lambda g, b: multihost.local_rows(b, STEP_B),
+                      os.path.join(root, "unused"), device="cpu")
+    state = trainer.tx.init(net)
+    stats = trainer.train_step(state, None, batch)
+    loss = stats["Loss/total"].reshape(1).clone()
+    multihost.all_reduce_mean_([loss])
+    grads = {k: p.grad.clone() for k, p in state.trainable().items()}
+    return {"loss": loss, "grads": grads,
+            "params": {k: v.clone() for k, v in net.state_dict().items()}}
+
+
 def _pool_trainer(workspace):
     net = dbsrnet_tiny()
     train = ProceduralPoolBatcher(ProceduralImagePool(8, CFG.pre_crop_sz,
@@ -159,6 +190,7 @@ def _rank_main(root):
            "node": (multihost.node_index(), multihost.node_count()),
            "slice": multihost.process_local_batch_slice(STEP_B),
            "step": _dp_step(root),
+           "realworld": _realworld_step(root),
            "pool": _pool_run(os.path.join(root, "pool2")),
            "smoke": _smoke_tiny(os.path.join(root, "smoke2"))}
     try:
@@ -357,6 +389,35 @@ def test_crop_batcher_rank_rows_decode_only_their_images(tmp_path,
         assert len(decodes) == 6  # 2 rows a batch, 3 batches
 
 
+def test_a_decode_that_fails_after_its_header_raises_under_ranks(
+        tmp_path, monkeypatch):
+    """An image whose header reads but whose pixels do not: one rank a node
+    retries it on a fresh draw (the JAX package's sampler); the skipping
+    ranks read its header alone and could not follow that retry, so under
+    2 ranks its owner raises instead of drifting the streams apart."""
+    from dbsr_tpu_torch.data.pipeline import OutOfStep
+    folder = _pngs(tmp_path, n=2)
+    bad = os.path.join(folder.root, folder.image_list[0])
+    with open(bad, "r+b") as f:  # keep the signature and IHDR, cut IDAT
+        f.truncate(60)
+    sampler = RandomImageSampler([folder], [1.0], 4)
+
+    def first_image(seed):  # the sampler's first draw: dataset, then image
+        rng = np.random.default_rng(seed)
+        rng.choice(1, p=sampler.p)
+        return rng.integers(0, 2)
+
+    seed = next(s for s in range(100) if first_image(s) == 0)
+    assert sampler.sample_shape(np.random.default_rng(seed)) == \
+        datasets.image_size(bad)
+    got = sampler.sample(np.random.default_rng(seed))
+    assert got.shape[:2] == datasets.image_size(
+        os.path.join(folder.root, folder.image_list[1]))
+    monkeypatch.setattr(multihost, "local_world_size", lambda: 2)
+    with pytest.raises(OutOfStep, match="does not decode"):
+        sampler.sample(np.random.default_rng(seed))
+
+
 def test_burst_batcher_rank_rows_read_only_their_bursts(tmp_path,
                                                         monkeypatch):
     from dbsr_tpu_torch.data.make_synthetic_burstsr import generate_dataset
@@ -509,6 +570,25 @@ def test_data_parallel_step_matches_the_jax_mesh_step(ranks):
         assert torch.equal(v, r1["params"][k]), k
     for k, v in r0["grads"].items():
         assert torch.equal(v, r1["grads"][k]), k
+
+
+def test_realworld_masked_mean_over_two_ranks_is_one_ranks(ranks):
+    """The realworld actor's masked L1 on 2 ranks whose rows hold very
+    different shares of valid pixels (about 3/4 and 1/6) takes the step of
+    one masked mean over the whole batch at 1 rank: the loss, the reduced
+    gradients and the parameters after the step; the ranks bit-equal."""
+    one = _realworld_step(ranks["root"])
+    r0, r1 = (r["realworld"] for r in ranks["ranks"])
+    np.testing.assert_allclose(r0["loss"].item(), one["loss"].item(),
+                               rtol=RTOL)
+    assert torch.equal(r0["loss"], r1["loss"])
+    for part in ("grads", "params"):
+        assert set(r0[part]) == set(one[part])
+        for k, v in one[part].items():
+            np.testing.assert_allclose(r0[part][k].numpy(), v.numpy(),
+                                       rtol=RTOL, atol=ATOL,
+                                       err_msg=f"{part} {k}")
+            assert torch.equal(r0[part][k], r1[part][k]), k
 
 
 def test_two_ranks_take_the_steps_of_one_on_the_pool_path(ranks, tmp_path):
