@@ -333,11 +333,43 @@ the eval entries, ``default_realworld``) or its bf16 default
     frames bit-equal to png16 and ms a burst by each path, BurstSR's
     reader ms a burst through ``read_png`` and through png16.
 
+19. the last slice (LPIPS, visualize, the reference-checkpoint converter,
+    ``load_trained_network``, ``ConvFlow``): (a) LPIPS with seeded random
+    weights (an ``.npz``, as ``tests/test_torch_port_lpips.py`` makes them)
+    on the flagship's bf16 predictions of 8 of phase 11's bursts against
+    their ground truths at boundary 40, card against CPU on the same
+    inputs (1e-4 relative), in one pass over the 8 (``reduce=False``), ms
+    a burst; (b) ``synburst.compute_score`` of
+    the flagship at its recorded bf16 with ``lpips_weights`` on 16 bursts
+    of phase 11's set: exact launches, PSNR and SSIM against the same call
+    without LPIPS within phase 11's limits, ms a burst by
+    part (forward, metrics, LPIPS); the LPIPS mean of 2 bursts against a
+    CPU ``compute_score`` of the same predictions (``save_results`` on the
+    card, scored from the PNGs on the CPU; 1e-4 relative); (c) ``python -m
+    dbsr_tpu_torch.run_evaluation synburst visualize dbsr_default`` (its
+    ``main``) on 3 bursts, the workspace holding the banked flagship: four
+    PNGs a burst and ``index.html``, exact launches, each prediction pane
+    equal to a batch-1 ``load_predictor`` output through ``_postprocess``
+    (>= 99.9% of pixels equal, none more than 1 LSB off), each panel's PSNR
+    within 0.01 dB of ``compute_score``'s per-burst value at batch 1; (d)
+    ``burstsr visualize`` on 2 bursts of phase 13's tree, exact launches,
+    the aligned PSNRs within 0.01 dB of ``burstsr.compute_score``'s per
+    burst; (e) ``convert_dbsr_state_dict`` of a seeded r3d-shaped reference
+    state dict (``reference_state_dict`` of a seeded r3d network): its
+    tensors, and its forward on the card, bit-equal to the same weights'
+    through ``params_from_flax``; (f) a
+    full-width ``flow_net='conv'`` DBSRNet's forward card vs CPU (1e-3),
+    then three bf16 steps of ``default_synthetic`` with ``flow_net=conv``
+    and no flow checkpoint (ConvFlow trained end to end) at B=16: finite
+    losses, exact launches, ms a step; (g) ``load_trained_network`` on
+    phase 7b's workspace: the path ``resolve_checkpoint`` gives and a
+    forward bit-equal to ``load_network``'s.
+
 The second-to-last line is ``{"kernels": [...]}`` (all ten kernels;
 ``launches`` is the count on the entry's own ``path``, whose shapes its
 times are summed over, except the s2d conv's, whose times are one launch's
 and whose path launches it 8 times per forward; ``launches_by_path`` has
-the counts on all thirty-five paths (``eval``: phase 11's generation and
+the counts on all thirty-nine paths (``eval``: phase 11's generation and
 flagship scoring; ``eval_r3d``, ``serving_r3d_3_requests`` and the
 ``pwc_*_step`` paths: PWC-Net's; ``burstsr_eval`` and
 ``burstsr_eval_r3d``: phase 13c's scoring of 3 bursts; ``realworld_step``:
@@ -350,7 +382,9 @@ bursts, ``warp_affine`` one call, whose row is the resample's last
 posted bursts, ``resume_params_only_step_bf16`` and
 ``async_ckpt_step_bf16`` per step; phase 18's: ``dp_step_bf16_rank`` per
 step of one rank, ``serving_2_replicas_bf16`` one call of two replicas,
-``frame_sharded_forward_rank`` one rank's forward);
+``frame_sharded_forward_rank`` one rank's forward; phase 19's:
+``eval_lpips_bf16`` its 16 bursts, ``visualize_synburst_bf16`` its 3,
+``visualize_burstsr_bf16`` its 2, ``conv_flow_step_bf16`` per step);
 ``device_ms``, ``kernel_device_ms`` and ``library_device_ms`` beside
 ``ms`` and ``library_ms``; the s2d conv's ``bound_ms`` is that of its own
 math, 3xTF32 on the tensor cores, also given as ``tc_bound_ms``, and
@@ -610,6 +644,29 @@ WARP_AFFINE_SHAPE = (8, 432, 432, 3)
 LAUNCHES_PER_SMOKE_TINY_STEP = LAUNCHES_PER_PWC_FROZEN_STEP
 SMOKE_TINY_STEPS = 8
 SOURCE_DIR_BURSTS = 3
+
+# phase 19, the last slice: LPIPS card vs CPU (float32, TF32 off: sums in
+# another order) on LPIPS_BURSTS flagship predictions; compute_score with
+# LPIPS on LPIPS_EVAL_BURSTS bursts, its LPIPS mean against the CPU's on
+# LPIPS_CPU_BURSTS; visualize on VIS_SYN_BURSTS and VIS_RW_BURSTS bursts, a
+# pane against the predictor's output (the share of pixels equal, none more
+# than 1 LSB off), a panel's two-decimal PSNR against the scoring's
+LPIPS_RTOL = 1e-4
+LPIPS_BURSTS, LPIPS_EVAL_BURSTS, LPIPS_CPU_BURSTS = 8, 16, 2
+VIS_SYN_BURSTS, VIS_RW_BURSTS = 3, 2
+VIS_EQUAL_SHARE, VIS_PSNR_DB = 0.999, 0.01
+CONV_FLOW_STEPS = 3
+# per bf16 default_synthetic step with flow_net='conv' and no flow
+# checkpoint (ConvFlow, two convs, trained end to end): the synthesis'
+# resample; the 512-channel feature warp (ConvFlow has no backwarp and no
+# cost volume) with d_feat and d_flow; the merge and its backward; the s2d
+# conv forward and as d_input
+LAUNCHES_PER_CONV_FLOW_STEP = {"resample": 1, "warp": 1, "correlation": 0,
+                               "merge": 1, "warp_dfeat": 1, "warp_dflow": 1,
+                               "merge_backward": 1, "correlation_dfirst": 0,
+                               "correlation_dsecond": 0,
+                               "conv_s2d": 2 * LAUNCHES_S2D_PER_FORWARD}
+
 
 def log(*a):
     print(*a, flush=True)
@@ -6041,6 +6098,440 @@ def parallel_phase(dev, workdir, requests):
     return out, paths
 
 
+# ---------------------------------------------------------------------------
+# phase 19: LPIPS, visualize, the converter, load_trained_network, ConvFlow
+
+
+def lpips_npz(workdir):
+    """Seeded random LPIPS weights in the ``.npz`` layout (the recipe of
+    ``tests/test_torch_port_lpips.py``; no published weights are in the
+    repository)."""
+    from dbsr_tpu_torch.models.lpips import _ALEX_CONVS
+
+    rng = np.random.RandomState(0)
+    w, in_ch = {}, 3
+    for i, (out_ch, k, _, _) in enumerate(_ALEX_CONVS):
+        w[f"conv{i}_w"] = (0.1 * rng.randn(k, k, in_ch, out_ch)).astype(
+            np.float32)
+        w[f"conv{i}_b"] = (0.01 * rng.randn(out_ch)).astype(np.float32)
+        in_ch = out_ch
+    for i, (out_ch, _, _, _) in enumerate(_ALEX_CONVS):
+        w[f"lin{i}_w"] = np.abs(rng.randn(1, 1, out_ch, 1)).astype(np.float32)
+    path = os.path.join(workdir, "lpips_alex.npz")
+    np.savez(path, **w)
+    return path
+
+
+def _rel(a, b):
+    return abs(a - b) / abs(b)
+
+
+def lpips_card_vs_cpu(root, npz):
+    """19a: LPIPS of the flagship's (bf16, its recorded dtype) quantized
+    predictions of the first LPIPS_BURSTS bursts against their ground
+    truths at the protocol's boundary, in one per-sample pass over them,
+    card against CPU on the same tensors, and its ms a burst on the
+    card."""
+    from dbsr_tpu_torch.data.datasets import SyntheticBurstVal
+    from dbsr_tpu_torch.evaluation import synburst
+    from dbsr_tpu_torch.evaluation.network_param import NetworkParam
+    from dbsr_tpu_torch.models.lpips import load_lpips
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT
+
+    ds = SyntheticBurstVal(root)
+    bursts = np.stack([ds[i][0] for i in range(LPIPS_BURSTS)])
+    gts = torch.from_numpy(np.stack([ds[i][1] for i in range(LPIPS_BURSTS)]))
+    net, _ = NetworkParam(checkpoint_path=FLAGSHIP_CHECKPOINT).load_net(
+        "", "cuda")
+    preds = synburst.quantize(synburst._forward_fn(net)(
+        torch.from_numpy(bursts).cuda()))
+    del net
+    fn = load_lpips(npz)
+    gts_d = gts.cuda()
+
+    def card():
+        return fn(preds, gts_d, EVAL_BOUNDARY, reduce=False)
+
+    got = card().cpu()
+    want = fn(preds.cpu(), gts, EVAL_BOUNDARY, reduce=False)
+    rel = float(((got - want).abs() / want.abs()).max())
+    ms = cuda_ms(card, 2, 5) / LPIPS_BURSTS
+    log(f"19a: LPIPS of {LPIPS_BURSTS} flagship predictions ({preds.shape[1]}"
+        f"^2, boundary {EVAL_BOUNDARY}), card vs CPU: largest relative "
+        f"difference {rel:.2e} (limit {LPIPS_RTOL}); values "
+        + ", ".join(f"{v:.6f}" for v in got.tolist())
+        + f"; {ms:.3f} ms a burst on the card (CUDA events, median of 5)")
+    if not rel <= LPIPS_RTOL:
+        raise AssertionError(f"19a: LPIPS card vs CPU {rel} > {LPIPS_RTOL}")
+    return dict(bursts=LPIPS_BURSTS, max_rel=rel, values=got.tolist(),
+                ms_per_burst=ms)
+
+
+def lpips_scoring_phase(root, npz, workdir):
+    """19b: ``compute_score`` of the flagship (bf16) with ``lpips_weights``
+    on LPIPS_EVAL_BURSTS bursts (exact launches), its
+    PSNR / SSIM against the same call without LPIPS, ms a burst by part;
+    the LPIPS mean of LPIPS_CPU_BURSTS bursts against a CPU
+    ``compute_score`` of the same predictions, saved by ``save_results``
+    on the card."""
+    from dbsr_tpu_torch.data.datasets import SyntheticBurstVal
+    from dbsr_tpu_torch.evaluation import synburst
+    from dbsr_tpu_torch.evaluation.network_param import NetworkParam
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT
+
+    nets = [NetworkParam(checkpoint_path=FLAGSHIP_CHECKPOINT,
+                         display_name="dbsr_campaign_r5")]
+    name = nets[0].get_display_name()
+    n_forwards = -(-LPIPS_EVAL_BURSTS // EVAL_BATCH)
+    timing, per_burst = {}, {}
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        got = synburst.compute_score(
+            nets, root, max_bursts=LPIPS_EVAL_BURSTS, lpips_weights=npz,
+            device="cuda", timing=timing, per_burst=per_burst)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    for line in buf.getvalue().splitlines():
+        log(f"  | {line}")
+    want = {k: LAUNCHES_PER_S2D_FORWARD.get(k, 0) * n_forwards
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"19b: launches {launches}, expected {want}")
+    if list(got) != ["psnr", "ssim", "lpips"] or not all(
+            math.isfinite(v[name]) for v in got.values()):
+        raise AssertionError(f"19b: scores {got}")
+    with contextlib.redirect_stdout(io.StringIO()):
+        plain = synburst.compute_score(nets, root,
+                                       max_bursts=LPIPS_EVAL_BURSTS,
+                                       with_lpips=False, device="cuda")
+    worst = _scores_close("19b: PSNR / SSIM with LPIPS vs without",
+                          {m: got[m] for m in plain}, plain,
+                          EVAL_PSNR_TOL, EVAL_SSIM_TOL)
+    t = timing[name]
+    parts = {k: t[k] / LPIPS_EVAL_BURSTS for k in
+             ("forward_ms", "metrics_ms", "lpips_ms")}
+    log(f"19b: flagship bf16 with LPIPS, {LPIPS_EVAL_BURSTS} bursts: PSNR "
+        f"{got['psnr'][name]:.4f} dB, SSIM {got['ssim'][name]:.4f}, LPIPS "
+        f"{got['lpips'][name]:.6f} (random weights); launches {launches}; "
+        f"ms a burst on the device: " + ", ".join(
+            f"{k[:-3]} {v:.3f}" for k, v in parts.items())
+        + f"; wall {wall * 1e3 / LPIPS_EVAL_BURSTS:.2f} ms a burst")
+
+    # the CPU's LPIPS of the same predictions: saved on the card, read back
+    ds = SyntheticBurstVal(root, num_bursts=LPIPS_CPU_BURSTS)
+    saved = os.path.join(workdir, "lpips_saved")
+    card_per = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        synburst.save_results(nets, root, saved, dataset=ds, device="cuda")
+        card = synburst.compute_score(nets, root, lpips_weights=npz,
+                                      dataset=ds, device="cuda",
+                                      per_burst=card_per)
+        cpu = synburst.compute_score(nets, root, saved_results_root=saved,
+                                     lpips_weights=npz, dataset=ds,
+                                     device="cpu")
+    rel = _rel(card["lpips"][name], cpu["lpips"][name])
+    log(f"19b: LPIPS mean of {LPIPS_CPU_BURSTS} bursts, card (live) "
+        f"{card['lpips'][name]:.7f} vs CPU (the card's saved predictions) "
+        f"{cpu['lpips'][name]:.7f}: relative {rel:.2e} (limit {LPIPS_RTOL})")
+    if not rel <= LPIPS_RTOL:
+        raise AssertionError(f"19b: LPIPS card vs CPU {rel} > {LPIPS_RTOL}")
+    return dict(scores=got, without_lpips_max_abs=worst, launches=launches,
+                ms_per_burst=parts, wall_ms_per_burst=wall * 1e3
+                / LPIPS_EVAL_BURSTS, cpu_lpips_rel=rel,
+                per_burst_lpips=per_burst[name]["lpips"].tolist()), launches
+
+
+def _read_u8(path):
+    from dbsr_tpu_torch.utils.png16 import read_png
+
+    return read_png(path).astype(np.int16)
+
+
+def _panel_psnrs(d, tag):
+    out = {}
+    for f in os.listdir(d):
+        m = re.fullmatch(rf"(.+)_{tag}(-?[\d.]+)\.png", f)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def _cli_visualize(argv, per_burst_launches, n_bursts):
+    """``run_evaluation.main(argv)`` with the counters reset just before and
+    read just after: the launches exactly ``per_burst_launches`` a burst.
+    Returns its seconds and launches."""
+    from dbsr_tpu_torch import run_evaluation
+
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        run_evaluation.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    want = {k: per_burst_launches.get(k, 0) * n_bursts for k in launches}
+    log(f"run_evaluation {' '.join(argv)}: {secs:.2f} s, launches "
+        f"{launches}")
+    if launches != want:
+        raise AssertionError(f"{argv[:2]}: launches {launches}, expected "
+                             f"{want}")
+    return secs, launches
+
+
+def visualize_phase(workdir, syn_root, rw_root):
+    """19c-d: ``run_evaluation {synburst,burstsr} visualize dbsr_default``
+    with the banked flagship as the workspace's ``dbsr/default_synthetic``
+    checkpoint (bf16, the s2d decoder)."""
+    import shutil
+
+    from dbsr_tpu_torch.data.datasets import SyntheticBurstVal
+    from dbsr_tpu_torch.evaluation import burstsr as rw_eval
+    from dbsr_tpu_torch.evaluation import synburst
+    from dbsr_tpu_torch.evaluation.network_param import NetworkParam
+    from dbsr_tpu_torch.evaluation.visualize import _postprocess, _to_u8
+    from dbsr_tpu_torch.serving import FLAGSHIP_CHECKPOINT, load_predictor
+
+    ws = os.path.join(workdir, "vis_ws")
+    ckpt_dir = os.path.join(ws, "dbsr", "default_synthetic")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    shutil.copy(FLAGSHIP_CHECKPOINT,
+                os.path.join(ckpt_dir, "dbsr_synthetic_ep0060.ckpt"))
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = ws
+    name = "dbsr_default_synthetic"
+    nets = [NetworkParam(module="dbsr", parameter="default_synthetic")]
+    out, paths = {}, {}
+
+    # (c) synburst
+    vis = os.path.join(workdir, "synburst_vis")
+    out["synburst_s"], paths["visualize_synburst_bf16"] = _cli_visualize(
+        ["synburst", "visualize", "dbsr_default", "--dataset_root", syn_root,
+         "--out_dir", vis, "--max_bursts", str(VIS_SYN_BURSTS)],
+        LAUNCHES_PER_S2D_FORWARD, VIS_SYN_BURSTS)
+    d = os.path.join(vis, name)
+    files = sorted(os.listdir(d))
+    if len(files) != 4 * VIS_SYN_BURSTS + 1 or "index.html" not in files:
+        raise AssertionError(f"19c: {files}")
+    pred = load_predictor(FLAGSHIP_CHECKPOINT, batch_size=1, device="cuda")
+    ds = SyntheticBurstVal(syn_root)
+    per = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        # at batch 1, as visualize runs: the bf16 forward's roundings
+        # depend on the batch's cuDNN algorithms
+        synburst.compute_score(nets, syn_root, workspace_dir=ws,
+                               max_bursts=VIS_SYN_BURSTS, with_lpips=False,
+                               batch_size=1, device="cuda", per_burst=per)
+    named = _panel_psnrs(d, "psnr")
+    equal, psnr_gap = [], []
+    for i in range(VIS_SYN_BURSTS):
+        burst, _, meta = ds[i]
+        want = _to_u8(_postprocess(torch.from_numpy(pred(burst)[0]).cuda(),
+                                   meta).cpu().numpy()).astype(np.int16)
+        got = _read_u8(os.path.join(d, f"{meta['burst_name']}_"
+                                       f"prediction.png"))
+        diff = np.abs(got - want)
+        equal.append(float((diff == 0).mean()))
+        if diff.max() > 1 or equal[-1] < VIS_EQUAL_SHARE:
+            raise AssertionError(f"19c: burst {i}'s prediction pane vs the "
+                                 f"predictor: {equal[-1]} equal, max "
+                                 f"{diff.max()}")
+        psnr_gap.append(abs(named[meta["burst_name"]]
+                            - float(per[name]["psnr"][i])))
+    del pred
+    log(f"19c: {VIS_SYN_BURSTS} bursts, 4 PNGs each and index.html; the "
+        f"prediction panes vs load_predictor(batch 1) through _postprocess: "
+        f"{min(equal):.6f} of pixels equal at least, none more than 1 LSB "
+        f"off; panel PSNR vs compute_score per burst: largest gap "
+        f"{max(psnr_gap):.4f} dB (limit {VIS_PSNR_DB})")
+    if max(psnr_gap) > VIS_PSNR_DB:
+        raise AssertionError(f"19c: PSNR in a panel's name {psnr_gap}")
+    out["synburst"] = dict(pane_equal_share=equal, psnr_gap_db=psnr_gap)
+    torch.cuda.empty_cache()
+
+    # (d) burstsr on phase 13's tree
+    vis = os.path.join(workdir, "burstsr_vis")
+    out["burstsr_s"], paths["visualize_burstsr_bf16"] = _cli_visualize(
+        ["burstsr", "visualize", "dbsr_default", "--dataset_root", rw_root,
+         "--out_dir", vis, "--max_bursts", str(VIS_RW_BURSTS)],
+        LAUNCHES_PER_RW_LITE_BURST, VIS_RW_BURSTS)
+    d = os.path.join(vis, name)
+    per = {}
+    with contextlib.redirect_stdout(io.StringIO()):
+        rw_eval.compute_score(nets, rw_root, workspace_dir=ws,
+                              max_bursts=VIS_RW_BURSTS, with_lpips=False,
+                              device="cuda", per_burst=per)
+    named = _panel_psnrs(d, "apsnr")
+    gaps = [abs(named[k] - float(v)) for k, v in
+            zip(sorted(named), per[name]["psnr"])]
+    if len(named) != VIS_RW_BURSTS or len(os.listdir(d)) != \
+            4 * VIS_RW_BURSTS + 1 or max(gaps) > VIS_PSNR_DB:
+        raise AssertionError(f"19d: {sorted(os.listdir(d))}, gaps {gaps}")
+    log(f"19d: {VIS_RW_BURSTS} BurstSR bursts: aligned PSNRs "
+        f"{sorted(named.items())}; vs compute_score per burst: largest gap "
+        f"{max(gaps):.4f} dB (limit {VIS_PSNR_DB})")
+    out["burstsr"] = dict(apsnr=named, psnr_gap_db=gaps)
+    return out, paths
+
+
+def convert_dbsr_phase(requests):
+    """19e: a seeded reference state dict of r3d's shape converted by
+    ``convert_dbsr_state_dict`` gives the tensors, and on the card the
+    forward, of the same weights loaded through ``params_from_flax``
+    (flax-layout names made by ``params_to_flax``), bit for bit; the two
+    forwards with ``cudnn.deterministic`` (PWC-Net's transposed convs run
+    cuDNN's backward-data algorithms, which may sum in any order)."""
+    from dbsr_tpu_torch.data.procedural import make_generator
+    from dbsr_tpu_torch.models.dbsr import DBSRNet
+    from dbsr_tpu_torch.models.layers import init_params
+    from dbsr_tpu_torch.serving import float32_math
+    from dbsr_tpu_torch.training.checkpoint import read_header
+    from dbsr_tpu_torch.utils.convert import params_from_flax, params_to_flax
+    from dbsr_tpu_torch.utils.convert_dbsr import (convert_dbsr_state_dict,
+                                                   reference_state_dict)
+
+    kwargs = dict(read_header(R3D_CHECKPOINT)["net_spec"]["kwargs"],
+                  dtype=None)
+    src = init_params(DBSRNet(**kwargs), make_generator("cpu", 19))
+    ref = reference_state_dict(src)
+    burst = torch.from_numpy(requests[2][None]).cuda()
+    sds = (convert_dbsr_state_dict(ref),
+           params_from_flax(params_to_flax(src.state_dict())))
+    if sds[0].keys() != sds[1].keys() or not all(
+            torch.equal(sds[0][k], sds[1][k]) for k in sds[1]):
+        raise AssertionError("19e: the converted reference tensors differ "
+                             "from params_from_flax's")
+    preds = []
+    cudnn = torch.backends.cudnn
+    for sd in sds:
+        net = DBSRNet(**kwargs)
+        net.load_state_dict(sd, strict=True)
+        cudnn.deterministic = True
+        try:
+            with torch.no_grad(), float32_math():
+                preds.append(net.cuda().eval()(burst)[0].cpu())
+        finally:
+            cudnn.deterministic = False
+    if not torch.equal(*preds) or not torch.isfinite(preds[0]).all():
+        raise AssertionError("19e: the converted reference weights' forward "
+                             "differs from params_from_flax's")
+    log(f"19e: convert_dbsr_state_dict of a seeded r3d-shaped reference "
+        f"state dict ({len(ref)} tensors): the forward on the card "
+        f"{tuple(preds[0].shape)} bit-equal to params_from_flax's")
+    return dict(tensors=len(ref), bit_equal=True)
+
+
+def conv_flow_phase(dev, workdir, requests):
+    """19f: a full-width ``flow_net='conv'`` DBSRNet, card vs CPU (float32,
+    seeded); three bf16 ``default_synthetic`` steps with ``flow_net=conv``
+    and no flow checkpoint at B=16, exact launches."""
+    from dbsr_tpu_torch.data.procedural import make_generator
+    from dbsr_tpu_torch.models.dbsr import ConvFlow, dbsrnet_cvpr2021
+    from dbsr_tpu_torch.models.layers import init_params
+    from dbsr_tpu_torch.serving import float32_math
+
+    net = init_params(dbsrnet_cvpr2021(flow_net="conv",
+                                       fused_s2d_decoder=True),
+                      make_generator("cpu", 19)).eval()
+    burst = torch.from_numpy(requests[2][None])
+    with torch.no_grad(), float32_math():
+        cpu = net(burst)[0]
+        card = net.cuda()(burst.cuda())[0].cpu()
+    gap = float((card - cpu).abs().max())
+    log(f"19f: ConvFlow DBSRNet (full width, float32), card vs CPU: max abs "
+        f"{gap:.2e} (limit {CARD_VS_CPU_TOL}), output max {float(cpu.max()):.4f}")
+    if not gap <= CARD_VS_CPU_TOL:
+        raise AssertionError(f"19f: ConvFlow card vs CPU {gap}")
+    del net
+
+    os.environ["DBSR_TPU_WORKSPACE_DIR"] = os.path.join(workdir, "conv_flow")
+    trainer, state = default_synthetic_trainer(
+        dev, flow_net="conv", compute_dtype="bfloat16", fused_s2d_decoder=True)
+    if not isinstance(trainer.net.encoder.alignment_net, ConvFlow) or not \
+            trainer.net.encoder.train_alignment:
+        raise AssertionError("19f: the trainer does not train a ConvFlow")
+    pool = trainer.loaders[0].batcher.next_batch()
+    trainer.train_step(state, make_generator(dev, 7), pool)  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    events, losses = [], []
+    for i in range(CONV_FLOW_STEPS):
+        events.append((torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)))
+        events[-1][0].record()
+        stats = trainer.train_step(state, make_generator(dev, 8 + i), pool)
+        events[-1][1].record()
+        losses.append(stats["Loss/total"])
+    torch.cuda.synchronize()
+    check_counts("19f, ConvFlow default_synthetic bf16", read_counts(),
+                 CONV_FLOW_STEPS, LAUNCHES_PER_CONV_FLOW_STEP)
+    losses = [float(v) for v in losses]
+    step_ms = statistics.median(a.elapsed_time(b) for a, b in events)
+    log(f"19f: {CONV_FLOW_STEPS} bf16 steps at B={TRAIN_B}, ConvFlow trained "
+        f"end to end: losses {losses}, median {step_ms:.2f} ms a step (CUDA "
+        f"events)")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"19f: losses {losses}")
+    del trainer, state
+    return dict(card_vs_cpu_max_abs=gap, losses=losses, step_ms=step_ms), \
+        LAUNCHES_PER_CONV_FLOW_STEP
+
+
+def loading_phase(train_workspace, requests):
+    """19g: ``load_trained_network('dbsr', 'default_synthetic')`` on phase
+    7b's workspace resolves ``resolve_checkpoint``'s path and gives
+    ``load_network``'s forward."""
+    from dbsr_tpu_torch.serving import float32_math
+    from dbsr_tpu_torch.training.checkpoint import (load_network,
+                                                    resolve_checkpoint)
+    from dbsr_tpu_torch.utils.loading import load_trained_network
+
+    path = resolve_checkpoint(os.path.join(train_workspace, "dbsr",
+                                           "default_synthetic"),
+                              "dbsr_synthetic")
+    net, header = load_trained_network("dbsr", "default_synthetic",
+                                       workspace_dir=train_workspace)
+    ref, ref_header = load_network(path)
+    burst = torch.from_numpy(requests[2][None]).cuda()
+    with torch.no_grad(), float32_math():
+        a, b = net(burst)[0], ref(burst)[0]
+    if header != ref_header or not torch.equal(a, b):
+        raise AssertionError("19g: load_trained_network differs from "
+                             f"load_network({path})")
+    log(f"19g: load_trained_network resolved {os.path.basename(path)} "
+        f"(epoch {header['epoch']}), its forward bit-equal to load_network's")
+    return dict(path=os.path.basename(path), epoch=header["epoch"])
+
+
+def completion_phase(dev, workdir, requests):
+    """Phase 19 (19a-19g). Returns its numbers and the launches of its
+    paths."""
+    t0 = time.perf_counter()
+    syn_root = os.path.join(workdir, "synburst_val")
+    rw_root = os.path.join(workdir, "burstsr")
+    npz = lpips_npz(workdir)
+    out, paths = {}, {}
+    out["lpips"] = lpips_card_vs_cpu(syn_root, npz)
+    torch.cuda.empty_cache()
+    out["lpips_scoring"], paths["eval_lpips_bf16"] = lpips_scoring_phase(
+        syn_root, npz, workdir)
+    torch.cuda.empty_cache()
+    vis, vis_paths = visualize_phase(workdir, syn_root, rw_root)
+    out["visualize"] = vis
+    paths.update(vis_paths)
+    torch.cuda.empty_cache()
+    out["convert_dbsr"] = convert_dbsr_phase(requests)
+    torch.cuda.empty_cache()
+    out["conv_flow"], paths["conv_flow_step_bf16"] = conv_flow_phase(
+        dev, workdir, requests)
+    torch.cuda.empty_cache()
+    out["loading"] = loading_phase(os.path.join(workdir, "banked"), requests)
+    out["phase_s"] = time.perf_counter() - t0
+    return out, paths
+
+
 def nccl_ranks_arg(argv):
     """N of ``--nccl-ranks N``; None without arguments."""
     if not argv:
@@ -6296,6 +6787,13 @@ def main():
         # NCCL), multi-device serving, frame sharding, the PNG loaders
         parallel, parallel_paths = parallel_phase(dev, workdir, requests)
         log(f"phase 18: {parallel['phase_s']:.1f} s")
+        torch.cuda.empty_cache()
+
+        # 19. the last slice: LPIPS, visualize, the converter,
+        # load_trained_network, ConvFlow
+        completion, completion_paths = completion_phase(dev, workdir,
+                                                        requests)
+        log(f"phase 19: {completion['phase_s']:.1f} s")
     paths = {"train_step": per_step, "pretrain_step": pre_per_step,
              "train_alignment_step":
                  closing["train_alignment"]["launches_per_step"],
@@ -6308,7 +6806,8 @@ def main():
              "resume_params_only_step_bf16":
                  service_paths["resume_params_only_step_bf16"],
              "async_ckpt_step_bf16": service_paths["async_ckpt_step_bf16"],
-             "dp_step_bf16_rank": parallel_paths["dp_step_bf16_rank"]}
+             "dp_step_bf16_rank": parallel_paths["dp_step_bf16_rank"],
+             "conv_flow_step_bf16": completion_paths["conv_flow_step_bf16"]}
     serving_launches = {"serving_3_requests": launches,
                         "serving_s2d_3_requests": s2d.pop("launches"),
                         "serving_r3d_3_requests":
@@ -6330,7 +6829,10 @@ def main():
                         "serving_2_replicas_bf16":
                             parallel_paths["serving_2_replicas_bf16"],
                         "frame_sharded_forward_rank":
-                            parallel_paths["frame_sharded_forward_rank"]}
+                            parallel_paths["frame_sharded_forward_rank"],
+                        **{k: completion_paths[k] for k in (
+                            "eval_lpips_bf16", "visualize_synburst_bf16",
+                            "visualize_burstsr_bf16")}}
     for e in results:
         # launches on each driven path: the three serving requests through
         # each decoder and of r3d, the eval protocol (the val set's
@@ -6384,7 +6886,7 @@ def main():
                    eval=evaluation, pwc=pwc, realworld=realworld, bf16=bf16,
                    bf16_training=bf16_training,
                    training_data=data, service=service,
-                   parallel=parallel,
+                   parallel=parallel, completion=completion,
                    odd_shapes=odd_shapes, build_s=secs,
                    total_s=time.perf_counter() - t_start, card=smi)
     log("summary " + json.dumps(summary))

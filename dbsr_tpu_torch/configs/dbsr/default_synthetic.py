@@ -33,7 +33,8 @@ Settings read (``--set K=V``): ``batch_size``, ``epochs``,
 ``steps_per_epoch``, ``print_interval``, ``seed``, ``pool_size``,
 ``fused_resample``, ``pwc_checkpoint``, ``train_alignment``, ``grad_clip``,
 ``fused_s2d_decoder`` (``False``: the decoder at fine resolution),
-``flow_net`` (the checkpoint's kind by default), ``compute_dtype``
+``flow_net`` (the checkpoint's kind by default; ``conv``, the two-conv
+``ConvFlow``, trains end to end without a checkpoint), ``compute_dtype``
 (``bfloat16``/``bf16`` or ``float32``/``f32``; any other raises), ``mix``
 (``deadleaves`` or ``mixed``).
 """
@@ -254,8 +255,8 @@ def make_trainer(settings, device="cuda"):
               f"(flow_net={flow_net}, train_alignment={train_alignment})",
               flush=True)
 
-    # the network first: an aligner the port does not run raises before
-    # the source pools are rendered
+    # the network first: an unknown aligner raises before the source pools
+    # are rendered
     net = dbsrnet_cvpr2021(
         enc_init_dim=64, enc_num_res_blocks=9, enc_out_dim=512,
         dec_init_conv_dim=64, dec_num_pre_res_blocks=5,

@@ -10,8 +10,9 @@ PWC-Net directly, in float32 whatever the network's compute dtype (the
 JAX package builds SCA's aligner without one). Bursts are scored one at a
 time, the network at the dtype its checkpoint records, everything else
 in float32 with TF32 off; the per-burst metrics stay on the device until
-one fetch after the loop. LPIPS is not ported (its weights are not in the
-repository).
+one fetch after the loop. With LPIPS weights (as in
+``evaluation/synburst.py``) each burst's LPIPS is taken on the SCA-aligned
+prediction, on the device, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from dbsr_tpu_torch import resolve_device
 from dbsr_tpu_torch.data.burstsr import get_burstsr_val_set
 from dbsr_tpu_torch.evaluation.display import generate_formatted_report
 from dbsr_tpu_torch.evaluation.network_param import NetworkParam
+from dbsr_tpu_torch.evaluation.synburst import _mark, load_lpips_or_none
 from dbsr_tpu_torch.models.align_lite import AlignLiteNet, coarse_to_fine_flow
 from dbsr_tpu_torch.models.layers import compute_dtype_of, set_compute_dtype
 from dbsr_tpu_torch.models.pwcnet import PWCNet
@@ -91,33 +93,32 @@ def save_results(network_params: List[NetworkParam], dataset_root: str,
             write_png(os.path.join(d, f"{sample['burst_name']}.png"), arr)
 
 
-def _scored_fn(net, sca, boundary_ignore: int):
+def _scored_fn(net, sca, boundary_ignore: int, lpips_fn=None):
     """``(burst [N, h, w, 4], gt [H, W, 3]) -> {"psnr", "ssim"}`` of the
-    SCA-aligned prediction, masked, on the device. With ``events`` (a list,
-    on the card) it appends four CUDA events per call: before the forward,
-    SCA and the metrics, and after."""
-
-    def record(events):
-        if events is not None:
-            events.append(torch.cuda.Event(enable_timing=True))
-            events[-1].record()
+    SCA-aligned prediction, masked, on the device, and its ``"lpips"``
+    (unmasked) with ``lpips_fn``. With ``events`` (a list, on the card) it
+    appends a CUDA event before the forward, SCA, the metrics and LPIPS,
+    and after."""
 
     @torch.inference_mode()
     def scored(burst, gt, events=None):
         with float32_math():
-            record(events)
+            _mark(events)
             pred = net(burst[None])[0].clamp(0.0, 1.0)
-            record(events)
+            _mark(events)
             pred_m, valid = sca(pred, gt[None], burst[None])
             valid = valid.to(torch.float32)
-            record(events)
+            _mark(events)
             out = {"psnr": M.psnr(pred_m, gt[None],
                                   boundary_ignore=boundary_ignore,
                                   valid=valid),
                    "ssim": M.ssim_metric(pred_m, gt[None],
                                          boundary_ignore=boundary_ignore,
                                          valid=valid)}
-            record(events)
+            _mark(events)
+            if lpips_fn is not None:
+                out["lpips"] = lpips_fn(pred_m[0], gt, boundary_ignore)
+                _mark(events)
         return out
 
     return scored
@@ -127,22 +128,27 @@ def compute_score(network_params: List[NetworkParam], dataset_root: str,
                   workspace_dir: str = "", boundary_ignore: int = 40,
                   max_bursts: Optional[int] = None, with_lpips: bool = True,
                   dataset=None, sr_factor: int = 4, device="cuda",
-                  timing: Optional[Dict] = None) -> Dict:
-    """Aligned PSNR / SSIM means over the BurstSR val set, ``{metric:
-    {display name: mean}}``. Prints one ``[timing]`` line per network and
-    the report; with a dict ``timing``, each network's numbers also go
-    there under its display name: ``bursts``, ``wall_s``, ``forward_ms``,
-    ``sca_ms`` and ``metrics_ms`` (summed over the bursts, by CUDA events;
-    None off the card), ``reader_s`` (the val set's reads and PNG
-    decodes), ``transfer_s`` and ``fetch_s``."""
+                  timing: Optional[Dict] = None,
+                  lpips_weights: Optional[str] = None,
+                  per_burst: Optional[Dict] = None) -> Dict:
+    """Aligned PSNR / SSIM (/ LPIPS, given its weights) means over the
+    BurstSR val set, ``{metric: {display name: mean}}``. Prints one
+    ``[timing]`` line per network and the report; with a dict ``timing``,
+    each network's numbers also go there under its display name:
+    ``bursts``, ``wall_s``, ``forward_ms``, ``sca_ms``, ``metrics_ms`` and,
+    with LPIPS, ``lpips_ms`` (summed over the bursts, by CUDA events; None
+    off the card), ``reader_s`` (the val set's reads and PNG decodes),
+    ``transfer_s`` and ``fetch_s``. With a dict ``per_burst``, each
+    network's per-burst values go into it, ``{display name: {metric:
+    array}}``."""
     dev = resolve_device(device)
     dataset = dataset or get_burstsr_val_set(dataset_root)
     n_bursts = min(len(dataset), max_bursts or len(dataset))
-    if with_lpips:
-        print("LPIPS unavailable (not ported: its weights are not in the "
-              "repository); skipping")
+    lpips_fn = load_lpips_or_none(with_lpips, lpips_weights)
 
-    metric_names = ["psnr", "ssim"]
+    metric_names = ["psnr", "ssim"] + (["lpips"] if lpips_fn else [])
+    parts = ["forward_ms", "sca_ms", "metrics_ms"] + (
+        ["lpips_ms"] if lpips_fn else [])
     scores_all: Dict[str, Dict[str, float]] = {m: {} for m in metric_names}
     names = []
     for n in network_params:
@@ -151,7 +157,7 @@ def compute_score(network_params: List[NetworkParam], dataset_root: str,
         net, _ = n.load_net(workspace_dir, device=dev)
         sca = make_sca(_alignment_apply_from(net.encoder.alignment_net),
                        sr_factor=sr_factor)
-        scored = _scored_fn(net, sca, boundary_ignore)
+        scored = _scored_fn(net, sca, boundary_ignore, lpips_fn)
         events = [] if dev.type == "cuda" else None
         pending = []
         reader_s = transfer_s = 0.0
@@ -170,19 +176,19 @@ def compute_score(network_params: List[NetworkParam], dataset_root: str,
         vals = torch.stack([torch.stack([s[m] for s in pending])
                             for m in metric_names]).cpu().numpy()
         t_end = time.perf_counter()
-        parts = [None] * 3
-        if events:
-            parts = [sum(events[4 * i + k].elapsed_time(events[4 * i + k + 1])
-                         for i in range(n_bursts)) for k in range(3)]
+        k = len(parts) + 1  # events per burst
         t = dict(bursts=n_bursts, wall_s=t_end - t_loop,
-                 forward_ms=parts[0], sca_ms=parts[1], metrics_ms=parts[2],
+                 **{p: (sum(events[k * i + j].elapsed_time(
+                     events[k * i + j + 1]) for i in range(n_bursts))
+                     if events else None) for j, p in enumerate(parts)},
                  reader_s=reader_s, transfer_s=transfer_s,
                  fetch_s=t_end - t_fetch)
         if timing is not None:
             timing[name] = t
-        device_ms = ("not measured" if parts[0] is None else
-                     f"forward {parts[0]:.3f} ms, SCA {parts[1]:.3f} ms, "
-                     f"metrics {parts[2]:.3f} ms")
+        if per_burst is not None:
+            per_burst[name] = dict(zip(metric_names, vals))
+        device_ms = ("not measured" if not events else ", ".join(
+            f"{p[:-3].replace('sca', 'SCA')} {t[p]:.3f} ms" for p in parts))
         print(f"[timing] {name}: {n_bursts} bursts, wall {t['wall_s']:.3f} "
               f"s; on the device {device_ms}; reader {reader_s:.3f} s; "
               f"transfer {transfer_s:.3f} s; fetch {t['fetch_s']:.3f} s",

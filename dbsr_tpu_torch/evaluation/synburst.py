@@ -9,8 +9,11 @@ scores of saved predictions equal the live ones), and PSNR / SSIM /
 the set. The forward, the quantization and the metrics run on the device
 in one function per batch, under ``torch.inference_mode()`` with TF32 off;
 the per-burst results stay on the device until one fetch after the loop.
-The val set's reads and PNG decodes run on a background thread. LPIPS is
-not ported (its weights are not in the repository).
+The val set's reads and PNG decodes run on a background thread. With LPIPS
+weights (``lpips_weights``, ``DBSR_TPU_LPIPS_WEIGHTS`` or the pretrained
+nets' ``lpips_alex.npz``) each batch's bursts also get their LPIPS, in one
+pass over the batch, on the float32 quantized prediction and ground truth,
+still on the device.
 """
 
 from __future__ import annotations
@@ -73,6 +76,21 @@ def _forward_fn(net):
         return pred.clamp(0.0, 1.0)
 
     return forward
+
+
+def load_lpips_or_none(with_lpips: bool, lpips_weights: Optional[str]):
+    """The LPIPS function when asked for and its weights are found; else
+    None, printing why (the JAX package's message). Only missing weights
+    are skipped: a weights file that does not load raises."""
+    if not with_lpips:
+        return None
+    from dbsr_tpu_torch.models.lpips import load_lpips
+
+    try:
+        return load_lpips(lpips_weights)
+    except FileNotFoundError as e:
+        print(f"LPIPS unavailable ({e}); skipping")
+        return None
 
 
 def _scored_forward_fn(net, score_fn):
@@ -142,6 +160,14 @@ def _pad_to(arr: np.ndarray, batch_size: int) -> np.ndarray:
     return np.concatenate([arr, reps], axis=0)
 
 
+def _mark(marks: Optional[list]) -> None:
+    """Record a CUDA event at this point of the stream into ``marks`` (a
+    list; None off the card)."""
+    if marks is not None:
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+
 def _fetch(pending, metric_names: List[str]) -> Dict[str, np.ndarray]:
     """The per-burst values of every batch's results, padding dropped, in
     one device-to-host copy."""
@@ -206,24 +232,31 @@ def compute_score(network_params: List[NetworkParam], dataset_root: str,
                   with_msssim: bool = False,
                   max_bursts: Optional[int] = None,
                   dataset=None, batch_size: int = 8, device="cuda",
-                  timing: Optional[Dict] = None) -> Dict:
-    """PSNR / SSIM (/ MS-SSIM) means over the validation set, ``{metric:
-    {display name: mean}}``. ``saved_results_root`` scores predictions that
-    :func:`save_results` wrote instead of running the nets. Prints one
-    ``[timing]`` line per network and the report; with a dict ``timing``,
-    each network's numbers also go into it under its display name:
-    ``bursts``, ``wall_s``, ``device_ms`` (the forwards and scoring by CUDA
-    events, None off the card), ``reader_s`` (the reader thread's work),
-    ``waited_s`` (the loop's wait for its inputs, saved predictions read
-    included), ``transfer_s`` (host to device) and ``fetch_s``."""
+                  timing: Optional[Dict] = None,
+                  lpips_weights: Optional[str] = None,
+                  per_burst: Optional[Dict] = None) -> Dict:
+    """PSNR / SSIM (/ LPIPS) (/ MS-SSIM) means over the validation set,
+    ``{metric: {display name: mean}}``. ``saved_results_root`` scores
+    predictions that :func:`save_results` wrote instead of running the
+    nets. LPIPS needs its weights (``lpips_weights``, else
+    ``models/lpips.default_weights_path``); without them the report has
+    no ``lpips`` column. Prints one ``[timing]`` line per network and the
+    report; with a dict ``timing``, each network's numbers also go into it
+    under its display name: ``bursts``, ``wall_s``, ``device_ms`` (the
+    forwards and scoring by CUDA events) and its parts ``forward_ms``,
+    ``metrics_ms`` and, with LPIPS, ``lpips_ms`` (each None off the card),
+    ``reader_s`` (the reader thread's work), ``waited_s`` (the loop's wait
+    for its inputs, saved predictions read included), ``transfer_s`` (host
+    to device) and ``fetch_s``. With a dict ``per_burst``, each network's
+    per-burst values go into it, ``{display name: {metric: array}}``."""
     dev = resolve_device(device)
     dataset = dataset or SyntheticBurstVal(dataset_root)
     n_bursts = min(len(dataset), max_bursts or len(dataset))
-    if with_lpips:
-        print("LPIPS unavailable (not ported: its weights are not in the "
-              "repository); skipping")
+    lpips_fn = load_lpips_or_none(with_lpips, lpips_weights)
 
-    metric_names = ["psnr", "ssim"] + (["msssim"] if with_msssim else [])
+    metric_names = ["psnr", "ssim"] + (["lpips"] if lpips_fn else []) + (
+        ["msssim"] if with_msssim else [])
+    parts = ["forward_ms", "metrics_ms"] + (["lpips_ms"] if lpips_fn else [])
     scores_all: Dict[str, Dict[str, float]] = {m: {} for m in metric_names}
 
     batch_size = min(batch_size, n_bursts)
@@ -234,10 +267,9 @@ def compute_score(network_params: List[NetworkParam], dataset_root: str,
         name = n.get_display_name()
         names.append(name)
         live = n.saved_results_path is None and saved_results_root is None
-        step = score_batch  # saved predictions are scored as they are
         if live:
             net, _ = n.load_net(workspace_dir, device=dev)
-            step = _scored_forward_fn(net, score_batch)
+            forward = _forward_fn(net)
 
         def load_saved_batch(metas):
             root = n.saved_results_path or os.path.join(
@@ -260,27 +292,39 @@ def compute_score(network_params: List[NetworkParam], dataset_root: str,
             if item is None:
                 break
             metas, bursts, gts = item
+            nb = len(metas)
             t0 = time.perf_counter()
             inputs = _to_device(_pad_to(bursts, batch_size), dev)
             gts = _to_device(_pad_to(gts, batch_size), dev)
             transfer_s += time.perf_counter() - t0
-            if dev.type == "cuda":
-                events.append((torch.cuda.Event(enable_timing=True),
-                               torch.cuda.Event(enable_timing=True)))
-                events[-1][0].record()
-            pending.append((len(metas), step(inputs, gts)))
-            if dev.type == "cuda":
-                events[-1][1].record()
+            marks = [] if dev.type == "cuda" else None
+            _mark(marks)
+            preds = quantize(forward(inputs)) if live else inputs
+            _mark(marks)
+            s = score_batch(preds, gts)
+            _mark(marks)
+            if lpips_fn is not None:
+                s["lpips"] = lpips_fn(_dev_f32(preds[:nb]),
+                                      _dev_f32(gts[:nb]), boundary_ignore,
+                                      reduce=False)
+                _mark(marks)
+            pending.append((nb, s))
+            if marks is not None:
+                events.append(marks)
         t_fetch = time.perf_counter()
         vals = _fetch(pending, metric_names)
         t_end = time.perf_counter()
         t = dict(bursts=n_bursts, wall_s=t_end - t_loop,
-                 device_ms=(sum(a.elapsed_time(b) for a, b in events)
+                 device_ms=(sum(e[0].elapsed_time(e[-1]) for e in events)
                             if events else None),
+                 **{p: (sum(e[k].elapsed_time(e[k + 1]) for e in events)
+                        if events else None) for k, p in enumerate(parts)},
                  reader_s=sum(read_s), waited_s=wait_s,
                  transfer_s=transfer_s, fetch_s=t_end - t_fetch)
         if timing is not None:
             timing[name] = t
+        if per_burst is not None:
+            per_burst[name] = vals
         device_ms = ("not measured" if t["device_ms"] is None
                      else f"{t['device_ms']:.3f} ms")
         print(f"[timing] {name}: {n_bursts} bursts, wall {t['wall_s']:.3f} "

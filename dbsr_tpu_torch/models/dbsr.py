@@ -1,12 +1,14 @@
 """DBSR network: encoder + alignment, attention fusion, pixel-shuffle
-decoder (port of ``dbsr_tpu/models/dbsr.py`` with its two aligners,
-``flow_net='pwc'``, PWC-Net, and ``flow_net='lite'``, AlignLite).
+decoder (port of ``dbsr_tpu/models/dbsr.py`` with its three aligners:
+``flow_net='pwc'``, PWC-Net; ``flow_net='lite'``, AlignLite;
+``flow_net='conv'``, ``ConvFlow``, two convs for ablations and tests).
 
 ``burst`` is ``[B, N, h, w, 4]`` packed RGGB; frames are flattened into the
 batch for the per-frame convs. Three CUDA kernels run on the forward for
 CUDA tensors: the 512-channel feature warp and the aligner's backwarps
 (``ops/warp.py``), the aligner's cost volumes (``ops/correlation.py``:
-PWC-Net's five levels, AlignLite's three) and the frame-softmax merge
+PWC-Net's five levels, AlignLite's three; ``ConvFlow`` has none and no
+backwarp) and the frame-softmax merge
 (``ops/merge.py``); in training, the warp's d_feat and the merge's backward
 kernels run on the backward. By default the aligner is frozen: its flow is
 computed without gradient and its parameters do not require one. With
@@ -69,10 +71,31 @@ class ResEncoder(nn.Module):
         return self.ConvBlock_1(x)
 
 
+class ConvFlow(nn.Module):
+    """A learned flow of two convs: ``ConvBlock(8, 3, relu)`` then
+    ``ConvBlock(2, 3, none)`` on the source and target images side by
+    side, the flow float32. The JAX package's stub aligner for ablations
+    and structural tests, not a parity component of the reference."""
+
+    def __init__(self):
+        super().__init__()
+        self.ConvBlock_0 = ConvBlock(6, 8, 3, activation="relu")
+        self.ConvBlock_1 = ConvBlock(8, 2, 3, activation="none")
+
+    def forward(self, source, target, target_repeat: int = 1):
+        """``source`` ``[B * target_repeat, h, w, 3]``, ``target`` ``[B, h,
+        w, 3]`` (each target serving ``target_repeat`` consecutive
+        sources) -> flow ``[B * target_repeat, h, w, 2]``."""
+        if target_repeat > 1:
+            target = target.repeat_interleave(target_repeat, dim=0)
+        x = torch.cat([source, target], dim=-1)
+        return self.ConvBlock_1(self.ConvBlock_0(x)).float()
+
+
 class AlignedEncoder(nn.Module):
     """Encode the burst frames and warp the non-reference embeddings to the
     reference frame by the aligner's flow (``flow_net``: ``'pwc'``, PWC-Net,
-    or ``'lite'``, AlignLite), computed without gradient unless
+    ``'lite'``, AlignLite, or ``'conv'``, :class:`ConvFlow`), computed without gradient unless
     ``train_alignment``. Returns ``ref_feat`` ``[B, 1, h, w, C]``,
     ``oth_feat`` ``[B, N-1, h, w, C]`` (warped) and ``offsets``
     ``[B, N-1, h, w, 2]``."""
@@ -82,7 +105,8 @@ class AlignedEncoder(nn.Module):
                  train_alignment: bool = False, flow_net: str = "pwc"):
         super().__init__()
         self.train_alignment = train_alignment
-        self.alignment_net = {"pwc": PWCNet, "lite": AlignLiteNet}[flow_net]()
+        self.alignment_net = {"pwc": PWCNet, "lite": AlignLiteNet,
+                              "conv": ConvFlow}[flow_net]()
         self.embed = ResEncoder(4, init_dim, num_res_blocks, out_dim,
                                 activation)
 
@@ -268,9 +292,9 @@ class DBSRNet(nn.Module):
     ``fused_s2d_decoder=True`` runs the decoder's post-shuffle stage on the
     s2d layout (:class:`PixShuffleDecoder`), as the JAX package does.
     ``dtype`` is the compute dtype: None or float32, or bfloat16 (see the
-    module's docstring); ``softmax=False`` fuses with ReLU weights. What
-    this port does not run raises: another aligner than ``'pwc'`` or
-    ``'lite'`` (the JAX package's test stub ``'conv'``) and another dtype.
+    module's docstring); ``softmax=False`` fuses with ReLU weights.
+    ``flow_net`` is ``'pwc'``, ``'lite'`` or ``'conv'``; another aligner or
+    dtype raises.
     """
 
     # the JAX package's module of the same parameters (a checkpoint's
@@ -297,9 +321,8 @@ class DBSRNet(nn.Module):
         super().__init__()
         self.spec_kwargs = {k: v for k, v in spec_kwargs.items()
                             if k not in ("self", "__class__")}
-        if flow_net not in ("pwc", "lite"):
-            raise NotImplementedError(
-                f"DBSRNet port: not supported: flow_net={flow_net!r}")
+        if flow_net not in ("pwc", "lite", "conv"):
+            raise ValueError(f"DBSRNet: unknown flow_net={flow_net!r}")
         self.ref_offset_noise = float(ref_offset_noise)
         self.encoder = AlignedEncoder(enc_init_dim, enc_num_res_blocks,
                                       enc_out_dim, activation,

@@ -1,5 +1,7 @@
-"""Camera-pipeline ops (port of ``dbsr_tpu/ops/camera.py:62-233``): the
-inverse ISP and noise model of burst synthesis, and ``demosaic_naive``.
+"""Camera-pipeline ops (port of ``dbsr_tpu/ops/camera.py``): the inverse
+ISP and noise model of burst synthesis, the forward ISP that renders a
+linear image for display (``process_linear_image_rgb``), and
+``demosaic_naive``.
 
 Images are channels-last ``[..., H, W, C]``. Per-sample parameters
 (CCMs ``[..., 3, 3]``, gains and noise levels ``[...]``) broadcast over the
@@ -100,6 +102,11 @@ def random_gains(generator: torch.Generator, n: int):
                             uniform(generator, (n,), 1.5, 1.9))
 
 
+def apply_smoothstep(image: torch.Tensor) -> torch.Tensor:
+    """The global tone curve 3x^2 - 2x^3."""
+    return 3.0 * image ** 2 - 2.0 * image ** 3
+
+
 def invert_smoothstep(image: torch.Tensor) -> torch.Tensor:
     """Exact inverse of the smoothstep tone curve 3x^2 - 2x^3."""
     image = image.clamp(0.0, 1.0)
@@ -111,13 +118,42 @@ def gamma_expansion(image: torch.Tensor) -> torch.Tensor:
     return image.clamp(min=1e-8) ** 2.2
 
 
+def gamma_compression(image: torch.Tensor) -> torch.Tensor:
+    """Linear -> gamma (1 / 2.2), clamped near zero."""
+    return image.clamp(min=1e-8) ** (1.0 / 2.2)
+
+
 def apply_ccm(image: torch.Tensor, ccm: torch.Tensor) -> torch.Tensor:
     """Apply ``[..., 3, 3]`` colour matrices to ``[..., H, W, 3]`` images,
-    ``out_i = sum_j ccm_ij * image_j``, elementwise in float32."""
-    c = ccm[..., None, None, :, :]
-    r, g, b = image[..., 0], image[..., 1], image[..., 2]
-    return torch.stack([c[..., i, 0] * r + c[..., i, 1] * g + c[..., i, 2] * b
-                        for i in range(3)], dim=-1)
+    ``out_i = sum_j ccm_ij * image_j``, elementwise (never a TF32 product
+    on the card) as the chain of fused multiply-adds of XLA's float32 dot
+    on the CPU (:func:`matmul3`): bit-equal to the JAX package's
+    ``einsum`` there."""
+    c = ccm[..., None, None, :, :].double()
+    x = image.double()
+    out = (c[..., :, 0] * x[..., 0, None]).float()
+    for k in (1, 2):
+        out = (c[..., :, k] * x[..., k, None] + out.double()).float()
+    return out
+
+
+def apply_gains(image: torch.Tensor, rgb_gain, red_gain,
+                blue_gain) -> torch.Tensor:
+    """White-balance and brightening gains on an RGB or packed RGGB
+    (channels-last) image, clipped to [0, 1]. The gains are scalars or
+    tensors of the image's leading dims."""
+    red, blue, rgb = (torch.as_tensor(g, dtype=image.dtype,
+                                      device=image.device)
+                      for g in (red_gain, blue_gain, rgb_gain))
+    one = torch.ones_like(red)
+    if image.shape[-1] == 3:
+        gains = torch.stack([red, one, blue], dim=-1)
+    elif image.shape[-1] == 4:
+        gains = torch.stack([red, one, one, blue], dim=-1)
+    else:
+        raise ValueError(f"expected 3 or 4 channels, got {image.shape[-1]}")
+    gains = (gains * rgb[..., None])[..., None, None, :]
+    return (image * gains).clamp(0.0, 1.0)
 
 
 def safe_invert_gains(image: torch.Tensor, rgb_gain, red_gain,
@@ -173,6 +209,26 @@ def add_noise(image: torch.Tensor, shot_noise, read_noise,
     read = read.reshape(read.shape + (1,) * extra)
     variance = image * shot + read
     return image + noise * torch.sqrt(variance)
+
+
+def process_linear_image_rgb(image: torch.Tensor,
+                             meta: dict) -> torch.Tensor:
+    """Linear sensor RGB ``[..., H, W, 3]`` -> display sRGB with the
+    synthesis-time ISP parameters: gains, CCM, gamma (unless
+    ``meta["gamma"]`` is false), smoothstep (unless ``meta["smoothstep"]``
+    is false), clipped to [0, 1]. ``meta`` needs ``cam2rgb``,
+    ``rgb_gain``, ``red_gain`` and ``blue_gain``; a missing one raises
+    ``KeyError``."""
+    image = apply_gains(image, meta["rgb_gain"], meta["red_gain"],
+                        meta["blue_gain"])
+    ccm = torch.as_tensor(meta["cam2rgb"], dtype=torch.float32,
+                          device=image.device)
+    image = apply_ccm(image, ccm)
+    if bool(meta.get("gamma", True)):
+        image = gamma_compression(image)
+    if bool(meta.get("smoothstep", True)):
+        image = apply_smoothstep(image)
+    return image.clamp(0.0, 1.0)
 
 
 def demosaic_naive(packed: torch.Tensor) -> torch.Tensor:

@@ -3,17 +3,24 @@
 
     python -m dbsr_tpu_torch.run_evaluation synburst compute_score <experiment> [opts]
     python -m dbsr_tpu_torch.run_evaluation synburst save_results <experiment> [opts]
+    python -m dbsr_tpu_torch.run_evaluation synburst visualize <experiment> [opts]
     python -m dbsr_tpu_torch.run_evaluation burstsr compute_score <experiment> [opts]
     python -m dbsr_tpu_torch.run_evaluation burstsr save_results <experiment> [opts]
+    python -m dbsr_tpu_torch.run_evaluation burstsr visualize <experiment> [opts]
 
 ``<experiment>`` names a module of ``dbsr_tpu_torch/evaluation/experiments``
 whose ``main()`` returns the ``NetworkParam`` list. The val set is
 ``--dataset_root`` or the environment's ``synburstval_dir``
 (``DBSR_TPU_SYNBURSTVAL_DIR``) for ``synburst``, its ``burstsr_dir``
 (``DBSR_TPU_BURSTSR_DIR``, a BurstSR-format tree) for ``burstsr``; the
-workspace is ``DBSR_TPU_WORKSPACE_DIR``. It runs on the card (``--device
-cuda``, the default; no card raises) unless asked for the CPU. Networks
-are scored in float32.
+workspace is ``DBSR_TPU_WORKSPACE_DIR``. ``visualize`` writes PNG panels
+and ``index.html`` to ``--out_dir`` (default ``<workspace>/synburst_vis``
+or ``burstsr_vis``) for the first ``--max_bursts`` bursts (10 and 5 by
+default). ``compute_score`` adds LPIPS given its weights
+(``--lpips_weights``, else ``DBSR_TPU_LPIPS_WEIGHTS`` or the pretrained
+nets' ``lpips_alex.npz``). It runs on the card (``--device cuda``, the
+default; no card raises) unless asked for the CPU. Networks run at the
+compute dtype their checkpoints record.
 """
 
 from __future__ import annotations
@@ -47,6 +54,9 @@ def main(argv=None):
                    help="score saved predictions instead of running nets")
     p.add_argument("--max_bursts", type=int, default=None)
     p.add_argument("--no_lpips", action="store_true")
+    p.add_argument("--lpips_weights", default=None,
+                   help="path to converted lpips_alex.npz (overrides "
+                        "DBSR_TPU_LPIPS_WEIGHTS / pretrained-nets dir)")
     p.add_argument("--json", default=None, metavar="PATH",
                    help="also write compute_score results as JSON")
     p.add_argument("--all_epochs", action="store_true",
@@ -84,13 +94,10 @@ def main(argv=None):
                     f"got {args.epochs!r}")
         if not epochs:
             p.error("--epochs must name at least one epoch")
-    if args.action == "visualize":
-        raise NotImplementedError(
-            "visualize: not ported yet (ROADMAP.md, Queue 1 item 11)")
 
     from dbsr_tpu_torch import resolve_device
     from dbsr_tpu_torch.environment import env_settings
-    from dbsr_tpu_torch.evaluation import burstsr, synburst
+    from dbsr_tpu_torch.evaluation import burstsr, synburst, visualize
 
     dev = resolve_device(args.device)
     env = env_settings()
@@ -105,12 +112,19 @@ def main(argv=None):
         if args.action == "compute_score":
             scores = burstsr.compute_score(
                 network_params, root, workspace_dir=workspace,
-                with_lpips=not args.no_lpips, max_bursts=args.max_bursts,
+                with_lpips=not args.no_lpips,
+                lpips_weights=args.lpips_weights, max_bursts=args.max_bursts,
                 device=dev)
-        else:
+        elif args.action == "save_results":
             out = args.out_dir or os.path.join(workspace, "burstsr_results")
             burstsr.save_results(network_params, root, out,
                                  workspace_dir=workspace, device=dev)
+        else:
+            out = args.out_dir or os.path.join(workspace, "burstsr_vis")
+            visualize.visualize_burstsr(network_params, root, out,
+                                        workspace_dir=workspace,
+                                        max_bursts=args.max_bursts or 5,
+                                        device=dev)
     elif args.action == "compute_score" and args.all_epochs:
         root = args.dataset_root or env.synburstval_dir
         n0 = network_params[0]
@@ -123,13 +137,20 @@ def main(argv=None):
         scores = synburst.compute_score(
             network_params, root, workspace_dir=workspace,
             saved_results_root=(args.out_dir if args.load_saved else None),
-            with_lpips=not args.no_lpips, max_bursts=args.max_bursts,
-            device=dev)
-    else:
+            with_lpips=not args.no_lpips, lpips_weights=args.lpips_weights,
+            max_bursts=args.max_bursts, device=dev)
+    elif args.action == "save_results":
         root = args.dataset_root or env.synburstval_dir
         out = args.out_dir or os.path.join(workspace, "synburst_results")
         synburst.save_results(network_params, root, out,
                               workspace_dir=workspace, device=dev)
+    else:
+        root = args.dataset_root or env.synburstval_dir
+        out = args.out_dir or os.path.join(workspace, "synburst_vis")
+        visualize.visualize_synburst(network_params, root, out,
+                                     workspace_dir=workspace,
+                                     max_bursts=args.max_bursts or 10,
+                                     device=dev)
 
     if args.json and scores is not None:
         with open(args.json, "w") as f:

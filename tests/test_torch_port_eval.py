@@ -635,16 +635,73 @@ def test_cli_refuses_what_the_jax_cli_refuses(argv, monkeypatch, capsys):
     assert errors[0].split("error:")[1] == errors[1].split("error:")[1]
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["burstsr", "visualize", "dbsr_default"], "Queue 1 item 11"),
-    (["synburst", "visualize", "dbsr_default"], "Queue 1 item 11"),
-])
-def test_cli_refuses_what_is_not_ported(argv, match):
-    """``visualize`` is not ported; ``burstsr compute_score`` and
-    ``save_results`` are (``tests/test_torch_port_burstsr.py`` scores a
-    tree through the CLI)."""
-    with pytest.raises(NotImplementedError, match=match):
-        run_evaluation.main([*argv, "--device", "cpu"])
+def _pngs_close(got_dir, want_dir, tag):
+    """Two visualize outputs: the same files up to the PSNR in the panels'
+    names (within 0.01 dB: two decimals can round the two ways), each image
+    within 1 LSB on at least 99.9% of its pixels and equal on at least 99%
+    (SCA's alignment moves the aligned pane's values: 99.83% equal, none
+    more than 1 LSB off, observed)."""
+    import re
+
+    strip = re.compile(rf"_{tag}(-?[\d.]+)\.png$")
+    got, want = ({strip.sub("", f): f for f in os.listdir(d)}
+                 for d in (got_dir, want_dir))
+    assert got.keys() == want.keys() and "index.html" in got
+    for stem, f in got.items():
+        if f == "index.html":
+            continue
+        g = png16.read_png(os.path.join(got_dir, f)).astype(np.int16)
+        w = png16.read_png(os.path.join(want_dir, want[stem])).astype(
+            np.int16)
+        assert g.shape == w.shape, f
+        assert (np.abs(g - w) <= 1).mean() >= 0.999, f
+        assert (g == w).mean() >= 0.99, f
+        m, n = strip.search(f), strip.search(want[stem])
+        assert (m is None) == (n is None)
+        if m:
+            assert abs(float(m.group(1)) - float(n.group(1))) <= 0.01 + 1e-9
+
+
+@pytest.mark.parametrize("benchmark", ["burstsr", "synburst"])
+def test_cli_visualize_matches_jax(benchmark, val_root, workspace, tmp_path,
+                                   monkeypatch):
+    """``visualize``, once refused, runs through the CLI on the CPU and
+    writes what the JAX package's ``visualize_*`` writes: synburst on this
+    module's val set and workspace, burstsr on a one-burst tree of the
+    port's generator at the val protocol's size with a tiny x8 network."""
+    from dbsr_tpu.evaluation import visualize as jax_vis
+
+    monkeypatch.setenv("DBSR_TPU_ENV", str(tmp_path / "env.json"))
+    ws, root = workspace, val_root
+    if benchmark == "burstsr":
+        from dbsr_tpu_torch.data import make_synthetic_burstsr
+        from dbsr_tpu_torch.data.procedural import make_generator
+        from dbsr_tpu_torch.models.dbsr import dbsrnet_tiny
+        from dbsr_tpu_torch.models.layers import init_params
+        from dbsr_tpu_torch.training.checkpoint import save_checkpoint
+        from dbsr_tpu_torch.training.state import make_optimizer
+
+        root = str(tmp_path / "tree")
+        make_synthetic_burstsr.generate_dataset(
+            root, bursts=1, lr=80, n_frames=3, split="val", seed=2,
+            device="cpu")
+        ws = str(tmp_path / "ws")
+        net = init_params(dbsrnet_tiny(), make_generator("cpu", 4))
+        save_checkpoint(os.path.join(ws, "dbsr", "default_synthetic"),
+                        "dbsr_synthetic", 1, make_optimizer().init(net))
+    monkeypatch.setenv("DBSR_TPU_WORKSPACE_DIR", ws)
+    run_evaluation.main([benchmark, "visualize", "dbsr_default",
+                         "--dataset_root", root, "--out_dir",
+                         str(tmp_path / "port"), "--max_bursts", "2",
+                         "--device", "cpu"])
+    fn = getattr(jax_vis, f"visualize_{benchmark}")
+    fn([JaxNetworkParam(module="dbsr", parameter="default_synthetic")],
+       root, str(tmp_path / "jax"), workspace_dir=ws, max_bursts=2)
+    name = "dbsr_default_synthetic"
+    _pngs_close(tmp_path / "port" / name, tmp_path / "jax" / name,
+                "apsnr" if benchmark == "burstsr" else "psnr")
+    n = len(os.listdir(tmp_path / "port" / name))
+    assert n == (5 if benchmark == "burstsr" else 2 * 4 + 1)
 
 
 def test_dbsr_zoo_resolves_the_three_artifacts():

@@ -152,10 +152,34 @@ def test_load_predictor_cuda_without_card_raises():
         load_predictor(FLAGSHIP, device="cuda")
 
 
-@pytest.mark.parametrize("override", [{"flow_net": "conv"}])
-def test_unported_options_raise(override):
-    with pytest.raises(NotImplementedError, match=next(iter(override))):
-        load_network(FLAGSHIP, device="cpu", **{"dtype": None, **override})
+def test_conv_flow_checkpoint_loads_everywhere(tmp_path):
+    """Once refused, now built: ``flow_net='conv'`` (``ConvFlow``). A
+    checkpoint of such a network, written by the port, rebuilds through the
+    port's ``load_network`` and ``load_predictor`` and through the JAX
+    package's ``load_network``, the forwards within 1e-5."""
+    from dbsr_tpu_torch.data.procedural import make_generator
+    from dbsr_tpu_torch.models.layers import init_params
+    from dbsr_tpu_torch.training.checkpoint import save_checkpoint
+    from dbsr_tpu_torch.training.state import make_optimizer
+
+    # seed 17: the decoder's final ReLU leaves every channel alive
+    net = init_params(dbsrnet_tiny(upsample_factor=4, flow_net="conv"),
+                      make_generator("cpu", 17))
+    path = save_checkpoint(str(tmp_path), "dbsr_synthetic", 1,
+                           make_optimizer().init(net))
+    port, header = load_network(path, device="cpu")
+    assert header["net_spec"]["kwargs"]["flow_net"] == "conv"
+    jnet, jparams, _ = jax_load_network(path)
+    burst = _burst((2, 3, 8, 8, 4), 5)
+    want, _ = jnet.apply(jparams, jnp.asarray(burst))
+    with torch.no_grad():
+        got, _ = port(torch.from_numpy(burst))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    pred = load_predictor(path, batch_size=2, burst_size=3, burst_hw=(8, 8),
+                          device="cpu", dtype=None, fused_s2d=False)
+    np.testing.assert_allclose(pred(burst), np.clip(got.numpy(), 0, 1),
+                               atol=1e-6)
+    assert float(got.max()) > 0
 
 
 def _rel_l2(a, b):

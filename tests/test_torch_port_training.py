@@ -281,15 +281,51 @@ def workspace(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("overrides,error,match", [
-    ({"flow_net": "conv"}, NotImplementedError, "flow_net='conv'"),
-    ({"pwc_checkpoint": PWC, "flow_net": "conv"}, NotImplementedError,
-     "flow_net='conv'"),
+    ({"pwc_checkpoint": PWC, "flow_net": "conv", "pool_size": 2,
+      "steps_per_epoch": 1}, ValueError, "incompatible"),
     ({"compute_dtype": "float16"}, NotImplementedError, "float32")])
 def test_training_entry_refuses_what_the_port_does_not_run(
         workspace, overrides, error, match):
+    """A float16 compute dtype (the port has no half-precision kernels);
+    a PWC-Net checkpoint grafted into ``ConvFlow``, which the JAX
+    package's graft refuses too (``test_conv_flow_trains_end_to_end``)."""
     with pytest.raises(error, match=match):
         run_training("dbsr", "default_synthetic", device="cpu", **overrides)
     assert not workspace.exists() or not any(workspace.rglob("*.ckpt"))
+
+
+def test_conv_flow_trains_end_to_end(workspace):
+    """``flow_net='conv'`` without a flow checkpoint: ``default_synthetic``
+    trains ``ConvFlow`` end to end with the rest (Adam over every
+    parameter), at full width, one float32 step of B=1; its checkpoint
+    rebuilds in the JAX package with the same forward. The JAX package's
+    graft refuses a PWC-Net checkpoint for it, as the port's does."""
+    from dbsr_tpu.configs.dbsr.default_synthetic import \
+        graft_alignment_params as jax_graft
+    from dbsr_tpu.models.dbsr import dbsrnet_cvpr2021 as jax_cvpr2021
+
+    run_training("dbsr", "default_synthetic", device="cpu", flow_net="conv",
+                 batch_size=1, steps_per_epoch=1, pool_size=2, epochs=1,
+                 compute_dtype="float32")
+    path = ckpt.resolve_checkpoint(
+        str(workspace / "dbsr" / "default_synthetic"), "dbsr_synthetic")
+    header, tree = ckpt.read_checkpoint(path)
+    kwargs = header["net_spec"]["kwargs"]
+    assert (kwargs["flow_net"], kwargs["train_alignment"]) == ("conv", True)
+    assert header["settings"]["masked_adam"] is False
+    assert "alignment_net" in tree["opt_state"]["mu"]["encoder"]
+    net, _ = ckpt.load_network(path, device="cpu")
+    jnet, jparams, _ = jax_load_network(path)
+    burst = np.random.RandomState(3).rand(1, 3, 8, 8, 4).astype(np.float32)
+    want, _ = jnet.apply(jparams, jnp.asarray(burst))
+    with torch.no_grad():
+        got, _ = net(torch.from_numpy(burst))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+    shapes = jax.eval_shape(jax_cvpr2021(flow_net="conv").init,
+                            jax.random.key(0), jnp.asarray(burst))
+    with pytest.raises(ValueError, match="incompatible"):
+        jax_graft(shapes, PWC)
 
 
 def test_mixed_pool_reaches_training(workspace, capsys):
