@@ -17,6 +17,8 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from dbsr_tpu_torch.utils.profiling import annotate
+
 
 def crop_window(rng: np.random.Generator, hw: Tuple[int, int],
                 crop_sz: Tuple[int, int],
@@ -317,9 +319,11 @@ class DevicePrefetcher:
                 if self._stop:
                     return
                 t0 = time.perf_counter()
-                b = self.batch_fn()
+                with annotate("feed.render"):
+                    b = self.batch_fn()
                 if self.device_put is not None:
-                    b = self.device_put(b)
+                    with annotate("feed.put"):
+                        b = self.device_put(b)
                 self.batch_s += time.perf_counter() - t0
                 if not self._put(b):
                     return
@@ -332,7 +336,8 @@ class DevicePrefetcher:
         self._thread.start()
         for _ in range(self.num_batches):
             t0 = time.perf_counter()
-            b = self.q.get()
+            with annotate("feed.wait"):
+                b = self.q.get()
             self.wait_s += time.perf_counter() - t0
             if b is None:
                 raise RuntimeError("prefetch worker failed") from self._err

@@ -44,6 +44,7 @@ from dbsr_tpu_torch.models.pwcnet import PWCNet
 from dbsr_tpu_torch.ops.camera import demosaic_naive, uniform
 from dbsr_tpu_torch.ops.merge import fused_softmax_merge
 from dbsr_tpu_torch.ops.warp import warp_feat
+from dbsr_tpu_torch.utils.profiling import annotate
 
 
 def _flatten_frames(x):
@@ -115,15 +116,17 @@ class AlignedEncoder(nn.Module):
             raise ValueError(f"expected [B, N, h, w, 4] packed burst, got "
                              f"{tuple(burst.shape)}")
         B, N = burst.shape[0], burst.shape[1]
-        rgb = demosaic_naive(burst)
-        with torch.set_grad_enabled(self.train_alignment
-                                    and torch.is_grad_enabled()):
-            flow = self.alignment_net(_flatten_frames(rgb[:, 1:]), rgb[:, 0],
-                                      target_repeat=N - 1)
-        feat = self.embed(_flatten_frames(burst))
-        feat = feat.reshape((B, N) + feat.shape[-3:])
-        oth = warp_feat(_flatten_frames(feat[:, 1:]).contiguous(),
-                        flow.contiguous())
+        with annotate("dbsr.align"):
+            rgb = demosaic_naive(burst)
+            with torch.set_grad_enabled(self.train_alignment
+                                        and torch.is_grad_enabled()):
+                flow = self.alignment_net(_flatten_frames(rgb[:, 1:]),
+                                          rgb[:, 0], target_repeat=N - 1)
+        with annotate("dbsr.encode"):
+            feat = self.embed(_flatten_frames(burst))
+            feat = feat.reshape((B, N) + feat.shape[-3:])
+            oth = warp_feat(_flatten_frames(feat[:, 1:]).contiguous(),
+                            flow.contiguous())
         return {"ref_feat": feat[:, :1],
                 "oth_feat": oth.reshape((B, N - 1) + oth.shape[-3:]),
                 "offsets": flow.reshape((B, N - 1) + flow.shape[-3:])}
@@ -348,8 +351,10 @@ class DBSRNet(nn.Module):
             ref_offsets = draw_ref_offset_noise(
                 noise_generator, enc["offsets"][:, :1].shape,
                 self.ref_offset_noise)
-        merged = self.merging(enc, return_fusion_weights, ref_offsets)
-        pred = self.decoder(merged["fused_enc"])
+        with annotate("dbsr.merge"):
+            merged = self.merging(enc, return_fusion_weights, ref_offsets)
+        with annotate("dbsr.decode"):
+            pred = self.decoder(merged["fused_enc"])
         aux = {"offsets": enc["offsets"]}
         if return_fusion_weights:
             aux["fusion_weights"] = merged["fusion_weights"]

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from dbsr_tpu_torch import kernels
+from dbsr_tpu_torch.utils.profiling import annotate
 
 FINE_PATCH_ENV = "DBSR_FINE_PATCH_S2D"
 _OC_BLOCK = 32  # output channels per kernel block: the weight's O padding
@@ -142,22 +143,24 @@ def conv3x3_s2d_forward(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """The conv alone, no autograd: the kernel for CUDA tensors (float32 or
     bfloat16 ``x``, contiguous; the weight float32, rounded to bf16 for a
     bf16 ``x``), :func:`conv3x3_s2d_plain` for CPU ones."""
-    B, H2, W2, C, O = _check("conv3x3_s2d", x, weight)
-    if _on_cpu(x, weight):
-        return conv3x3_s2d_plain(x, weight)
-    fn = kernels.entry("conv3x3_s2d", "dbsr_conv_s2d", x.dtype)
-    if x.dtype == torch.bfloat16:
-        wk = bf16_fragments(weight)
-    else:
-        # [C, 9, Op]: the kernel reads 8 consecutive output channels per load
-        op = -(-O // _OC_BLOCK) * _OC_BLOCK
-        wk = F.pad(weight.permute(1, 2, 3, 0).reshape(C, 9, O),
-                   (0, op - O)).contiguous()
-    kernels.require_cuda("conv3x3_s2d", x, wk, dtypes=(x.dtype,) * 2)
-    out = x.new_empty((B, H2, W2, 4 * O))
-    kernels.launch("conv_s2d", fn, (x, wk, out), (B, H2, W2, C, O))
-    conv3x3_s2d.launches += 1
-    return out
+    with annotate("op.conv3x3_s2d_forward"):
+        B, H2, W2, C, O = _check("conv3x3_s2d", x, weight)
+        if _on_cpu(x, weight):
+            return conv3x3_s2d_plain(x, weight)
+        fn = kernels.entry("conv3x3_s2d", "dbsr_conv_s2d", x.dtype)
+        if x.dtype == torch.bfloat16:
+            wk = bf16_fragments(weight)
+        else:
+            # [C, 9, Op]: the kernel reads 8 consecutive output channels
+            # per load
+            op = -(-O // _OC_BLOCK) * _OC_BLOCK
+            wk = F.pad(weight.permute(1, 2, 3, 0).reshape(C, 9, O),
+                       (0, op - O)).contiguous()
+        kernels.require_cuda("conv3x3_s2d", x, wk, dtypes=(x.dtype,) * 2)
+        out = x.new_empty((B, H2, W2, 4 * O))
+        kernels.launch("conv_s2d", fn, (x, wk, out), (B, H2, W2, C, O))
+        conv3x3_s2d.launches += 1
+        return out
 
 
 def rotate_weight(weight: torch.Tensor) -> torch.Tensor:

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from dbsr_tpu_torch import kernels
+from dbsr_tpu_torch.utils.profiling import annotate
 
 MAX_DISP = 4
 NUM_OFFSETS = (2 * MAX_DISP + 1) ** 2  # 81
@@ -163,49 +164,52 @@ def correlation_forward(first: torch.Tensor,
                         second: torch.Tensor) -> torch.Tensor:
     """The forward alone, no autograd: the kernel for CUDA tensors (float32
     or bfloat16, contiguous), :func:`correlation_plain` for CPU ones."""
-    _check_pair("cost_volume", first, second)
-    if _on_cpu(first, second):
-        return correlation_plain(first, second)
-    fn = kernels.entry("cost_volume", "dbsr_correlation", first.dtype)
-    B, H, W, C = _launch_checks("cost_volume", first, second,
-                                dtypes=(first.dtype,) * 2)
-    out = first.new_empty((B, H, W, NUM_OFFSETS))
-    kernels.launch("correlation", fn, (first, second, out), (B, H, W, C))
-    cost_volume.launches += 1
-    return out
+    with annotate("op.correlation_forward"):
+        _check_pair("cost_volume", first, second)
+        if _on_cpu(first, second):
+            return correlation_plain(first, second)
+        fn = kernels.entry("cost_volume", "dbsr_correlation", first.dtype)
+        B, H, W, C = _launch_checks("cost_volume", first, second,
+                                    dtypes=(first.dtype,) * 2)
+        out = first.new_empty((B, H, W, NUM_OFFSETS))
+        kernels.launch("correlation", fn, (first, second, out), (B, H, W, C))
+        cost_volume.launches += 1
+        return out
 
 
 def correlation_dfirst(second: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """d_first of the cost volume for the output gradient ``g``
     ``[B, H, W, 81]``: the kernel for CUDA tensors, the plain version for CPU
     ones."""
-    _check_grad("correlation_dfirst", second, g)
-    if _on_cpu(second, g):
-        return correlation_dfirst_plain(second, g)
-    fn = kernels.entry("correlation_dfirst", "dbsr_correlation_dfirst",
-                       second.dtype)
-    B, H, W, C = _launch_checks("correlation_dfirst", second, g,
-                                dtypes=(second.dtype,) * 2)
-    out = torch.empty_like(second)
-    kernels.launch("correlation_bwd", fn, (second, g, out), (B, H, W, C))
-    correlation_dfirst.launches += 1
-    return out
+    with annotate("op.correlation_dfirst"):
+        _check_grad("correlation_dfirst", second, g)
+        if _on_cpu(second, g):
+            return correlation_dfirst_plain(second, g)
+        fn = kernels.entry("correlation_dfirst", "dbsr_correlation_dfirst",
+                           second.dtype)
+        B, H, W, C = _launch_checks("correlation_dfirst", second, g,
+                                    dtypes=(second.dtype,) * 2)
+        out = torch.empty_like(second)
+        kernels.launch("correlation_bwd", fn, (second, g, out), (B, H, W, C))
+        correlation_dfirst.launches += 1
+        return out
 
 
 def correlation_dsecond(first: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """d_second of the cost volume for the output gradient ``g``: the kernel
     for CUDA tensors, the plain version for CPU ones."""
-    _check_grad("correlation_dsecond", first, g)
-    if _on_cpu(first, g):
-        return correlation_dsecond_plain(first, g)
-    fn = kernels.entry("correlation_dsecond", "dbsr_correlation_dsecond",
-                       first.dtype)
-    B, H, W, C = _launch_checks("correlation_dsecond", first, g,
-                                dtypes=(first.dtype,) * 2)
-    out = torch.empty_like(first)
-    kernels.launch("correlation_bwd", fn, (first, g, out), (B, H, W, C))
-    correlation_dsecond.launches += 1
-    return out
+    with annotate("op.correlation_dsecond"):
+        _check_grad("correlation_dsecond", first, g)
+        if _on_cpu(first, g):
+            return correlation_dsecond_plain(first, g)
+        fn = kernels.entry("correlation_dsecond", "dbsr_correlation_dsecond",
+                           first.dtype)
+        B, H, W, C = _launch_checks("correlation_dsecond", first, g,
+                                    dtypes=(first.dtype,) * 2)
+        out = torch.empty_like(first)
+        kernels.launch("correlation_bwd", fn, (first, g, out), (B, H, W, C))
+        correlation_dsecond.launches += 1
+        return out
 
 
 class _Correlation(torch.autograd.Function):

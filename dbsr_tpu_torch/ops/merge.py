@@ -23,6 +23,7 @@ from typing import Tuple
 import torch
 
 from dbsr_tpu_torch import kernels
+from dbsr_tpu_torch.utils.profiling import annotate
 
 
 def fused_softmax_merge_plain(feat: torch.Tensor,
@@ -92,37 +93,39 @@ def merge_forward(feat: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """The forward alone, no autograd: the kernel for CUDA tensors
     (float32 or bfloat16, contiguous, C % 4 == 0), the plain version for CPU
     ones."""
-    _check("fused_softmax_merge", feat, logits)
-    if feat.device.type == "cpu" and logits.device.type == "cpu":
-        return fused_softmax_merge_plain(feat, logits)
-    fn = kernels.entry("fused_softmax_merge", "dbsr_merge", feat.dtype)
-    B, N, P, C = _sizes("fused_softmax_merge", feat, logits,
-                        dtypes=(feat.dtype,) * 2)
-    out = feat.new_empty((B,) + feat.shape[2:])
-    kernels.launch("merge", fn, (feat, logits, out), (B, N, P, C))
-    fused_softmax_merge.launches += 1
-    return out
+    with annotate("op.merge_forward"):
+        _check("fused_softmax_merge", feat, logits)
+        if feat.device.type == "cpu" and logits.device.type == "cpu":
+            return fused_softmax_merge_plain(feat, logits)
+        fn = kernels.entry("fused_softmax_merge", "dbsr_merge", feat.dtype)
+        B, N, P, C = _sizes("fused_softmax_merge", feat, logits,
+                            dtypes=(feat.dtype,) * 2)
+        out = feat.new_empty((B,) + feat.shape[2:])
+        kernels.launch("merge", fn, (feat, logits, out), (B, N, P, C))
+        fused_softmax_merge.launches += 1
+        return out
 
 
 def merge_backward(feat: torch.Tensor, logits: torch.Tensor,
                    g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(d_feat, d_logits)``: the kernel for CUDA tensors, the plain
     version for CPU ones."""
-    _check("merge_backward", feat, logits)
-    if g.shape != feat.shape[:1] + feat.shape[2:]:
-        raise ValueError(f"merge_backward: g {tuple(g.shape)} vs feat "
-                         f"{tuple(feat.shape)}")
-    if all(t.device.type == "cpu" for t in (feat, logits, g)):
-        return fused_softmax_merge_backward_plain(feat, logits, g)
-    fn = kernels.entry("merge_backward", "dbsr_merge_bwd", feat.dtype)
-    B, N, P, C = _sizes("merge_backward", feat, logits, g,
-                        dtypes=(feat.dtype,) * 3)
-    dfeat = torch.empty_like(feat)
-    dlogits = torch.empty_like(logits)
-    kernels.launch("merge_bwd", fn,
-                   (feat, logits, g, dfeat, dlogits), (B, N, P, C))
-    merge_backward.launches += 1
-    return dfeat, dlogits
+    with annotate("op.merge_backward"):
+        _check("merge_backward", feat, logits)
+        if g.shape != feat.shape[:1] + feat.shape[2:]:
+            raise ValueError(f"merge_backward: g {tuple(g.shape)} vs feat "
+                             f"{tuple(feat.shape)}")
+        if all(t.device.type == "cpu" for t in (feat, logits, g)):
+            return fused_softmax_merge_backward_plain(feat, logits, g)
+        fn = kernels.entry("merge_backward", "dbsr_merge_bwd", feat.dtype)
+        B, N, P, C = _sizes("merge_backward", feat, logits, g,
+                            dtypes=(feat.dtype,) * 3)
+        dfeat = torch.empty_like(feat)
+        dlogits = torch.empty_like(logits)
+        kernels.launch("merge_bwd", fn,
+                       (feat, logits, g, dfeat, dlogits), (B, N, P, C))
+        merge_backward.launches += 1
+        return dfeat, dlogits
 
 
 class _Merge(torch.autograd.Function):

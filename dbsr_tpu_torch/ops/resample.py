@@ -23,6 +23,7 @@ import torch
 from dbsr_tpu_torch import kernels
 from dbsr_tpu_torch.ops.interp import apply_affine_to_points
 from dbsr_tpu_torch.ops.warp import base_grid, sample_bilinear
+from dbsr_tpu_torch.utils.profiling import annotate
 
 
 def fine_grid(out_hw: Tuple[int, int], d: int, border: int,
@@ -52,24 +53,27 @@ def affine_resample(images: torch.Tensor, invs: torch.Tensor,
     """Resample every frame of a batch of bursts: the CUDA kernel for CUDA
     tensors (float32, contiguous, C <= 4), the plain version for CPU
     tensors."""
-    if images.ndim != 4 or invs.ndim != 4 or invs.shape[0] != images.shape[0] \
-            or invs.shape[2:] != (2, 3):
-        raise ValueError(f"affine_resample: images {tuple(images.shape)} and "
-                         f"invs {tuple(invs.shape)} are not [B,H,W,C], "
-                         "[B,N,2,3]")
-    if images.device.type == "cpu" and invs.device.type == "cpu":
-        return affine_resample_plain(images, invs, out_hw, d, border)
-    kernels.require_cuda("affine_resample", images, invs)
-    B, H, W, C = images.shape
-    if C > 4:
-        raise ValueError(f"affine_resample: kernel takes C <= 4, got C={C}")
-    N = invs.shape[1]
-    OH, OW = out_hw
-    out = images.new_empty((B, N, OH, OW, C))
-    kernels.launch("resample", "dbsr_resample_f32", (images, invs, out),
-                   (B, N, H, W, C, OH, OW, int(d), int(border)))
-    affine_resample.launches += 1
-    return out
+    with annotate("op.affine_resample"):
+        if images.ndim != 4 or invs.ndim != 4 \
+                or invs.shape[0] != images.shape[0] \
+                or invs.shape[2:] != (2, 3):
+            raise ValueError(f"affine_resample: images {tuple(images.shape)} "
+                             f"and invs {tuple(invs.shape)} are not "
+                             "[B,H,W,C], [B,N,2,3]")
+        if images.device.type == "cpu" and invs.device.type == "cpu":
+            return affine_resample_plain(images, invs, out_hw, d, border)
+        kernels.require_cuda("affine_resample", images, invs)
+        B, H, W, C = images.shape
+        if C > 4:
+            raise ValueError(
+                f"affine_resample: kernel takes C <= 4, got C={C}")
+        N = invs.shape[1]
+        OH, OW = out_hw
+        out = images.new_empty((B, N, OH, OW, C))
+        kernels.launch("resample", "dbsr_resample_f32", (images, invs, out),
+                       (B, N, H, W, C, OH, OW, int(d), int(border)))
+        affine_resample.launches += 1
+        return out
 
 
 affine_resample.launches = 0

@@ -27,6 +27,7 @@ from typing import Tuple
 import torch
 
 from dbsr_tpu_torch import kernels
+from dbsr_tpu_torch.utils.profiling import annotate
 
 
 def base_grid(h: int, w: int, device=None) -> torch.Tensor:
@@ -202,16 +203,17 @@ def warp_forward(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     (float32 or bfloat16 features, float32 flow, contiguous, any C: 16-byte
     accesses where the channels fill them, one channel an access
     otherwise), the plain version for CPU ones."""
-    _check("warp_feat", feat, flow)
-    if _on_cpu(feat, flow):
-        return warp_feat_plain(feat, flow)
-    fn = kernels.entry("warp_feat", "dbsr_warp", feat.dtype)
-    B, H, W, C = _launch_checks("warp_feat", feat, flow,
-                                dtypes=(feat.dtype, torch.float32))
-    out = torch.empty_like(feat)
-    kernels.launch("warp", fn, (feat, flow, out), (B, H, W, C))
-    warp_feat.launches += 1
-    return out
+    with annotate("op.warp_forward"):
+        _check("warp_feat", feat, flow)
+        if _on_cpu(feat, flow):
+            return warp_feat_plain(feat, flow)
+        fn = kernels.entry("warp_feat", "dbsr_warp", feat.dtype)
+        B, H, W, C = _launch_checks("warp_feat", feat, flow,
+                                    dtypes=(feat.dtype, torch.float32))
+        out = torch.empty_like(feat)
+        kernels.launch("warp", fn, (feat, flow, out), (B, H, W, C))
+        warp_feat.launches += 1
+        return out
 
 
 def _dfeat_scratch_words(frames: int, P: int) -> int:
@@ -227,19 +229,20 @@ def warp_dfeat(flow: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     transposed taps, bit-identical from call to call; any C, one channel
     an access where the channels do not fill 16 bytes) for CUDA tensors,
     the plain version for CPU ones."""
-    _check("warp_dfeat", g, flow)
-    if _on_cpu(flow, g):
-        return warp_dfeat_plain(flow, g)
-    fn = kernels.entry("warp_dfeat", "dbsr_warp_dfeat", g.dtype)
-    B, H, W, C = _launch_checks("warp_dfeat", g, flow,
-                                dtypes=(g.dtype, torch.float32))
-    out = torch.empty_like(g)
-    words = _dfeat_scratch_words(B, H * W)
-    scratch = torch.empty(words, dtype=torch.int32, device=g.device)
-    kernels.launch("warp_bwd", fn, (flow, g, out, scratch),
-                   (B, H, W, C, words))
-    warp_dfeat.launches += 1
-    return out
+    with annotate("op.warp_dfeat"):
+        _check("warp_dfeat", g, flow)
+        if _on_cpu(flow, g):
+            return warp_dfeat_plain(flow, g)
+        fn = kernels.entry("warp_dfeat", "dbsr_warp_dfeat", g.dtype)
+        B, H, W, C = _launch_checks("warp_dfeat", g, flow,
+                                    dtypes=(g.dtype, torch.float32))
+        out = torch.empty_like(g)
+        words = _dfeat_scratch_words(B, H * W)
+        scratch = torch.empty(words, dtype=torch.int32, device=g.device)
+        kernels.launch("warp_bwd", fn, (flow, g, out, scratch),
+                       (B, H, W, C, words))
+        warp_dfeat.launches += 1
+        return out
 
 
 def warp_dflow(feat: torch.Tensor, flow: torch.Tensor,
@@ -247,20 +250,21 @@ def warp_dflow(feat: torch.Tensor, flow: torch.Tensor,
     """d_flow of the warp ``[B, H, W, 2]``, float32: the kernel (float32 or
     bfloat16 ``feat`` and ``g``, float32 flow; several pixels a warp at
     small C, any C) for CUDA tensors, the plain version for CPU ones."""
-    _check("warp_dflow", feat, flow)
-    if g.shape != feat.shape:
-        raise ValueError(f"warp_dflow: g {tuple(g.shape)} vs feat "
-                         f"{tuple(feat.shape)}")
-    if _on_cpu(feat, flow, g):
-        return warp_dflow_plain(feat, flow, g)
-    fn = kernels.entry("warp_dflow", "dbsr_warp_dflow", feat.dtype)
-    B, H, W, C = _launch_checks("warp_dflow", feat, g, flow,
-                                dtypes=(feat.dtype, feat.dtype,
-                                        torch.float32))
-    out = torch.empty_like(flow)
-    kernels.launch("warp_bwd", fn, (feat, flow, g, out), (B, H, W, C))
-    warp_dflow.launches += 1
-    return out
+    with annotate("op.warp_dflow"):
+        _check("warp_dflow", feat, flow)
+        if g.shape != feat.shape:
+            raise ValueError(f"warp_dflow: g {tuple(g.shape)} vs feat "
+                             f"{tuple(feat.shape)}")
+        if _on_cpu(feat, flow, g):
+            return warp_dflow_plain(feat, flow, g)
+        fn = kernels.entry("warp_dflow", "dbsr_warp_dflow", feat.dtype)
+        B, H, W, C = _launch_checks("warp_dflow", feat, g, flow,
+                                    dtypes=(feat.dtype, feat.dtype,
+                                            torch.float32))
+        out = torch.empty_like(flow)
+        kernels.launch("warp_bwd", fn, (feat, flow, g, out), (B, H, W, C))
+        warp_dflow.launches += 1
+        return out
 
 
 class _Warp(torch.autograd.Function):

@@ -50,6 +50,7 @@ from dbsr_tpu_torch.models.layers import (ConvBlock, PixShuffleUpsampler,
                                           TorchConvTranspose)
 from dbsr_tpu_torch.parallel.mesh import shard_batch
 from dbsr_tpu_torch.training.checkpoint import load_network
+from dbsr_tpu_torch.utils.profiling import annotate
 
 # the banked flagship checkpoint of the JAX package (epoch 60)
 FLAGSHIP_CHECKPOINT = os.path.join(
@@ -161,20 +162,26 @@ class Predictor:
     def __call__(self, burst) -> np.ndarray:
         """``[n <= batch_size, N, h, w, 4]`` (or one ``[N, h, w, 4]``) float
         RAW burst -> ``[n, H, W, 3]`` linear RGB clipped to [0, 1]."""
-        burst = np.asarray(burst, np.float32)
-        if burst.ndim == 4:
-            burst = burst[None]
-        n = burst.shape[0]
-        if n > self.batch_size:
-            raise ValueError(f"batch {n} > predictor batch {self.batch_size}")
-        if burst.shape[1:] != self.in_shape[1:]:
-            raise ValueError(f"expected frame shape {self.in_shape[1:]}, got "
-                             f"{burst.shape[1:]}")
-        if n < self.batch_size:
-            pad = np.zeros((self.batch_size - n,) + burst.shape[1:], np.float32)
-            burst = np.concatenate([burst, pad], axis=0)
-        pred = self.forward(torch.from_numpy(burst).to(self.device))
-        return pred.clamp(0.0, 1.0)[:n].cpu().numpy()
+        with annotate("serve.stage_in"):
+            burst = np.asarray(burst, np.float32)
+            if burst.ndim == 4:
+                burst = burst[None]
+            n = burst.shape[0]
+            if n > self.batch_size:
+                raise ValueError(f"batch {n} > predictor batch "
+                                 f"{self.batch_size}")
+            if burst.shape[1:] != self.in_shape[1:]:
+                raise ValueError(f"expected frame shape {self.in_shape[1:]}, "
+                                 f"got {burst.shape[1:]}")
+            if n < self.batch_size:
+                pad = np.zeros((self.batch_size - n,) + burst.shape[1:],
+                               np.float32)
+                burst = np.concatenate([burst, pad], axis=0)
+            x = torch.from_numpy(burst).to(self.device)
+        with annotate("serve.forward"):
+            pred = self.forward(x)
+        with annotate("serve.stage_out"):
+            return pred.clamp(0.0, 1.0)[:n].cpu().numpy()
 
 
 def load_predictor(checkpoint_path: str, batch_size: int = 8,

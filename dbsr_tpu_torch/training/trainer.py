@@ -50,11 +50,11 @@ from dbsr_tpu_torch.models.layers import init_params
 from dbsr_tpu_torch.parallel import multihost
 from dbsr_tpu_torch.serving import float32_math
 from dbsr_tpu_torch.training import checkpoint as ckpt
-from dbsr_tpu_torch.training.profiling import maybe_trace
 from dbsr_tpu_torch.training.state import Adam, TrainState
 from dbsr_tpu_torch.training.stats import StatsDict
 from dbsr_tpu_torch.training.tblogger import TensorboardWriter
 from dbsr_tpu_torch.utils.convert import params_from_flax
+from dbsr_tpu_torch.utils.profiling import annotate, maybe_trace
 
 
 def is_divergent(loss_avg: Optional[float], best: Optional[float],
@@ -184,16 +184,21 @@ class Trainer:
 
     def train_step(self, state: TrainState, generator: torch.Generator,
                    data) -> Dict[str, torch.Tensor]:
-        with float32_math():
-            batch = self.prepare_fn(generator, data)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss, stats = self.actor_fn(batch)
-            loss.backward()
-            if self.world > 1:
-                multihost.all_reduce_mean_(
-                    [p.grad for p in state.trainable().values()
-                     if p.grad is not None])
-            state.apply_gradients()
+        with annotate("train.step"), float32_math():
+            with annotate("train.prepare"):
+                batch = self.prepare_fn(generator, data)
+            with annotate("train.optimizer"):
+                state.optimizer.zero_grad(set_to_none=True)
+            with annotate("train.forward"):
+                loss, stats = self.actor_fn(batch)
+            with annotate("train.backward"):
+                loss.backward()
+                if self.world > 1:
+                    multihost.all_reduce_mean_(
+                        [p.grad for p in state.trainable().values()
+                         if p.grad is not None])
+            with annotate("train.optimizer"):
+                state.apply_gradients()
         return stats
 
     @torch.no_grad()
@@ -225,25 +230,26 @@ class Trainer:
         def flush(step: int):
             if not pending:
                 return
-            keys = list(pending[0][0])
-            rows = torch.stack([torch.stack([s[k].float() for k in keys])
-                                for s, _ in pending])
-            # the ranks' means of equal slices: the node batch's means
-            multihost.all_reduce_mean_([rows])
-            host = rows.cpu().tolist()
-            loss_sum = loss_n = 0.0
-            for vals, (_, b) in zip(host, pending):
-                row = dict(zip(keys, vals))
-                stats.update_from(row, n=b)
-                loss_sum += row["Loss/total"] * b
-                loss_n += b
-            pending.clear()
-            if loader.training:
-                interval_avg = loss_sum / loss_n
-                if is_divergent(interval_avg, self._best_train_loss,
-                                self.intra_divergence_factor):
-                    raise MidEpochDivergence(interval_avg,
-                                             self._best_train_loss, step)
+            with annotate("train.flush"):
+                keys = list(pending[0][0])
+                rows = torch.stack([torch.stack([s[k].float() for k in keys])
+                                    for s, _ in pending])
+                # the ranks' means of equal slices: the node batch's means
+                multihost.all_reduce_mean_([rows])
+                host = rows.cpu().tolist()
+                loss_sum = loss_n = 0.0
+                for vals, (_, b) in zip(host, pending):
+                    row = dict(zip(keys, vals))
+                    stats.update_from(row, n=b)
+                    loss_sum += row["Loss/total"] * b
+                    loss_n += b
+                pending.clear()
+                if loader.training:
+                    interval_avg = loss_sum / loss_n
+                    if is_divergent(interval_avg, self._best_train_loss,
+                                    self.intra_divergence_factor):
+                        raise MidEpochDivergence(interval_avg,
+                                                 self._best_train_loss, step)
 
         prefetch = DevicePrefetcher(loader.batcher.next_batch, n,
                                     self.device_put)

@@ -114,7 +114,7 @@ def test_port_imports_neither_jax_nor_reference_package():
         "       'configs.pwcnet.pretrain_synthetic', 'utils.convert_pwcnet',\n"
         "       'data.transforms', 'utils.native_io',\n"
         "       'configs.dbsr.smoke_tiny', 'serving_daemon', 'run_serving',\n"
-        "       'training.tblogger', 'training.profiling']\n"
+        "       'training.tblogger', 'utils.profiling']\n"
         "missing = [n for n in new if 'dbsr_tpu_torch.' + n not in names]\n"
         "assert not missing, missing\n"
         "assert not bad, bad\n"

@@ -46,11 +46,11 @@ from dbsr_tpu_torch.models.dbsr import dbsrnet_tiny
 from dbsr_tpu_torch.models.layers import init_params
 from dbsr_tpu_torch.training import checkpoint as ckpt
 from dbsr_tpu_torch.training.actors import make_synthetic_actor
-from dbsr_tpu_torch.training.profiling import StepTimer, annotate, maybe_trace
 from dbsr_tpu_torch.training.state import make_optimizer
 from dbsr_tpu_torch.training.tblogger import TensorboardWriter
 from dbsr_tpu_torch.training.trainer import LoaderSpec, Trainer
 from dbsr_tpu_torch.utils.convert import params_to_flax
+from dbsr_tpu_torch.utils.profiling import annotate, maybe_trace
 
 CFG = BurstConfig(burst_size=3, crop_sz=(32, 32), downsample_factor=2,
                   border_crop=4, max_translation=3.0, fused_resample=True)
@@ -311,7 +311,7 @@ def test_async_checkpoint_is_the_epoch_it_was_submitted_at(tmp_path):
     assert [e.step for e in acc.Scalars("Loss/total")] == [1, 2]
 
 
-# -- TensorBoard, StepTimer, tracing -----------------------------------------
+# -- TensorBoard, tracing -----------------------------------------------------
 
 def _events(directory):
     out = {}
@@ -347,20 +347,6 @@ def test_tensorboard_writer_writes_what_jax_writes(tmp_path):
     assert [s for s, _ in port["val"]["scalars"]["Loss/total"]] == [2]
     assert "script_name/text_summary" in port["train"]["tensors"]
     assert TensorboardWriter(str(tmp_path / "x"), ["a"]).available
-
-
-def test_step_timer_meters_steps():
-    timer = StepTimer()
-    time.sleep(0.01)
-    a = timer.step(4)
-    time.sleep(0.01)
-    b = timer.step(4)
-    assert a["step_time_s"] >= 0.01 and b["step_time_s"] >= 0.01
-    assert a["fps"] == pytest.approx(4 / a["step_time_s"])
-    assert b["avg_fps"] == pytest.approx(
-        8 / (a["step_time_s"] + b["step_time_s"]), rel=1e-6)
-    timer.reset()
-    assert timer.samples == 0
 
 
 def _steps(n):

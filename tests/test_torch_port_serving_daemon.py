@@ -231,9 +231,15 @@ def test_http_round_trip_with_fake_predictor(daemon):
 
 def test_port_daemon_answers_as_jax_daemon():
     """The same session on both daemons: the same occupancies, responses,
-    status codes, ``/stats`` counts and keys, and ``/healthz``."""
+    status codes, ``/stats`` counts and keys, and ``/healthz``; the port's
+    ``/stats`` adds the p50 and p95 of its operators' counters."""
     jax_rec, port_rec = _session(jax_daemon), _session(port_daemon)
+    port_keys = port_rec.pop("stats_keys")
+    jax_keys = jax_rec.pop("stats_keys")
     assert port_rec == jax_rec
+    assert port_keys == sorted(jax_keys + [
+        f"{name}_{p}_ms" for name in ("queue_wait", "device_call", "decode",
+                                      "encode") for p in ("p50", "p95")])
     assert port_rec["occupancies"] == port_rec["calls"] == [1, 1, 1, 1]
 
 
