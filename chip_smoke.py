@@ -250,14 +250,27 @@ the eval entries, ``default_realworld``) or its bf16 default
     defaults (bf16, the s2d decoder and its kernel) at B=16 for one epoch
     of 5 steps with the banked AlignLite frozen, the banked PWC-Net
     frozen, and the fallback (a fresh PWC-Net trained end to end), exact
-    launches per step, each one's step time, busy share and peak memory;
-    the AlignLite step timed again with ``cudnn.deterministic=True``; one
-    bf16 step of the flagship at B=1 card vs CPU (loss within 2e-2, the
+    launches per step (the s2d weight gradient kernel's 8 among them),
+    each one's step time, busy share and peak memory; the AlignLite step
+    timed again with ``cudnn.deterministic=True``, and run twice from one
+    state and batch: how many gradients still differ; one bf16 step of the flagship at B=1 card vs CPU (loss within 2e-2, the
     card's bf16 gradients no farther from its float32 ones than twice the
     CPU's), every module's output gradient card vs CPU in float32 and
     bf16, the first to depart named; (c) ``default_realworld`` from (b)'s
     bf16 checkpoint: restored in bf16 (exact launches, its checkpoint
-    records bf16), its B=12 step time, one step card vs CPU as in (b).
+    records bf16), its B=12 step time, one step card vs CPU as in (b);
+    (d, run beside phase 3) the s2d decoder's weight gradient kernel
+    (``conv3x3_s2d_dweight``, bf16 operands, float32 out) at the training
+    launch [16, 192, 192, 128] (signed and non-negative x) and at odd
+    shapes: the same bits twice, its error against a float64 reference
+    no larger than cuDNN's float32 weight gradient on the unfolded tensors
+    (the float32 route) at the training launch, and within 1e-5 of the
+    largest entry of the float64 reference and of the plain version
+    everywhere; timed beside its bound, the plain version,
+    ``conv2d_weight`` on the unfolded float32 tensors and the whole
+    float32 route; ``Conv3x3S2D`` routing bf16 to it (one launch a
+    backward, bit-equal) and float32 to cuDNN (none). Its launches are
+    counted on every path, as every kernel's.
 
 16. training data beyond dead leaves: (d, run beside phase 3) the
     resample kernel through ``warp_affine`` at [8, 432, 432, 3] with
@@ -365,10 +378,13 @@ the eval entries, ``default_realworld``) or its bf16 default
     phase 7b's workspace: the path ``resolve_checkpoint`` gives and a
     forward bit-equal to ``load_network``'s.
 
-The second-to-last line is ``{"kernels": [...]}`` (all ten kernels;
+The second-to-last line is ``{"kernels": [...]}`` (all eleven kernels;
 ``launches`` is the count on the entry's own ``path``, whose shapes its
 times are summed over, except the s2d conv's, whose times are one launch's
-and whose path launches it 8 times per forward; ``launches_by_path`` has
+and whose path launches it 8 times per forward, and the s2d weight
+gradient's, bf16 alone, whose times are one launch's at the training shape
+and whose path ``train_step_bf16`` launches it 8 times a step;
+``launches_by_path`` has
 the counts on all thirty-nine paths (``eval``: phase 11's generation and
 flagship scoring; ``eval_r3d``, ``serving_r3d_3_requests`` and the
 ``pwc_*_step`` paths: PWC-Net's; ``burstsr_eval`` and
@@ -439,7 +455,9 @@ KERNEL_NAMES = {"warp": ("warp_kernel",),
                 "merge_backward": ("merge_bwd_kernel", "merge_bwd_bf16_kernel"),
                 "correlation_dfirst": ("correlation_bwd_kernel<[^,>]*, false",),
                 "correlation_dsecond": ("correlation_bwd_kernel<[^,>]*, true",),
-                "conv_s2d": ("conv_s2d_kernel", "conv_s2d_bf16_kernel")}
+                "conv_s2d": ("conv_s2d_kernel", "conv_s2d_bf16_kernel"),
+                "conv_s2d_dweight": ("s2d_dweight_kernel",
+                                     "s2d_dweight_reduce_kernel")}
 CALL_GAP_S = 0.005  # idle time between the profiled calls of device_ms
 HOST_CALLS = 200    # calls of the host-cost loop
 B, N, HW = 8, 14, 48
@@ -470,7 +488,8 @@ TRAIN_FRAMES = TRAIN_B * (TRAIN_N - 1)
 LAUNCHES_PER_TRAIN_STEP = {"resample": 1, "warp": 3, "correlation": 3,
                            "merge": 1, "warp_dfeat": 1, "warp_dflow": 0,
                            "merge_backward": 1, "correlation_dfirst": 0,
-                           "correlation_dsecond": 0, "conv_s2d": 0}
+                           "correlation_dsecond": 0, "conv_s2d": 0,
+                           "conv_s2d_dweight": 0}
 # launches per AlignLite pretraining step: the synthesis' resample; the three
 # cost volumes with both gradients each (target and source features both
 # train); the two backwarps with d_feat (the source features) and d_flow (the
@@ -478,17 +497,20 @@ LAUNCHES_PER_TRAIN_STEP = {"resample": 1, "warp": 3, "correlation": 3,
 LAUNCHES_PER_PRETRAIN_STEP = {"resample": 1, "warp": 2, "correlation": 3,
                               "merge": 0, "warp_dfeat": 2, "warp_dflow": 2,
                               "merge_backward": 0, "correlation_dfirst": 3,
-                              "correlation_dsecond": 3, "conv_s2d": 0}
+                              "correlation_dsecond": 3, "conv_s2d": 0,
+                              "conv_s2d_dweight": 0}
 # launches per default_synthetic step with train_alignment=True: the frozen
 # step's, and the backward now runs through the flow (the 512-channel warp's
 # d_flow) and the aligner (its two backwarps and three cost volumes)
 LAUNCHES_PER_UNFROZEN_STEP = {"resample": 1, "warp": 3, "correlation": 3,
                               "merge": 1, "warp_dfeat": 3, "warp_dflow": 3,
                               "merge_backward": 1, "correlation_dfirst": 3,
-                              "correlation_dsecond": 3, "conv_s2d": 0}
+                              "correlation_dsecond": 3, "conv_s2d": 0,
+                              "conv_s2d_dweight": 0}
 # launches per default_synthetic step with the s2d decoder and
 # DBSR_FINE_PATCH_S2D=1: the frozen step's, and the decoder's 8 post-shuffle
-# 3x3 convs launch the s2d conv in the forward and again as d_input
+# 3x3 convs launch the s2d conv in the forward and again as d_input (their
+# float32 weight gradients are cuDNN's)
 LAUNCHES_PER_S2D_STEP = dict(LAUNCHES_PER_TRAIN_STEP,
                              conv_s2d=2 * LAUNCHES_S2D_PER_FORWARD)
 GRAD_TOL = 1e-3    # ||g_card - g_cpu||_2 <= GRAD_TOL ||g_cpu||_2, all grads
@@ -547,7 +569,8 @@ LAUNCHES_PER_PWC_PRETRAIN_STEP = {"resample": 1, "warp": 4, "correlation": 5,
                                   "merge": 0, "warp_dfeat": 4, "warp_dflow": 4,
                                   "merge_backward": 0,
                                   "correlation_dfirst": 5,
-                                  "correlation_dsecond": 5, "conv_s2d": 0}
+                                  "correlation_dsecond": 5, "conv_s2d": 0,
+                                  "conv_s2d_dweight": 0}
 # per default_synthetic step with a frozen PWC-Net: the forward's, the
 # 512-channel warp's d_feat and the merge backward
 LAUNCHES_PER_PWC_FROZEN_STEP = dict(LAUNCHES_PER_TRAIN_STEP, warp=5,
@@ -622,12 +645,29 @@ BF16_STEPS = 5  # steps of each bf16 training entry run (15b)
 # norm apart, phases 7a and 9; bf16: a flipped rounding cascades, 14b)
 MODULE_DEPART = {"float32": 1e-4, "bfloat16": 1e-2}
 # per bf16 default_synthetic step with its defaults: the s2d decoder, whose
-# 8 3x3 convs launch the s2d conv on the card in the forward and as d_input
-LAUNCHES_PER_BF16_STEP = LAUNCHES_PER_S2D_STEP
+# 8 3x3 convs launch the s2d conv on the card in the forward and as d_input,
+# and the bf16 weight gradient kernel once each
+LAUNCHES_PER_BF16_STEP = dict(LAUNCHES_PER_S2D_STEP,
+                              conv_s2d_dweight=LAUNCHES_S2D_PER_FORWARD)
 LAUNCHES_PER_BF16_PWC_FROZEN_STEP = dict(
-    LAUNCHES_PER_PWC_FROZEN_STEP, conv_s2d=2 * LAUNCHES_S2D_PER_FORWARD)
+    LAUNCHES_PER_PWC_FROZEN_STEP, conv_s2d=2 * LAUNCHES_S2D_PER_FORWARD,
+    conv_s2d_dweight=LAUNCHES_S2D_PER_FORWARD)
 LAUNCHES_PER_BF16_PWC_UNFROZEN_STEP = dict(
-    LAUNCHES_PER_PWC_UNFROZEN_STEP, conv_s2d=2 * LAUNCHES_S2D_PER_FORWARD)
+    LAUNCHES_PER_PWC_UNFROZEN_STEP, conv_s2d=2 * LAUNCHES_S2D_PER_FORWARD,
+    conv_s2d_dweight=LAUNCHES_S2D_PER_FORWARD)
+# per bf16 default_realworld step: the float32 one's and the weight
+# gradient kernel of each of the decoder's 8 convs
+LAUNCHES_PER_BF16_RW_STEP = dict(LAUNCHES_PER_RW_STEP,
+                                 conv_s2d_dweight=LAUNCHES_S2D_PER_FORWARD)
+# 15d, the s2d weight gradient: (B, H2, W2, C, O) of the decoder's training
+# launch, then odd shapes (C, O % 8 != 0, more than 32, ragged strips, a
+# one-pixel plane); its error against float64, and against the plain
+# version, of the other's largest entry (sum order only)
+DWEIGHT_TRAIN = (TRAIN_B, 192, 192, 32, 32)
+DWEIGHT_ODD = ((2, 7, 11, 3, 5), (1, 5, 17, 5, 33), (2, 9, 13, 7, 7),
+               (1, 6, 40, 33, 32), (3, 4, 16, 32, 32), (1, 1, 1, 32, 32),
+               (2, 12, 24, 16, 48), (1, 3, 70, 64, 8))
+DWEIGHT_RTOL = 1e-5
 # phase 16, the training data beyond dead leaves: a mixed pool of 128
 # sources at 432^2 in two chunks of 64; each generator's card rendering of
 # GEN_CHECK_N images against the CPU's from the same draws (float image
@@ -660,12 +700,13 @@ CONV_FLOW_STEPS = 3
 # checkpoint (ConvFlow, two convs, trained end to end): the synthesis'
 # resample; the 512-channel feature warp (ConvFlow has no backwarp and no
 # cost volume) with d_feat and d_flow; the merge and its backward; the s2d
-# conv forward and as d_input
+# conv forward and as d_input, and its bf16 weight gradient
 LAUNCHES_PER_CONV_FLOW_STEP = {"resample": 1, "warp": 1, "correlation": 0,
                                "merge": 1, "warp_dfeat": 1, "warp_dflow": 1,
                                "merge_backward": 1, "correlation_dfirst": 0,
                                "correlation_dsecond": 0,
-                               "conv_s2d": 2 * LAUNCHES_S2D_PER_FORWARD}
+                               "conv_s2d": 2 * LAUNCHES_S2D_PER_FORWARD,
+                               "conv_s2d_dweight": LAUNCHES_S2D_PER_FORWARD}
 
 
 def log(*a):
@@ -1796,7 +1837,7 @@ def correlation_backward_entries(dev, g):
 
 
 def _counters():
-    from dbsr_tpu_torch.ops.conv_s2d import conv3x3_s2d
+    from dbsr_tpu_torch.ops.conv_s2d import conv3x3_s2d, conv3x3_s2d_dweight
     from dbsr_tpu_torch.ops.correlation import (correlation_dfirst,
                                                 correlation_dsecond,
                                                 cost_volume)
@@ -1809,7 +1850,7 @@ def _counters():
             "merge_backward": merge_backward,
             "correlation_dfirst": correlation_dfirst,
             "correlation_dsecond": correlation_dsecond,
-            "conv_s2d": conv3x3_s2d}
+            "conv_s2d": conv3x3_s2d, "conv_s2d_dweight": conv3x3_s2d_dweight}
 
 
 def reset_counts():
@@ -4511,7 +4552,8 @@ def bf16_training_phase(dev, workdir):
     and the fallback (a fresh PWC-Net trained end to end), one epoch each,
     exact launches per step, the step's ms, busy share and peak memory
     (step_phase); the first one's step again with
-    ``torch.backends.cudnn.deterministic=True`` (timed, not kept on);
+    ``torch.backends.cudnn.deterministic=True`` (timed, not kept on), and
+    twice from one state and batch (which gradients differ, recorded);
     the flagship's bf16 step card vs CPU; then ``default_realworld`` from
     the AlignLite run's bf16 checkpoint: restored in bf16, one epoch with
     exact launches, its step's time, card vs CPU. Returns the numbers and
@@ -4519,6 +4561,7 @@ def bf16_training_phase(dev, workdir):
     from dbsr_tpu_torch.configs.dbsr import default_realworld
     from dbsr_tpu_torch.data.procedural import make_generator
     from dbsr_tpu_torch.models.layers import compute_dtype_of
+    from dbsr_tpu_torch.serving import float32_math
     from dbsr_tpu_torch.training.checkpoint import (read_header,
                                                     resolve_checkpoint)
 
@@ -4565,6 +4608,13 @@ def bf16_training_phase(dev, workdir):
             log(f"default_synthetic bf16 step at B={TRAIN_B}: "
                 f"{timed[False]:.2f} ms, {timed[True]:.2f} ms with "
                 f"cudnn.deterministic=True (CUDA events, median of 5)")
+            with float32_math():
+                batch = trainer.prepare_fn(make_generator(dev, 7), pool)
+            res["step_twice"] = _compare_runs(
+                f"determinism, bf16 frozen step B={TRAIN_B} (s2d decoder)",
+                trainer.net, _repeat_step(trainer.actor_fn, trainer.net,
+                                          batch))
+            del batch
         del trainer, state
         torch.cuda.empty_cache()
         out[path] = res
@@ -4579,7 +4629,7 @@ def bf16_training_phase(dev, workdir):
     per_step, logged, texts, headers = entry_phase(
         "dbsr", "default_realworld",
         dict(steps_per_epoch=RW_STEPS, print_interval=RW_STEPS), (1,),
-        LAUNCHES_PER_RW_STEP, "dbsr_realworld")
+        LAUNCHES_PER_BF16_RW_STEP, "dbsr_realworld")
     if f"restored {syn}" not in texts[0] or headers[1]["net_spec"]["kwargs"][
             "dtype"] != {"__dtype__": "bfloat16"}:
         raise AssertionError(f"default_realworld did not restore {syn} in "
@@ -4596,7 +4646,8 @@ def bf16_training_phase(dev, workdir):
     state = trainer.init_state()
     trainer.net.load_state_dict(restored)
     rw["step"] = step_phase(dev, "default_realworld bf16", trainer, state,
-                            LAUNCHES_PER_RW_STEP, n_steps=8, batch_size=RW_B,
+                            LAUNCHES_PER_BF16_RW_STEP, n_steps=8,
+                            batch_size=RW_B,
                             loss_must_fall=False)
     del trainer, state
     torch.cuda.empty_cache()
@@ -4607,6 +4658,156 @@ def bf16_training_phase(dev, workdir):
 
 
 # ---------------------------------------------------------------------------
+def _dweight_errors(got, want):
+    """``got``'s distance from the float64 ``want``: the largest over the
+    largest entry, and the L2 norm's share."""
+    d = got.double() - want
+    return dict(max_rel=float(d.abs().max() / want.abs().max()),
+                l2_rel=float(d.norm() / want.norm()))
+
+
+def s2d_dweight_phase(dev, g):
+    """Phase 15d: the s2d decoder's weight gradient kernel
+    (``conv3x3_s2d_dweight``; bf16 operands, float32 out) against a float64
+    reference on the same bf16-valued operands, beside cuDNN's float32
+    weight gradient on the unfolded tensors (the float32 route of
+    ``Conv3x3S2D``, TF32 off), and against the plain version; the same bits
+    twice; timed at the training launch; the routing of ``Conv3x3S2D``.
+    Returns the kernel's entry of the kernels line, its launches read on
+    ``train_step_bf16`` (phase 15b's bf16 step counts them), with the
+    routes."""
+    from dbsr_tpu_torch.models.layers import depth_to_space_phase_major
+    from dbsr_tpu_torch.ops.conv_s2d import (_unfold_nchw, conv3x3_s2d,
+                                             conv3x3_s2d_dweight,
+                                             conv3x3_s2d_dweight_plain)
+
+    def float32_route(x, gg, wshape):
+        cudnn = torch.backends.cudnn
+        tf32, cudnn.allow_tf32 = cudnn.allow_tf32, False
+        try:
+            return torch.nn.grad.conv2d_weight(
+                _unfold_nchw(x), wshape, _unfold_nchw(gg), padding=1)
+        finally:
+            cudnn.allow_tf32 = tf32
+
+    def reference(x, gg, wshape):
+        def nchw(t):
+            return depth_to_space_phase_major(t.double(), 2).permute(
+                0, 3, 1, 2)
+        return torch.nn.grad.conv2d_weight(nchw(x), wshape, nchw(gg),
+                                           padding=1)
+
+    rows = []
+    shapes = [(DWEIGHT_TRAIN, "signed"), (DWEIGHT_TRAIN, "relu")] + [
+        (s, "signed") for s in DWEIGHT_ODD]
+    for shape, kind in shapes:
+        b, h2, w2, c, o = shape
+        x = torch.randn(b, h2, w2, 4 * c, generator=g, device=dev)
+        if kind == "relu":
+            x = x.clamp_min(0)
+        x = x.to(torch.bfloat16)
+        gg = torch.randn(b, h2, w2, 4 * o, generator=g,
+                         device=dev).to(torch.bfloat16)
+        wshape = (o, c, 3, 3)
+        n0 = conv3x3_s2d_dweight.launches
+        got = conv3x3_s2d_dweight(x, gg, wshape)
+        again = conv3x3_s2d_dweight(x, gg, wshape)
+        torch.cuda.synchronize()
+        if conv3x3_s2d_dweight.launches - n0 != 2:
+            raise AssertionError(f"15d {shape}: "
+                                 f"{conv3x3_s2d_dweight.launches - n0} "
+                                 "launches counted for 2 calls")
+        want = reference(x, gg, wshape)
+        plain = conv3x3_s2d_dweight_plain(x, gg, wshape)
+        row = dict(shape=list(shape), x=kind,
+                   same_bits=bool(torch.equal(got, again)),
+                   max_abs_err=float((got - plain).abs().max()),
+                   kernel_vs_plain=_dweight_errors(got, plain.double()),
+                   kernel=_dweight_errors(got, want),
+                   cudnn_float32=_dweight_errors(
+                       float32_route(x, gg, wshape), want),
+                   plain=_dweight_errors(plain, want))
+        log(f"  dweight {shape} x {kind}: same bits twice "
+            f"{row['same_bits']}; vs float64, kernel {row['kernel']}, "
+            f"cuDNN float32 {row['cudnn_float32']}, plain {row['plain']}; "
+            f"kernel vs plain {row['kernel_vs_plain']} (limit "
+            f"{DWEIGHT_RTOL} of the largest entry)")
+        if not row["same_bits"]:
+            raise AssertionError(f"15d {shape}: two calls differ")
+        for ref in ("kernel", "kernel_vs_plain"):
+            if not row[ref]["max_rel"] <= DWEIGHT_RTOL:
+                raise AssertionError(f"15d {shape}: {ref} {row[ref]}")
+        if shape == DWEIGHT_TRAIN:
+            if any(row["kernel"][k] > row["cudnn_float32"][k]
+                   for k in ("max_rel", "l2_rel")):
+                raise AssertionError(f"15d {shape} x {kind}: the kernel's "
+                                     f"error {row['kernel']} above cuDNN's "
+                                     f"{row['cudnn_float32']}")
+            if kind == "signed":
+                xu, gu = _unfold_nchw(x), _unfold_nchw(gg)
+                nbytes = (x.numel() + gg.numel()) * 2 + o * c * 9 * 4
+                flops = 2 * b * 4 * h2 * w2 * 9 * c * o
+                bound_ms, by = bound(nbytes, flops, BF16_FLOPS_PER_S)
+                row.update(timings(
+                    "conv_s2d_dweight",
+                    lambda: conv3x3_s2d_dweight(x, gg, wshape),
+                    lambda: conv3x3_s2d_dweight_plain(x, gg, wshape),
+                    lambda: float32_route(x, gg, wshape)))
+                row["library_unfolded_ms"] = cuda_ms(
+                    lambda: torch.nn.grad.conv2d_weight(xu, wshape, gu,
+                                                        padding=1))
+                row.update(bound_ms=bound_ms, bound_by=by)
+                log(f"  dweight {shape}: {row['ms']:.4f} ms a call (device "
+                    f"{row['device_ms']:.4f}, kernels "
+                    f"{row['kernel_device_ms']:.4f}); bound {bound_ms:.4f} "
+                    f"({by}); plain {row['plain_ms']:.3f}; cuDNN float32 "
+                    f"on the unfolded tensors {row['library_unfolded_ms']:.3f}"
+                    f", with the unfold {row['library_ms']:.3f} (device "
+                    f"{row['library_device_ms']:.3f})")
+                del xu, gu
+        rows.append(row)
+        del x, gg, got, again, want, plain
+        torch.cuda.empty_cache()
+
+    # Conv3x3S2D: bf16 to the kernel, float32 to cuDNN
+    w = torch.randn(32, 32, 3, 3, generator=g, device=dev) * 0.1
+    xr = torch.randn(2, 24, 24, 128, generator=g, device=dev)
+    gr = torch.randn(2, 24, 24, 128, generator=g, device=dev)
+    routes = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        xi = xr.to(dtype).requires_grad_(True)
+        wi = w.clone().requires_grad_(True)
+        n_conv, n_dw = conv3x3_s2d.launches, conv3x3_s2d_dweight.launches
+        conv3x3_s2d(xi, wi).backward(gr.to(dtype))
+        torch.cuda.synchronize()
+        routes[str(dtype)] = dict(
+            conv_launches=conv3x3_s2d.launches - n_conv,
+            dweight_launches=conv3x3_s2d_dweight.launches - n_dw)
+        if dtype == torch.bfloat16:
+            same = torch.equal(wi.grad, conv3x3_s2d_dweight(
+                xi.detach(), gr.to(dtype), tuple(w.shape)))
+        else:
+            want = float32_route(xi.detach(), gr, tuple(w.shape))
+            same = bool(torch.allclose(wi.grad, want, rtol=1e-5, atol=1e-6))
+        routes[str(dtype)]["weight_grad_as_its_route"] = bool(same)
+    log(f"  Conv3x3S2D backward on the card: {routes}")
+    if routes["torch.bfloat16"] != dict(conv_launches=2, dweight_launches=1,
+                                        weight_grad_as_its_route=True) \
+            or routes["torch.float32"] != dict(
+                conv_launches=2, dweight_launches=0,
+                weight_grad_as_its_route=True):
+        raise AssertionError(f"15d: Conv3x3S2D's routes {routes}")
+    # one launch's times at the training shape; train_step_bf16 launches
+    # it once for each of the decoder's 8 convs
+    e = _entry("conv_s2d_dweight",
+               "dbsr_tpu_torch/kernels/csrc/conv_s2d_dweight.cu",
+               "none: dbsr_tpu/ops/conv_s2d_pallas.py:202 leaves it to XLA",
+               rows[:1], rows[1:], path="train_step_bf16")
+    e.update(dtypes=["bfloat16"], routes=routes)
+    torch.cuda.empty_cache()
+    return e
+
+
 # phase 16: training data beyond dead leaves
 
 
@@ -4965,7 +5166,7 @@ def prefetched_finetune_phase(dev, step_ms):
         trainer.train(2)
     res = _timed_epoch("default_realworld bf16 through the prefetcher "
                        "(epoch 3)", trainer, 3, RW_STEPS,
-                       LAUNCHES_PER_RW_STEP, batch_size=RW_B)
+                       LAUNCHES_PER_BF16_RW_STEP, batch_size=RW_B)
     per_step = {k: v // RW_STEPS for k, v in read_counts().items()}
     log(f"default_realworld bf16: {res['ms_per_step']:.2f} ms per prefetched "
         f"step, {step_ms:.2f} ms per fixed-batch step (15c)")
@@ -6638,6 +6839,8 @@ def main():
         f"B={TRAIN_B}, N={TRAIN_N}; PWC-Net's; an odd C):")
     bf16_backward = bf16_backward_kernel_phase(dev, g15)
     torch.cuda.empty_cache()
+    log("phase 15d, the s2d weight gradient kernel (bf16):")
+    s2d_dweight = s2d_dweight_phase(dev, g15)
     # 16d likewise: the resample kernel through warp_affine
     g16 = torch.Generator(device=dev)
     g16.manual_seed(16)
@@ -6689,6 +6892,7 @@ def main():
     add_pwc_rows(new, pwc_backward_rows(dev, g), "pwc_pretrain_step")
     results += new
     add_bf16_training_rows(results, bf16_backward)
+    results.append(s2d_dweight)
     next(e for e in results if e["name"] == "resample")[
         "other_shapes"].append(warp_affine_row)
     torch.cuda.empty_cache()
@@ -6850,9 +7054,9 @@ def main():
         if "pwc_path" in e and not by_path[e["pwc_path"]]:
             raise AssertionError(f"{e['name']} was not launched on PWC-Net's "
                                  f"path {e['pwc_path']}")
-        e["dtypes"] = (["float32", "bfloat16"]
-                       if "bf16" in e or "bf16_training" in e
-                       else ["float32"])
+        e.setdefault("dtypes", ["float32", "bfloat16"]
+                     if "bf16" in e or "bf16_training" in e
+                     else ["float32"])
         if "bf16_training" in e:
             # the encoder's warp, the merge and the decoder's d_input on the
             # frozen bf16 step; d_flow and the cost volume's backward where

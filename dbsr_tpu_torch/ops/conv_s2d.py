@@ -16,14 +16,19 @@ compute-only.
   to bf16, float32 accumulation, one rounding of the output) its forward
   launches ``kernels/csrc/conv_s2d.cu``, which skips the block weight's
   zero slots, and its d_input launches the same kernel, in the output
-  gradient's type, with ``weight.flip(2, 3).transpose(0, 1)``; d_kernel
-  is PyTorch's float32 conv weight gradient of the fine-resolution conv on
-  the unfolded ``x`` and output gradient, TF32 off (the JAX package
-  computes that term with XLA too, float32 on bf16-valued operands). For
-  CPU tensors the same ``Function`` runs the plain version. It keeps ``x``
-  only when the weight needs a gradient and the weight only when ``x``
-  does, and is bypassed when no gradient is needed. The kernel's launches
-  (forward and d_input) are counted in ``conv3x3_s2d.launches``.
+  gradient's type, with ``weight.flip(2, 3).transpose(0, 1)``. d_kernel is
+  :func:`conv3x3_s2d_dweight`: for bfloat16 CUDA operands
+  ``kernels/csrc/conv_s2d_dweight.cu`` (bf16 tensor-core products, exact
+  in float32, float32 sums, read straight from the s2d layout; the JAX
+  package computes the term with XLA at the same precision); for float32
+  CUDA operands PyTorch's float32 conv weight gradient of the
+  fine-resolution conv on the unfolded ``x`` and output gradient, TF32 off.
+  For CPU tensors the same ``Function`` runs the plain versions. It keeps
+  ``x`` only when the weight needs a gradient and the weight only when
+  ``x`` does, and is bypassed when no gradient is needed. The conv
+  kernel's launches (forward and d_input) are counted in
+  ``conv3x3_s2d.launches``, the weight gradient's in
+  ``conv3x3_s2d_dweight.launches``.
 * :func:`conv3x3_s2d_auto` dispatches: a CUDA tensor takes
   :func:`conv3x3_s2d` unless ``DBSR_FINE_PATCH_S2D=0`` (read per call); a
   CPU tensor keeps the JAX package's dispatch, :func:`conv3x3_s2d` only
@@ -34,6 +39,8 @@ compute-only.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 from typing import Optional
 
@@ -67,6 +74,15 @@ _SLOT = _slot_table()
 _PIECE_OF_SLOT = tuple(_SLOT.index(s) for s in range(16))
 
 
+def _tap_selection(device, dtype) -> torch.Tensor:
+    """``sel[t, p, u]`` ``[4, 2, 3]``: 1 where patch tap ``t`` of output
+    phase ``p`` is the fine tap ``u = t - p`` (in 0..2), else 0."""
+    t = torch.arange(4, device=device).view(4, 1, 1)
+    p = torch.arange(2, device=device).view(1, 2, 1)
+    u = torch.arange(3, device=device).view(1, 1, 3)
+    return (u == t - p).to(dtype)
+
+
 def block_weight(weight: torch.Tensor) -> torch.Tensor:
     """The fine-patch weight matrix ``[16C, 4O]`` of an OIHW ``[O, C, 3, 3]``
     weight, equal to the JAX package's ``block_weight`` of the same HWIO
@@ -75,11 +91,7 @@ def block_weight(weight: torch.Tensor) -> torch.Tensor:
     Built by a 0/1 selection times the weight and a sum with at most one
     non-zero term, so every entry is exactly the weight's."""
     O, C = weight.shape[:2]
-    # sel[t, p, u] = 1 where the fine tap u = t - p lies in 0..2
-    t = torch.arange(4, device=weight.device).view(4, 1, 1)
-    p = torch.arange(2, device=weight.device).view(1, 2, 1)
-    u = torch.arange(3, device=weight.device).view(1, 1, 3)
-    sel = (u == t - p).to(weight.dtype)
+    sel = _tap_selection(weight.device, weight.dtype)
     # [ty, tx, c, py, px, o]
     #     = sum_{u, v} sel[ty, py, u] sel[tx, px, v] w[o, c, u, v]
     s2 = (sel.view(4, 1, 1, 2, 1, 1, 3, 1)
@@ -98,19 +110,11 @@ def _check(op: str, x: torch.Tensor, weight: torch.Tensor):
     return x.shape[:3] + (x.shape[-1] // 4, weight.shape[0])
 
 
-def conv3x3_s2d_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-    """The fine 3x3 SAME conv of ``x`` ``[B, H2, W2, 4C]`` (phase-major s2d)
-    with ``weight`` ``[O, C, 3, 3]`` -> ``[B, H2, W2, 4O]``, as
-    ``_conv3x3_block_impl``: pad one coarse pixel, the 16 fine-aligned
-    ``[.., C]`` pieces as ``[16C]`` patch rows in ``_SLOT`` order, times
-    :func:`block_weight`. Plain tensor ops, differentiable. For a bfloat16
-    ``x``: the same in float32 on ``x`` and the weight rounded to bf16,
-    rounded once to bf16 (float32 matmuls on the card run without TF32
-    unless asked)."""
-    B, H2, W2, C, O = _check("conv3x3_s2d_plain", x, weight)
-    if x.dtype == torch.bfloat16:
-        return conv3x3_s2d_plain(x.float(),
-                                 weight.to(x.dtype).float()).to(x.dtype)
+def _patch_rows(x: torch.Tensor, C: int) -> torch.Tensor:
+    """Each coarse pixel's fine 4x4 window of ``x`` ``[B, H2, W2, 4C]``,
+    padded by one coarse pixel, as a ``[B, H2, W2, 16C]`` patch row: the 16
+    fine-aligned ``[.., C]`` pieces in ``_SLOT`` order."""
+    H2, W2 = x.shape[1:3]
     xp = F.pad(x, (0, 0, 1, 1, 1, 1))
     pieces = [None] * 16
     for ty in range(4):
@@ -120,7 +124,23 @@ def conv3x3_s2d_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
             q = py * 2 + px
             pieces[_SLOT[ty * 4 + tx]] = xp[
                 :, off_y:off_y + H2, off_x:off_x + W2, q * C:(q + 1) * C]
-    return torch.cat(pieces, dim=-1) @ block_weight(weight).to(x.dtype)
+    return torch.cat(pieces, dim=-1)
+
+
+def conv3x3_s2d_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The fine 3x3 SAME conv of ``x`` ``[B, H2, W2, 4C]`` (phase-major s2d)
+    with ``weight`` ``[O, C, 3, 3]`` -> ``[B, H2, W2, 4O]``, as
+    ``_conv3x3_block_impl``: pad one coarse pixel, the 16 fine-aligned
+    ``[.., C]`` pieces as ``[16C]`` patch rows in ``_SLOT`` order, times
+    :func:`block_weight`. Plain tensor ops, differentiable. For a bfloat16
+    ``x``: the same in float32 on ``x`` and the weight rounded to bf16,
+    rounded once to bf16 (float32 matmuls on the card run without TF32
+    unless asked)."""
+    C = _check("conv3x3_s2d_plain", x, weight)[3]
+    if x.dtype == torch.bfloat16:
+        return conv3x3_s2d_plain(x.float(),
+                                 weight.to(x.dtype).float()).to(x.dtype)
+    return _patch_rows(x, C) @ block_weight(weight).to(x.dtype)
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -170,6 +190,78 @@ def rotate_weight(weight: torch.Tensor) -> torch.Tensor:
     return weight.flip(2, 3).transpose(0, 1)
 
 
+def _check_dweight(x: torch.Tensor, g: torch.Tensor, weight_shape):
+    O, C = tuple(weight_shape)[:2]
+    if (x.ndim != 4 or g.ndim != 4 or x.shape[:3] != g.shape[:3]
+            or tuple(weight_shape) != (O, C, 3, 3) or x.shape[-1] != 4 * C
+            or g.shape[-1] != 4 * O):
+        raise ValueError(f"conv3x3_s2d_dweight: x {tuple(x.shape)}, g "
+                         f"{tuple(g.shape)} and weight {tuple(weight_shape)} "
+                         "are not [B,H2,W2,4C], [B,H2,W2,4O], [O,C,3,3]")
+    return O, C
+
+
+def conv3x3_s2d_dweight_plain(x: torch.Tensor, g: torch.Tensor,
+                              weight_shape) -> torch.Tensor:
+    """The weight gradient ``[O, C, 3, 3]`` of :func:`conv3x3_s2d_plain` at
+    ``x`` ``[B, H2, W2, 4C]`` for the output gradient ``g`` ``[B, H2, W2,
+    4O]``, in the forward's fine-patch form: the ``[16C]`` patch rows (pieces
+    in ``_SLOT`` order) transposed times ``g``, the gradient of the block
+    weight, folded back by the adjoint of :func:`block_weight` (each tap
+    summed over the (slot, phase) pairs that hold it). Float32 for bf16
+    operands (their products are exact there), else their own type."""
+    O, C = _check_dweight(x, g, weight_shape)
+    dtype = torch.promote_types(x.dtype, g.dtype)
+    if dtype == torch.bfloat16:
+        dtype = torch.float32
+    rows = _patch_rows(x.to(dtype), C).reshape(-1, 16 * C)
+    dwm = (rows.t() @ g.to(dtype).reshape(-1, 4 * O)).reshape(16, C, 2, 2, O)
+    # in piece order: [ty, tx, c, py, px, o]
+    dwm = torch.stack([dwm[s] for s in _SLOT]).reshape(4, 4, C, 2, 2, O)
+    sel = _tap_selection(x.device, dtype)
+    return torch.einsum("aiu,bjv,abcijo->ocuv", sel, sel, dwm)
+
+
+@functools.lru_cache(maxsize=256)
+def _dweight_scratch_floats(B: int, H2: int, W2: int, C: int, O: int,
+                            sms: int) -> int:
+    """Floats of the weight gradient kernel's partials on a card of ``sms``
+    multiprocessors, as its C source sizes them (its grid is decided there
+    alone)."""
+    fn = kernels.library("conv_s2d_dweight") \
+        .dbsr_conv_s2d_dweight_scratch_floats
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    return fn(B, H2, W2, C, O, sms)
+
+
+def conv3x3_s2d_dweight(x: torch.Tensor, g: torch.Tensor,
+                        weight_shape) -> torch.Tensor:
+    """The weight gradient ``[O, C, 3, 3]``, float32, of the fine 3x3 SAME
+    conv at ``x`` ``[B, H2, W2, 4C]`` for the output gradient ``g`` ``[B,
+    H2, W2, 4O]`` (phase-major s2d): ``kernels/csrc/conv_s2d_dweight.cu``
+    for bfloat16 CUDA tensors (contiguous), :func:`conv3x3_s2d_dweight_plain`
+    for CPU ones; other CUDA tensors raise."""
+    with annotate("op.conv3x3_s2d_dweight"):
+        O, C = _check_dweight(x, g, weight_shape)
+        if _on_cpu(x, g):
+            return conv3x3_s2d_dweight_plain(x, g, weight_shape)
+        kernels.require_cuda("conv3x3_s2d_dweight", x, g,
+                             dtypes=(torch.bfloat16,) * 2)
+        sizes = (*x.shape[:3], C, O, torch.cuda.get_device_properties(
+            x.device).multi_processor_count)
+        partial = x.new_empty(_dweight_scratch_floats(*sizes),
+                              dtype=torch.float32)
+        out = x.new_empty((O, C, 3, 3), dtype=torch.float32)
+        kernels.launch("conv_s2d_dweight", "dbsr_conv_s2d_dweight_bf16",
+                       (x, g, partial, out), sizes)
+        conv3x3_s2d_dweight.launches += 1
+        return out
+
+
+conv3x3_s2d_dweight.launches = 0
+
+
 def _unfold_nchw(x: torch.Tensor) -> torch.Tensor:
     from dbsr_tpu_torch.models.layers import depth_to_space_phase_major
     return depth_to_space_phase_major(x, 2).float().permute(0, 3, 1, 2)
@@ -192,7 +284,10 @@ class Conv3x3S2D(torch.autograd.Function):
         dx = dk = None
         if ctx.needs_input_grad[0]:
             dx = conv3x3_s2d_forward(g, rotate_weight(weight))
-        if ctx.needs_input_grad[1]:
+        if ctx.needs_input_grad[1] and x.is_cuda \
+                and x.dtype != torch.bfloat16:
+            # float32 on the card: products not exact in bf16, so cuDNN's
+            # float32 weight gradient on the unfolded tensors
             cudnn = torch.backends.cudnn
             tf32, cudnn.allow_tf32 = cudnn.allow_tf32, False
             try:
@@ -201,6 +296,9 @@ class Conv3x3S2D(torch.autograd.Function):
                     padding=1).to(ctx.weight_dtype)
             finally:
                 cudnn.allow_tf32 = tf32
+        elif ctx.needs_input_grad[1]:
+            dk = conv3x3_s2d_dweight(x, g, ctx.weight_shape).to(
+                ctx.weight_dtype)
         return dx, dk
 
 

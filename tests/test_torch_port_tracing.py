@@ -1,6 +1,6 @@
 """The port's spans on the CPU: ``annotate`` is a shared null context with
 no profiler running and a ``record_function`` span under one; each of the
-ten kernel entries opens its ``op.<entry>`` span on the CPU path; a
+eleven kernel entries opens its ``op.<entry>`` span on the CPU path; a
 trainer step, a predictor call, the prefetch worker (through
 ``maybe_trace``, which records every thread) and the serving daemon open
 theirs; the daemon's counters reach ``/stats``.
@@ -84,7 +84,7 @@ def test_annotate_records_its_span_under_the_profiler():
     assert annotate("probe.span") is annotate("other")
 
 
-# -- the ten kernel entries ---------------------------------------------------
+# -- the eleven kernel entries ------------------------------------------------
 
 def _flow(B, H, W):
     return torch.rand(B, H, W, 2, generator=torch.Generator().manual_seed(1))
@@ -110,12 +110,15 @@ def _entry_args(name):
                                        eye.expand(1, 2, 2, 3).contiguous(),
                                        (4, 4), 2, 2)),
         "conv3x3_s2d_forward": (conv_s2d, (r(1, 3, 3, 8), r(3, 2, 3, 3))),
+        "conv3x3_s2d_dweight": (conv_s2d, (r(1, 3, 3, 8), r(1, 3, 3, 12),
+                                           (3, 2, 3, 3))),
     }[name]
 
 
 ENTRIES = ("warp_forward", "warp_dfeat", "warp_dflow", "correlation_forward",
            "correlation_dfirst", "correlation_dsecond", "merge_forward",
-           "merge_backward", "affine_resample", "conv3x3_s2d_forward")
+           "merge_backward", "affine_resample", "conv3x3_s2d_forward",
+           "conv3x3_s2d_dweight")
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
