@@ -270,7 +270,20 @@ the eval entries, ``default_realworld``) or its bf16 default
     ``conv2d_weight`` on the unfolded float32 tensors and the whole
     float32 route; ``Conv3x3S2D`` routing bf16 to it (one launch a
     backward, bit-equal) and float32 to cuDNN (none). Its launches are
-    counted on every path, as every kernel's.
+    counted on every path, as every kernel's. (e, run beside phase 3) the
+    dead-leaves composite (``dead_leaves_composite``, float32) at a chunk
+    of the training pool [32, 432, 432] with 300 leaves and at odd shapes
+    (H, W not multiples of its 16x16 tile; L = 1, 5, 300): its plain
+    version's bits (compared as int32) and the same bits twice; timed at
+    the chunk beside its bound (38 float32 operations a pixel a leaf, none
+    fused, at half the FMA rate) and the plain version; a
+    ``ProceduralImagePool`` round of 128 at 432^2: one launch a chunk of
+    32, the uint8 pool of the same round rendered through the plain
+    version, both rounds' wall time. Its launches are counted on every
+    path, as every kernel's: none on a step or while serving; on each
+    window that renders a procedural pool on the card (the training
+    entries' epochs, 17's epochs, 18a's ranks, 11's val set), one a chunk
+    of 32 dead-leaves images of each round (``check_counts``' renders).
 
 16. training data beyond dead leaves: (d, run beside phase 3) the
     resample kernel through ``warp_affine`` at [8, 432, 432, 3] with
@@ -378,14 +391,16 @@ the eval entries, ``default_realworld``) or its bf16 default
     phase 7b's workspace: the path ``resolve_checkpoint`` gives and a
     forward bit-equal to ``load_network``'s.
 
-The second-to-last line is ``{"kernels": [...]}`` (all eleven kernels;
+The second-to-last line is ``{"kernels": [...]}`` (all twelve kernels;
 ``launches`` is the count on the entry's own ``path``, whose shapes its
 times are summed over, except the s2d conv's, whose times are one launch's
 and whose path launches it 8 times per forward, and the s2d weight
 gradient's, bf16 alone, whose times are one launch's at the training shape
-and whose path ``train_step_bf16`` launches it 8 times a step;
+and whose path ``train_step_bf16`` launches it 8 times a step, and the
+dead-leaves composite's, whose times are one launch's at a chunk of the
+pool and whose path ``pool_round_128`` is 15e's round of 128 images;
 ``launches_by_path`` has
-the counts on all thirty-nine paths (``eval``: phase 11's generation and
+the counts on all forty paths (``eval``: phase 11's generation and
 flagship scoring; ``eval_r3d``, ``serving_r3d_3_requests`` and the
 ``pwc_*_step`` paths: PWC-Net's; ``burstsr_eval`` and
 ``burstsr_eval_r3d``: phase 13c's scoring of 3 bursts; ``realworld_step``:
@@ -400,7 +415,9 @@ posted bursts, ``resume_params_only_step_bf16`` and
 step of one rank, ``serving_2_replicas_bf16`` one call of two replicas,
 ``frame_sharded_forward_rank`` one rank's forward; phase 19's:
 ``eval_lpips_bf16`` its 16 bursts, ``visualize_synburst_bf16`` its 3,
-``visualize_burstsr_bf16`` its 2, ``conv_flow_step_bf16`` per step);
+``visualize_burstsr_bf16`` its 2, ``conv_flow_step_bf16`` per step;
+``pool_round_128``: 15e's pool round; a path's count per step leaves out
+the pool renders of its window, which are checked apart);
 ``device_ms``, ``kernel_device_ms`` and ``library_device_ms`` beside
 ``ms`` and ``library_ms``; the s2d conv's ``bound_ms`` is that of its own
 math, 3xTF32 on the tensor cores, also given as ``tc_bound_ms``, and
@@ -433,6 +450,9 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOPS_PER_S = 67e12    # H100 SXM float32 rate outside the tensor cores
+# its rate of float32 operations that do not fuse into an FMA (an FMA
+# counts two operations in FP32_FLOPS_PER_S)
+FP32_OPS_PER_S = FP32_FLOPS_PER_S / 2
 TF32_FLOPS_PER_S = 495e12   # H100 SXM TF32 tensor-core rate (dense)
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 tensor-core rate (dense)
 # the CUDA kernels each entry's wrapper launches, as the profiler names
@@ -457,7 +477,8 @@ KERNEL_NAMES = {"warp": ("warp_kernel",),
                 "correlation_dsecond": ("correlation_bwd_kernel<[^,>]*, true",),
                 "conv_s2d": ("conv_s2d_kernel", "conv_s2d_bf16_kernel"),
                 "conv_s2d_dweight": ("s2d_dweight_kernel",
-                                     "s2d_dweight_reduce_kernel")}
+                                     "s2d_dweight_reduce_kernel"),
+                "dead_leaves_composite": ("dead_leaves_composite_kernel",)}
 CALL_GAP_S = 0.005  # idle time between the profiled calls of device_ms
 HOST_CALLS = 200    # calls of the host-cost loop
 B, N, HW = 8, 14, 48
@@ -484,12 +505,13 @@ TRAIN_B, TRAIN_N = 16, 8
 TRAIN_FRAMES = TRAIN_B * (TRAIN_N - 1)
 # launches per train step: the forward's (resample for the synthesis), the
 # warp's d_feat and the merge backward; d_flow never (the flow comes from
-# the frozen aligner, without gradient)
+# the frozen aligner, without gradient); the dead-leaves composite never
+# (it renders the pool, once a round: check_counts' renders)
 LAUNCHES_PER_TRAIN_STEP = {"resample": 1, "warp": 3, "correlation": 3,
                            "merge": 1, "warp_dfeat": 1, "warp_dflow": 0,
                            "merge_backward": 1, "correlation_dfirst": 0,
                            "correlation_dsecond": 0, "conv_s2d": 0,
-                           "conv_s2d_dweight": 0}
+                           "conv_s2d_dweight": 0, "dead_leaves_composite": 0}
 # launches per AlignLite pretraining step: the synthesis' resample; the three
 # cost volumes with both gradients each (target and source features both
 # train); the two backwarps with d_feat (the source features) and d_flow (the
@@ -498,7 +520,8 @@ LAUNCHES_PER_PRETRAIN_STEP = {"resample": 1, "warp": 2, "correlation": 3,
                               "merge": 0, "warp_dfeat": 2, "warp_dflow": 2,
                               "merge_backward": 0, "correlation_dfirst": 3,
                               "correlation_dsecond": 3, "conv_s2d": 0,
-                              "conv_s2d_dweight": 0}
+                              "conv_s2d_dweight": 0,
+                              "dead_leaves_composite": 0}
 # launches per default_synthetic step with train_alignment=True: the frozen
 # step's, and the backward now runs through the flow (the 512-channel warp's
 # d_flow) and the aligner (its two backwarps and three cost volumes)
@@ -506,7 +529,8 @@ LAUNCHES_PER_UNFROZEN_STEP = {"resample": 1, "warp": 3, "correlation": 3,
                               "merge": 1, "warp_dfeat": 3, "warp_dflow": 3,
                               "merge_backward": 1, "correlation_dfirst": 3,
                               "correlation_dsecond": 3, "conv_s2d": 0,
-                              "conv_s2d_dweight": 0}
+                              "conv_s2d_dweight": 0,
+                              "dead_leaves_composite": 0}
 # launches per default_synthetic step with the s2d decoder and
 # DBSR_FINE_PATCH_S2D=1: the frozen step's, and the decoder's 8 post-shuffle
 # 3x3 convs launch the s2d conv in the forward and again as d_input (their
@@ -570,7 +594,8 @@ LAUNCHES_PER_PWC_PRETRAIN_STEP = {"resample": 1, "warp": 4, "correlation": 5,
                                   "merge_backward": 0,
                                   "correlation_dfirst": 5,
                                   "correlation_dsecond": 5, "conv_s2d": 0,
-                                  "conv_s2d_dweight": 0}
+                                  "conv_s2d_dweight": 0,
+                                  "dead_leaves_composite": 0}
 # per default_synthetic step with a frozen PWC-Net: the forward's, the
 # 512-channel warp's d_feat and the merge backward
 LAUNCHES_PER_PWC_FROZEN_STEP = dict(LAUNCHES_PER_TRAIN_STEP, warp=5,
@@ -668,6 +693,18 @@ DWEIGHT_ODD = ((2, 7, 11, 3, 5), (1, 5, 17, 5, 33), (2, 9, 13, 7, 7),
                (1, 6, 40, 33, 32), (3, 4, 16, 32, 32), (1, 1, 1, 32, 32),
                (2, 12, 24, 16, 48), (1, 3, 70, 64, 8))
 DWEIGHT_RTOL = 1e-5
+# 15e, the dead-leaves composite: (n, H, W, L) of a chunk of the training
+# pool, then odd shapes (H, W not multiples of the 16x16 tile); a round of
+# DEAD_LEAVES_POOL images; 38 float32 operations a pixel a leaf (2
+# subtractions, 4 + 4 for the rotation, 5 for d, 4 for cover, 6 for shade,
+# 1 for keep, 12 for the blend), none of which fuses into an FMA: its
+# bound is at FP32_OPS_PER_S
+DEAD_LEAVES_CHUNK = (32, 432, 432, 300)
+DEAD_LEAVES_ODD = ((3, 13, 21, 1), (2, 37, 50, 5), (2, 19, 70, 300))
+DEAD_LEAVES_POOL, DEAD_LEAVES_OPS = 128, 38
+# a procedural pool renders its dead leaves in chunks of POOL_CHUNK images
+# (ProceduralImagePool's), one launch of the composite a chunk, once a round
+POOL_CHUNK = 32
 # phase 16, the training data beyond dead leaves: a mixed pool of 128
 # sources at 432^2 in two chunks of 64; each generator's card rendering of
 # GEN_CHECK_N images against the CPU's from the same draws (float image
@@ -706,7 +743,8 @@ LAUNCHES_PER_CONV_FLOW_STEP = {"resample": 1, "warp": 1, "correlation": 0,
                                "merge_backward": 1, "correlation_dfirst": 0,
                                "correlation_dsecond": 0,
                                "conv_s2d": 2 * LAUNCHES_S2D_PER_FORWARD,
-                               "conv_s2d_dweight": LAUNCHES_S2D_PER_FORWARD}
+                               "conv_s2d_dweight": LAUNCHES_S2D_PER_FORWARD,
+                               "dead_leaves_composite": 0}
 
 
 def log(*a):
@@ -1841,6 +1879,7 @@ def _counters():
     from dbsr_tpu_torch.ops.correlation import (correlation_dfirst,
                                                 correlation_dsecond,
                                                 cost_volume)
+    from dbsr_tpu_torch.ops.dead_leaves import dead_leaves_composite
     from dbsr_tpu_torch.ops.merge import fused_softmax_merge, merge_backward
     from dbsr_tpu_torch.ops.resample import affine_resample
     from dbsr_tpu_torch.ops.warp import warp_dfeat, warp_dflow, warp_feat
@@ -1850,7 +1889,14 @@ def _counters():
             "merge_backward": merge_backward,
             "correlation_dfirst": correlation_dfirst,
             "correlation_dsecond": correlation_dsecond,
-            "conv_s2d": conv3x3_s2d, "conv_s2d_dweight": conv3x3_s2d_dweight}
+            "conv_s2d": conv3x3_s2d, "conv_s2d_dweight": conv3x3_s2d_dweight,
+            "dead_leaves_composite": dead_leaves_composite}
+
+
+def pool_round_launches(pool_size):
+    """The dead-leaves composite's launches for one round of a dead-leaves
+    pool of ``pool_size`` images: one a chunk."""
+    return -(-pool_size // POOL_CHUNK)
 
 
 def reset_counts():
@@ -1862,13 +1908,26 @@ def read_counts():
     return {k: w.launches for k, w in _counters().items()}
 
 
-def check_counts(what, counts, steps, per_step=None):
+def check_counts(what, counts, steps, per_step=None, renders=0):
+    """``counts`` must be ``steps`` times ``per_step`` and, beside them,
+    ``renders`` launches of the dead-leaves composite (the pool rounds
+    rendered in the same window, ``pool_round_launches`` each)."""
     per_step = per_step or LAUNCHES_PER_TRAIN_STEP
     want = {k: v * steps for k, v in per_step.items()}
-    log(f"launches over {what} ({steps} train steps): {counts}")
+    want["dead_leaves_composite"] += renders
+    log(f"launches over {what} ({steps} train steps, {renders} launches of "
+        f"pool renders): {counts}")
     if counts != want:
         raise AssertionError(f"{what}: launches {counts}, expected {want} "
-                             f"({per_step} per train step)")
+                             f"({per_step} per train step, {renders} of "
+                             f"pool renders)")
+
+
+def per_step_of(counts, steps, renders=0):
+    """The launches a step of a window of ``steps`` steps that also
+    rendered ``renders`` (checked by ``check_counts``)."""
+    return {k: (v - renders * (k == "dead_leaves_composite")) // steps
+            for k, v in counts.items()}
 
 
 def card_vs_cpu(what, out, prefix=None, each=True):
@@ -2235,13 +2294,15 @@ def pretrain_grad_phase(dev, pwc=False):
 
 
 def entry_phase(module, config, kwargs, epochs_list, per_step_want,
-                net_name):
+                net_name, round_launches=0):
     """Drive ``run_training(module, config, ...)`` once for each entry of
     ``epochs_list`` (each run resumes from the one before), the launch
     counters reset just before each run and read just after: each kernel
-    must have launched exactly ``per_step_want`` times per train step.
-    Returns the launches per step, the logged running stats by name, the
-    printed text and the checkpoint headers by epoch."""
+    must have launched exactly ``per_step_want`` times per train step, and
+    the dead-leaves composite besides ``round_launches`` times an epoch
+    (the train pool's round; no val pass runs). Returns the launches per
+    step (the renders apart), the logged running stats by name, the printed
+    text and the checkpoint headers by epoch."""
     from dbsr_tpu_torch.run_training import run_training
     from dbsr_tpu_torch.training.checkpoint import (list_checkpoints,
                                                     read_header)
@@ -2263,9 +2324,10 @@ def entry_phase(module, config, kwargs, epochs_list, per_step_want,
         for line in text.splitlines():
             log(f"  | {line}")
         ran = (epochs - done) * steps
+        renders = (epochs - done) * round_launches
         check_counts(f"run_training {module} {config} epochs={epochs}",
-                     counts, ran, per_step_want)
-        per_step = {k: v // ran for k, v in counts.items()}
+                     counts, ran, per_step_want, renders)
+        per_step = per_step_of(counts, ran, renders)
         if state.step != epochs * steps:
             raise AssertionError(f"step {state.step} after {epochs} epochs")
         if "Training crashed" in text or "ivergence" in text:
@@ -2304,7 +2366,7 @@ def training_entry_phase():
         f"full width, B={TRAIN_B}, N={TRAIN_N}, 384^2 crops")
     per_step, logged, _, _ = entry_phase(
         "dbsr", "default_synthetic", kwargs, (1, 2), LAUNCHES_PER_TRAIN_STEP,
-        "dbsr_synthetic")
+        "dbsr_synthetic", pool_round_launches(kwargs["pool_size"]))
     return per_step, logged["Loss/total"]
 
 
@@ -2345,7 +2407,8 @@ def pretrain_entry_phase(dev):
         f"epochs); full width, B={TRAIN_B}, N={TRAIN_N}, 384^2 crops")
     per_step, logged, _, headers = entry_phase(
         "align_lite", "pretrain_synthetic", dict(PRETRAIN_SETTINGS), (1, 2),
-        LAUNCHES_PER_PRETRAIN_STEP, "align_lite")
+        LAUNCHES_PER_PRETRAIN_STEP, "align_lite",
+        pool_round_launches(PRETRAIN_SETTINGS["pool_size"]))
     epe = {e: h["stats"]["train"]["Stat/epe"] for e, h in headers.items()}
     acc = {e: h["stats"]["train"]["Stat/acc_0.5px"]
            for e, h in headers.items()}
@@ -2577,7 +2640,8 @@ def closing_phase(dev):
                 raise AssertionError("a masked workspace resumed unmasked")
             shutil.rmtree(os.path.join(workspace, "dbsr"))
         per_step, logged, texts, headers = entry_phase(
-            "dbsr", "default_synthetic", kwargs, (1,), want, "dbsr_synthetic")
+            "dbsr", "default_synthetic", kwargs, (1,), want, "dbsr_synthetic",
+            pool_round_launches(kwargs["pool_size"]))
         if (f"using pretrained flow weights: {flow_ckpt} (flow_net=lite, "
                 f"train_alignment={bool(extra)})") not in texts[0] \
                 or "grafted pretrained flow weights" not in texts[0]:
@@ -2726,7 +2790,7 @@ def s2d_phase(dev, requests):
                       pwc_checkpoint=ALIGN_LITE, fused_s2d_decoder=True)
         per_step, logged, _, headers = entry_phase(
             "dbsr", "default_synthetic", kwargs, (1,), LAUNCHES_PER_S2D_STEP,
-            "dbsr_synthetic")
+            "dbsr_synthetic", pool_round_launches(kwargs["pool_size"]))
         if not headers[1]["net_spec"]["kwargs"]["fused_s2d_decoder"]:
             raise AssertionError(f"header: {headers[1]['net_spec']}")
         out["launches_per_step"] = per_step
@@ -2910,10 +2974,13 @@ def eval_phase(workdir, train_workspace):
     log(f"generate_synthetic_burst_val {' '.join(argv[:-2])}: {gen_s:.2f} s "
         f"({gen_s * 1e3 / n_bursts:.1f} ms per burst); launches "
         f"{gen_launches}; {buf.getvalue().splitlines()[-1]}")
-    want = {k: (n_bursts if k == "resample" else 0) for k in gen_launches}
+    want = {k: 0 for k in gen_launches}
+    want.update(resample=n_bursts,
+                dead_leaves_composite=pool_round_launches(EVAL_PROCEDURAL))
     if gen_launches != want:
         raise AssertionError(f"generator: launches {gen_launches}, expected "
-                             f"{want} (one strict resample per burst)")
+                             f"{want} (one strict resample per burst, one "
+                             f"composite a chunk of the source pool)")
     ds = SyntheticBurstVal(root)
     burst, gt, meta = ds[n_bursts - 1]
     if (len(ds) != n_bursts or burst.shape != (N, HW, HW, 4)
@@ -3099,7 +3166,8 @@ def pwc_pretrain_entry_phase():
         f"N={TRAIN_N}, 384^2 crops")
     per_step, logged, _, headers = entry_phase(
         "pwcnet", "pretrain_synthetic", dict(PWC_PRETRAIN_SETTINGS), (1, 2),
-        LAUNCHES_PER_PWC_PRETRAIN_STEP, "pwcnet_synth")
+        LAUNCHES_PER_PWC_PRETRAIN_STEP, "pwcnet_synth",
+        pool_round_launches(PWC_PRETRAIN_SETTINGS["pool_size"]))
     if headers[2]["net_spec"]["cls"] != "BurstFlowNet":
         raise AssertionError(f"checkpoint header: {headers[2]['net_spec']}")
     epe = {e: h["stats"]["train"]["Stat/epe"] for e, h in headers.items()}
@@ -3132,7 +3200,8 @@ def pwc_default_synthetic_phase(dev, workdir):
              "WARNING: no pretrained flow checkpoint found")):
         os.environ["DBSR_TPU_WORKSPACE_DIR"] = ws
         per_step, logged, texts, headers = entry_phase(
-            "dbsr", "default_synthetic", kwargs, (1,), want, "dbsr_synthetic")
+            "dbsr", "default_synthetic", kwargs, (1,), want, "dbsr_synthetic",
+            pool_round_launches(kwargs["pool_size"]))
         spec = headers[1]["net_spec"]["kwargs"]
         if said not in texts[0] or spec["flow_net"] != "pwc" \
                 or spec["train_alignment"] != (name == "fallback"):
@@ -4579,7 +4648,7 @@ def bf16_training_phase(dev, workdir):
         os.environ["DBSR_TPU_WORKSPACE_DIR"] = ws
         per_step, logged, _, headers = entry_phase(
             "dbsr", "default_synthetic", dict(kw, **extra), (1,), want,
-            "dbsr_synthetic")
+            "dbsr_synthetic", pool_round_launches(kw["pool_size"]))
         spec = headers[1]["net_spec"]["kwargs"]
         if spec["dtype"] != {"__dtype__": "bfloat16"} \
                 or not spec["fused_s2d_decoder"]:
@@ -4808,6 +4877,115 @@ def s2d_dweight_phase(dev, g):
     return e
 
 
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def dead_leaves_phase(dev):
+    """Phase 15e: the dead-leaves composite kernel
+    (``dead_leaves_composite``) against its plain version on the card at a
+    chunk of the training pool and at odd shapes, the same bits (as int32)
+    and the same bits twice; timed at the chunk beside its bound and the
+    plain version; then a ``ProceduralImagePool`` round of 128 images at
+    432^2: its launches (one a chunk of 32), its uint8 pool against the
+    same round rendered through the plain version, both rounds' wall time
+    (host clock to a synchronize, the draws, texture, blur and store
+    included). Returns the kernel's entry of the kernels line, whose path
+    is that round (``pool_round_128``), and every kernel's launches on it."""
+    from dbsr_tpu_torch.data import procedural
+    from dbsr_tpu_torch.ops.dead_leaves import (dead_leaves_composite,
+                                                dead_leaves_composite_plain)
+
+    rows = []
+    for seed, shape in enumerate((DEAD_LEAVES_CHUNK,) + DEAD_LEAVES_ODD):
+        n, h, w, L = shape
+        draws = procedural.concat_draws([procedural.dead_leaves_draws(
+            procedural.make_generator(dev, 15, seed, i), 1, num_leaves=L)
+            for i in range(n)])
+        bg, table = procedural.dead_leaves_table(draws, (h, w))
+        reset_counts()
+        got = dead_leaves_composite(bg, table, (h, w))
+        again = dead_leaves_composite(bg, table, (h, w))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if counts != {k: 2 * (k == "dead_leaves_composite") for k in counts}:
+            raise AssertionError(f"15e {shape}: launches {counts} for 2 "
+                                 "calls")
+        plain = dead_leaves_composite_plain(bg, table, (h, w))
+        row = dict(shape=list(shape),
+                   same_bits_as_plain=_bits_equal(got, plain),
+                   same_bits_twice=_bits_equal(got, again),
+                   max_abs_err=float((got - plain).abs().max()))
+        log(f"  dead leaves {shape}: the plain version's bits "
+            f"{row['same_bits_as_plain']} (max |diff| "
+            f"{row['max_abs_err']:.3e}), the same bits twice "
+            f"{row['same_bits_twice']}")
+        if not (row["same_bits_as_plain"] and row["same_bits_twice"]):
+            raise AssertionError(f"15e {shape}: {row}")
+        if shape == DEAD_LEAVES_CHUNK:
+            nbytes = (got.numel() + table.numel() + bg.numel()) * 4
+            bound_ms, by = bound(nbytes, DEAD_LEAVES_OPS * n * h * w * L,
+                                 FP32_OPS_PER_S)
+            row.update(timings(
+                "dead_leaves_composite",
+                lambda: dead_leaves_composite(bg, table, (h, w)),
+                lambda: dead_leaves_composite_plain(bg, table, (h, w))))
+            row.update(bound_ms=bound_ms, bound_by=by)
+            log_row("dead_leaves_composite", row)
+        rows.append(row)
+        del draws, bg, table, got, again, plain
+        torch.cuda.empty_cache()
+
+    # a pool round through the kernel and through the plain version (the
+    # render's composite swapped for it), each warmed up on round 0 first
+    def round_s(pool, r):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pool.refresh(r)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    hw = DEAD_LEAVES_CHUNK[1:3]
+    pool = procedural.ProceduralImagePool(DEAD_LEAVES_POOL, hw, seed=15,
+                                          device=dev)
+    round_s(pool, 0)
+    reset_counts()
+    got, kernel_s = round_s(pool, 1)
+    counts = read_counts()
+    launches = counts["dead_leaves_composite"]
+    plain_pool = procedural.ProceduralImagePool(DEAD_LEAVES_POOL, hw,
+                                                seed=15, device=dev)
+    procedural.dead_leaves_composite = dead_leaves_composite_plain
+    try:
+        round_s(plain_pool, 0)
+        want, plain_s = round_s(plain_pool, 1)
+    finally:
+        procedural.dead_leaves_composite = dead_leaves_composite
+    pool_round = dict(images=DEAD_LEAVES_POOL, hw=list(hw),
+                      launches=launches, same_pool=bool(torch.equal(got,
+                                                                    want)),
+                      kernel_round_s=kernel_s, plain_round_s=plain_s)
+    log(f"  a pool round of {DEAD_LEAVES_POOL} at {hw}: {launches} launches, "
+        f"the plain version's uint8 pool {pool_round['same_pool']}; "
+        f"{kernel_s * 1e3:.1f} ms a round (the plain version's "
+        f"{plain_s * 1e3:.1f})")
+    want = {k: 0 for k in counts}
+    want["dead_leaves_composite"] = pool_round_launches(DEAD_LEAVES_POOL)
+    if counts != want or not pool_round["same_pool"]:
+        raise AssertionError(f"15e: the pool round {pool_round}, launches "
+                             f"{counts}, expected {want}")
+    del pool, plain_pool, got, want
+    torch.cuda.empty_cache()
+    e = _entry("dead_leaves_composite",
+               "dbsr_tpu_torch/kernels/csrc/dead_leaves.cu",
+               "none: dbsr_tpu/data/procedural.py:109 (dead_leaves_image's "
+               "leaf loop) leaves it to XLA", rows[:1], rows[1:],
+               path="pool_round_128")
+    e["pool_round"] = pool_round
+    return e, counts
+
+
 # phase 16: training data beyond dead leaves
 
 
@@ -4955,16 +5133,22 @@ def _write_pngs(root):
 def mixed_training_phase(dev, workdir):
     """Phase 16b: ``run_training dbsr default_synthetic --set mix=mixed``,
     bf16 by default, B=16, the banked AlignLite frozen, a pool of 128, one
-    epoch of 5 steps, exact launches per step (15b's frozen bf16 step's);
+    epoch of 5 steps, exact launches per step (15b's frozen bf16 step's)
+    and one of the dead-leaves composite a dead-leaves chunk of the round;
     then its step's time, samples/s, peak memory and busy share on a fixed
     batch (step_phase)."""
+    from dbsr_tpu_torch.data.procedural import ProceduralImagePool
+
     os.environ["DBSR_TPU_WORKSPACE_DIR"] = os.path.join(workdir, "mixed")
     kw = dict(steps_per_epoch=BF16_STEPS, pool_size=MIXED_POOL,
               print_interval=BF16_STEPS, pwc_checkpoint=ALIGN_LITE,
               mix="mixed")
+    # the dead-leaves chunks of the round's plan alone launch the composite
+    dead_chunks = ProceduralImagePool(MIXED_POOL, (1, 1), device="cpu",
+                                      mix="mixed").plan(0).count("dead_leaves")
     per_step, logged, texts, headers = entry_phase(
         "dbsr", "default_synthetic", kw, (1,), LAUNCHES_PER_BF16_STEP,
-        "dbsr_synthetic")
+        "dbsr_synthetic", dead_chunks)
     if "mix=mixed" not in texts[0] or headers[1]["net_spec"]["kwargs"][
             "dtype"] != {"__dtype__": "bfloat16"}:
         raise AssertionError("default_synthetic mix=mixed did not train the "
@@ -5237,6 +5421,7 @@ DAEMON_TOL = CARD_VS_CPU_TOL  # an HTTP response vs a direct Predictor call
 HEALTHZ_KEYS = {"status", "input_shape", "compile_seconds", "flops_per_batch"}
 CLI_TIMEOUT_S = 180  # run_serving's start (load, warm-up) and exit
 SERVICE_STEPS, TRACE_STEPS = BF16_STEPS, 10  # steps an epoch (17c-d; 17e)
+SERVICE_POOL = 128   # 17's pools, one round an epoch
 
 
 def _http(port, path, body=None):
@@ -5633,8 +5818,8 @@ def _service_trainer(dev, steps, **kwargs):
 
     with contextlib.redirect_stdout(io.StringIO()):
         trainer, _ = make_trainer(_settings(
-            steps_per_epoch=steps, pool_size=128, print_interval=steps,
-            pwc_checkpoint=ALIGN_LITE, **kwargs), dev)
+            steps_per_epoch=steps, pool_size=SERVICE_POOL,
+            print_interval=steps, pwc_checkpoint=ALIGN_LITE, **kwargs), dev)
     return trainer
 
 
@@ -5691,9 +5876,10 @@ def resume_phase(dev, workdir):
 
     os.environ["DBSR_TPU_WORKSPACE_DIR"] = os.path.join(workdir, "svc_full")
     entry_phase("dbsr", "default_synthetic",
-                dict(steps_per_epoch=SERVICE_STEPS, pool_size=128,
+                dict(steps_per_epoch=SERVICE_STEPS, pool_size=SERVICE_POOL,
                      print_interval=SERVICE_STEPS, pwc_checkpoint=ALIGN_LITE),
-                (1,), LAUNCHES_PER_BF16_STEP, "dbsr_synthetic")
+                (1,), LAUNCHES_PER_BF16_STEP, "dbsr_synthetic",
+                pool_round_launches(SERVICE_POOL))
     src = resolve_checkpoint(os.path.join(workdir, "svc_full", "dbsr",
                                           "default_synthetic"),
                              "dbsr_synthetic", 1)
@@ -5729,9 +5915,10 @@ def resume_phase(dev, workdir):
         state = trainer.train(2)
     torch.cuda.synchronize()
     counts = read_counts()
+    renders = pool_round_launches(SERVICE_POOL)
     check_counts("17c, the resumed epoch (epoch 2)", counts, SERVICE_STEPS,
-                 LAUNCHES_PER_BF16_STEP)
-    per_step = {k: v // SERVICE_STEPS for k, v in counts.items()}
+                 LAUNCHES_PER_BF16_STEP, renders)
+    per_step = per_step_of(counts, SERVICE_STEPS, renders)
     last_lr = state.optimizer.param_groups[0]["lr"]
     ep2 = resolve_checkpoint(os.path.join(ws, "dbsr", "default_synthetic"),
                              "dbsr_synthetic")
@@ -5808,9 +5995,10 @@ def async_phase(dev, workdir):
         state = trainer.train(2)
     torch.cuda.synchronize()
     counts = read_counts()
+    renders = 2 * pool_round_launches(SERVICE_POOL)
     check_counts("17d, two epochs with the async writer", counts,
-                 2 * SERVICE_STEPS, LAUNCHES_PER_BF16_STEP)
-    per_step = {k: v // (2 * SERVICE_STEPS) for k, v in counts.items()}
+                 2 * SERVICE_STEPS, LAUNCHES_PER_BF16_STEP, renders)
+    per_step = per_step_of(counts, 2 * SERVICE_STEPS, renders)
     equal = {}
     for e in (1, 2):
         name = f"dbsr_synthetic_ep{e:04d}.ckpt"
@@ -5872,7 +6060,7 @@ def trace_phase(dev, workdir):
     finally:
         os.environ.pop("DBSR_TPU_TRACE_DIR")
     check_counts("17e, a traced epoch", read_counts(), TRACE_STEPS,
-                 LAUNCHES_PER_BF16_STEP)
+                 LAUNCHES_PER_BF16_STEP, pool_round_launches(SERVICE_POOL))
     files = sorted(os.listdir(trace_dir))
     if len(files) != 1 or not files[0].startswith("trace_steps5-9_"):
         raise AssertionError(f"17e: trace files {files}")
@@ -6112,9 +6300,11 @@ def dp_phase(dev, workdir, world=DP_RANKS, backend="gloo"):
                       for a, b in zip(losses2, losses1)):
         raise AssertionError(f"18a bf16: losses {losses2} vs {losses1}; "
                              f"unequal tensors {unequal[:5]}")
+    # each rank renders its pool of one node batch in the counted window
+    renders = pool_round_launches(TRAIN_B)
     for r, res in enumerate(ranks):
         check_counts(f"18a rank {r}", res["counts"], DP_STEPS,
-                     LAUNCHES_PER_BF16_STEP)
+                     LAUNCHES_PER_BF16_STEP, renders)
     step_ms = [statistics.median(r["bf16_step_ms"][1:]) for r in ranks]
     one_ms = statistics.median(ms1[1:])
     log(f"18a bf16 step, ms a step a rank (CUDA events, steps 2-{DP_STEPS}, "
@@ -6144,8 +6334,8 @@ def dp_phase(dev, workdir, world=DP_RANKS, backend="gloo"):
         r["fs_ms"] for r in ranks], dense_ms=dense_ms)
     del net
     torch.cuda.empty_cache()
-    paths = {"dp_step_bf16_rank": {k: v // DP_STEPS for k, v in
-                                   ranks[0]["counts"].items()},
+    paths = {"dp_step_bf16_rank": per_step_of(ranks[0]["counts"], DP_STEPS,
+                                              renders),
              "frame_sharded_forward_rank": ranks[0]["fs_counts"]}
     return out, paths
 
@@ -6841,6 +7031,8 @@ def main():
     torch.cuda.empty_cache()
     log("phase 15d, the s2d weight gradient kernel (bf16):")
     s2d_dweight = s2d_dweight_phase(dev, g15)
+    log("phase 15e, the dead-leaves composite kernel (float32):")
+    dead_leaves, pool_round_counts = dead_leaves_phase(dev)
     # 16d likewise: the resample kernel through warp_affine
     g16 = torch.Generator(device=dev)
     g16.manual_seed(16)
@@ -6892,7 +7084,7 @@ def main():
     add_pwc_rows(new, pwc_backward_rows(dev, g), "pwc_pretrain_step")
     results += new
     add_bf16_training_rows(results, bf16_backward)
-    results.append(s2d_dweight)
+    results += [s2d_dweight, dead_leaves]
     next(e for e in results if e["name"] == "resample")[
         "other_shapes"].append(warp_affine_row)
     torch.cuda.empty_cache()
@@ -7011,7 +7203,8 @@ def main():
                  service_paths["resume_params_only_step_bf16"],
              "async_ckpt_step_bf16": service_paths["async_ckpt_step_bf16"],
              "dp_step_bf16_rank": parallel_paths["dp_step_bf16_rank"],
-             "conv_flow_step_bf16": completion_paths["conv_flow_step_bf16"]}
+             "conv_flow_step_bf16": completion_paths["conv_flow_step_bf16"],
+             "pool_round_128": pool_round_counts}
     serving_launches = {"serving_3_requests": launches,
                         "serving_s2d_3_requests": s2d.pop("launches"),
                         "serving_r3d_3_requests":

@@ -5,7 +5,8 @@ generation draws from (port of ``dbsr_tpu/data/procedural.py``).
 
 Per image: a 4-colour palette and background; ``num_leaves`` anti-aliased
 ellipses painted in order (power-law radii, palette colours with jitter and
-a shading gradient); a multi-octave noise texture; a global illumination
+a shading gradient; ``ops.dead_leaves`` paints them, from the leaf table
+``dead_leaves_table`` computes); a multi-octave noise texture; a global illumination
 ramp; a random 5-tap Gaussian blur; clip to [0, 1]. Images are rendered as
 a batch on the device. The random draws (``dead_leaves_draws``) are
 separate from the rendering (``dead_leaves_from_draws``), so a test can
@@ -30,6 +31,7 @@ import numpy as np
 import torch
 
 from dbsr_tpu_torch.ops.camera import normal, uniform
+from dbsr_tpu_torch.ops.dead_leaves import dead_leaves_composite
 from dbsr_tpu_torch.ops.interp import resize_bilinear
 
 OCTAVE_BASES = (7, 14, 28, 56, 112)
@@ -38,7 +40,7 @@ OCTAVE_BASES = (7, 14, 28, 56, 112)
 PALETTE_SIZE = 4
 SIGMA_RANGE = (0.2, 1.1)
 RMIN, RMAX_FRAC = 4.0, 0.45
-COLOR_JITTER, GRAD_AMP, TEXTURE_AMP, ILLUM_AMP = 0.12, 0.35, 0.10, 0.15
+COLOR_JITTER, TEXTURE_AMP, ILLUM_AMP = 0.12, 0.10, 0.15
 # the mixed corpus' generators (the JAX package's defaults)
 NUM_SHAPES, EDGES_SIGMA = 120, (0.15, 0.7)
 NUM_COMPONENTS, GRATINGS_SIGMA = 3, (0.15, 0.5)
@@ -98,47 +100,43 @@ def dead_leaves_draws(generator: torch.Generator, n: int,
     }
 
 
+def dead_leaves_table(draws: Dict[str, object], hw: Tuple[int, int]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backgrounds ``[n, 3]`` and the leaf table ``[n, L, 11]``
+    (columns ``ops.dead_leaves.LEAF_PARAMS``) of dead-leaves images from
+    their draws: every leaf's parameters in one pass, by the elementwise
+    expressions of the JAX package's leaf loop."""
+    H, W = hw
+    palette = draws["palette"]
+    n, palette_size = palette.shape[:2]
+    bg = (palette[:, 0] + COLOR_JITTER * draws["bg_normal"]).clamp(0.0, 1.0)
+    rmax = RMAX_FRAC * min(H, W)
+    ratio2 = (RMIN / rmax) ** 2
+    u = draws["leaf_u"]
+    r = RMIN * torch.rsqrt(1.0 - u[..., 0] * (1.0 - ratio2))
+    cx = u[..., 1] * (W - 1)
+    cy = u[..., 2] * (H - 1)
+    theta = u[..., 3] * (2.0 * math.pi)
+    a = torch.exp((u[..., 4] - 0.5) * 0.81)
+    pj = (u[..., 5] * palette_size).to(torch.int64)
+    rows = torch.arange(n, device=palette.device)[:, None]
+    color = (palette[rows, pj] + COLOR_JITTER
+             * draws["leaf_color_normal"]).clamp(0.0, 1.0)
+    table = torch.cat([torch.stack([r, cx, cy, torch.cos(theta),
+                                    torch.sin(theta), a], dim=-1),
+                       color, draws["leaf_grad"]], dim=-1)
+    return bg, table
+
+
 def dead_leaves_from_draws(draws: Dict[str, object],
                            hw: Tuple[int, int]) -> torch.Tensor:
     """Render ``[n, H, W, 3]`` float32 images in [0, 1] from their draws."""
     H, W = hw
-    palette = draws["palette"]
-    n, palette_size = palette.shape[:2]
-    dev = palette.device
-    bg = (palette[:, 0] + COLOR_JITTER * draws["bg_normal"]).clamp(0.0, 1.0)
-    img = bg[:, None, None, :].expand(n, H, W, 3)
-
-    ys = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
-    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
-    rmax = RMAX_FRAC * min(H, W)
-    ratio2 = (RMIN / rmax) ** 2
-    rows = torch.arange(n, device=dev)
+    img = dead_leaves_composite(*dead_leaves_table(draws, hw), hw)
+    ys, xs = _grid(hw, img.device)
 
     def col(v):  # per-image scalar [n] -> [n, 1, 1]
         return v[:, None, None]
-
-    for i in range(draws["leaf_u"].shape[1]):
-        u = draws["leaf_u"][:, i]
-        r = RMIN * torch.rsqrt(1.0 - u[:, 0] * (1.0 - ratio2))
-        cx = u[:, 1] * (W - 1)
-        cy = u[:, 2] * (H - 1)
-        theta = u[:, 3] * (2.0 * math.pi)
-        a = torch.exp((u[:, 4] - 0.5) * 0.81)
-        pj = (u[:, 5] * palette_size).to(torch.int64)
-        color = (palette[rows, pj] + COLOR_JITTER
-                 * draws["leaf_color_normal"][:, i]).clamp(0.0, 1.0)
-        gx, gy = draws["leaf_grad"][:, i, 0], draws["leaf_grad"][:, i, 1]
-
-        ct, st = col(torch.cos(theta)), col(torch.sin(theta))
-        dx = xs - col(cx)
-        dy = ys - col(cy)
-        xr = (ct * dx + st * dy) * col(a)
-        yr = (-st * dx + ct * dy) / col(a)
-        d = torch.sqrt(xr * xr + yr * yr + 1e-8)
-        cover = (0.5 + (col(r) - d)).clamp(0.0, 1.0)
-        shade = 1.0 + GRAD_AMP * (col(gx) * xr + col(gy) * yr) / col(r)
-        c = color[:, None, None, :] * shade[..., None]
-        img = img * (1.0 - cover[..., None]) + c * cover[..., None]
 
     img = img + TEXTURE_AMP * (octave_noise(draws["octaves"], hw) - 0.5)
 

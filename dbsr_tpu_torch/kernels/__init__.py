@@ -28,7 +28,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 SOURCES = ("warp", "correlation", "merge", "resample", "warp_bwd", "merge_bwd",
-           "correlation_bwd", "conv_s2d", "conv_s2d_dweight")
+           "correlation_bwd", "conv_s2d", "conv_s2d_dweight",
+           "dead_leaves")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
